@@ -1,0 +1,202 @@
+"""Build and bind the hand-written CUDA kernels under falkordb_tpu_torch/csrc.
+
+At first use each csrc/*.cu is compiled for sm_90a by its own nvcc process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded through ctypes.  The build lands in
+falkordb_tpu_torch/_build (listed in .gitignore) and is redone whenever a
+source is newer than the library.  Nothing is built at import: this module
+only names the kernels.
+
+Each kernel's wrapper picks its path from the device of its tensors
+(`on_cuda`): CPU tensors go to the plain PyTorch version beside the
+wrapper, CUDA tensors to the kernel, and anything else raises.  A wrapper
+adds one to its kernel's `launches` each time it launches the kernel, and
+only then, so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libfalkor_kernels.so")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass
+class Kernel:
+    name: str
+    source: str  # the .cu file, relative to the repository root
+    replaces: str  # file:line of the TPU kernel it replaces
+    launches: int = 0
+
+
+KERNELS = {
+    k.name: k for k in (
+        Kernel("expand", "falkordb_tpu_torch/csrc/expand.cu",
+               "falkordb_tpu/sparse/ops.py:393"),
+        Kernel("group_partials", "falkordb_tpu_torch/csrc/group_partials.cu",
+               "falkordb_tpu/runtime/ops.py:1830"),
+        Kernel("topk", "falkordb_tpu_torch/csrc/topk.cu",
+               "falkordb_tpu/runtime/ops.py:2255"),
+        Kernel("bfs_levels", "falkordb_tpu_torch/csrc/bfs_levels.cu",
+               "falkordb_tpu/algos/bfs.py:22"),
+    )
+}
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def count_launch(name: str) -> None:
+    KERNELS[name].launches += 1
+
+
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    "fk_expand": [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P,
+                  _P, _P, _P],
+    "fk_group_partials": [_P, _P, _P, _I64, _I64, _INT, _P, _P, _P],
+    "fk_topk": [_P, _I64, _INT, _INT, _P, _P, _P, _P, _P, _P],
+    "fk_bfs_levels": [_P, _P, _P, _I64, _I64, _I64, _P, _P,
+                      ctypes.POINTER(ctypes.c_int64), _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's output (ptxas register / shared-memory report)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the "
+                       "CUDA toolkit (set CUDA_HOME)")
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(".cu"))
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(os.path.join(CSRC, f)) > built
+               for f in os.listdir(CSRC))
+
+
+def build() -> float:
+    """Compile every csrc/*.cu (one nvcc each, in parallel) and link them
+    into LIB_PATH.  Returns the seconds it took."""
+    global build_log
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    objdir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
+    os.makedirs(objdir, exist_ok=True)
+    procs = []
+    for src in _sources():
+        obj = os.path.join(objdir, os.path.basename(src)[:-3] + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _obj, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if p.returncode != 0:
+            failed.append(os.path.basename(src))
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    link = subprocess.run([nvcc, "-shared", "-o", tmp,
+                           *(obj for _s, obj, _p in procs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}"
+                           f"{link.stderr}")
+    os.replace(tmp, LIB_PATH)
+    shutil.rmtree(objdir, ignore_errors=True)
+    return time.perf_counter() - t0
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if it is missing or stale."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            dll = ctypes.CDLL(LIB_PATH)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(dll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            dll.fk_error_string.argtypes = [ctypes.c_int]
+            dll.fk_error_string.restype = ctypes.c_char_p
+            _lib = dll
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if rc != 0:
+        msg = lib().fk_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: error {rc} ({msg})")
+
+
+def on_cuda(*tensors) -> bool:
+    """True when the tensors lie on a CUDA device (launch the kernel), False
+    when they lie on the CPU (run the plain version).  Tensors on different
+    devices, or on any other device type, raise."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def check_input(kernel: str, name: str, t: torch.Tensor | None, dtype,
+                n: int | None = None) -> None:
+    """Raise unless `t` is None or a contiguous 1-d tensor of `dtype` (with
+    n elements when n is given): the kernels take nothing else."""
+    if t is None:
+        return
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or (
+            n is not None and t.numel() != n):
+        want = f"{n} " if n is not None else ""
+        raise ValueError(f"{kernel}: {name} must be a contiguous 1-d tensor "
+                         f"of {want}{dtype}, got {t.dtype} {tuple(t.shape)}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
