@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device is an error.
-2. Build: the four hand-written kernels (falkordb_tpu_torch/csrc/*.cu) are
+2. Build: the hand-written kernels (falkordb_tpu_torch/csrc/*.cu) are
    compiled for sm_90a, and the seconds it took are printed.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main path gives it, timed with CUDA events (median of 7
@@ -15,10 +15,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    where one exists, the one PyTorch call that computes the same function.
 4. Main path: the README demo, then an LDBC SNB SF1-class graph (the
    generator below, a copy of bench_ldbc.py's) loaded with bulk_insert and
-   indexed, and a read mix whose answers are checked against a numpy /
-   scipy oracle over the generated tables and, row for row, against the
-   same database run with device="cpu".  Every kernel must have launched
-   during the main path.
+   indexed, a read mix and an algorithm mix (CALL algo.* over Person /
+   KNOWS) whose answers are checked against a numpy / scipy oracle over the
+   generated tables and against the same database run with device="cpu"
+   (row for row; float scores node by node at the kernels' tolerances),
+   and the host-only procedures once each on a small graph.  Every kernel
+   must have launched during the main path.
 
 The line before the last is a JSON object {"kernels": [...]} and the last
 line {"ok": true, "device": {...}}.
@@ -27,7 +29,10 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -38,8 +43,16 @@ import torch
 
 import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
-from falkordb_tpu_torch.algos.bfs import UNREACHED, bfs_levels, bfs_levels_plain
+from falkordb_tpu_torch.algos.betweenness import (
+    segment_sum_pull, segment_sum_pull_plain,
+)
+from falkordb_tpu_torch.algos.bfs import (
+    UNREACHED, bfs_levels, bfs_levels_plain, bfs_parents, bfs_parents_plain,
+)
 from falkordb_tpu_torch.algos.common import compact_adjacency
+from falkordb_tpu_torch.algos.pagerank import pagerank_plain, pagerank_transposed
+from falkordb_tpu_torch.algos.sssp import sssp_plain, sssp_run
+from falkordb_tpu_torch.algos.wcc import wcc_plain, wcc_run
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.runtime.ops import (
     group_partials, group_partials_plain, topk_smallest, topk_smallest_plain,
@@ -140,6 +153,16 @@ def _knows_matrix(t):
                                  np.concatenate([b, a]))), shape=(P, P))
 
 
+@dataclasses.dataclass
+class Query:
+    name: str
+    cypher: str
+    params: dict
+    check: object  # check(rows) holds the rows against the oracle
+    same: object = None  # same(rows, cpu_rows); None: the rows are equal
+    env: dict | None = None  # environment variables for this query only
+
+
 def ldbc_queries(t):
     """The read mix: [(name, cypher, params, check)], where check(rows)
     holds the rows against the oracle and raises on a mismatch."""
@@ -158,7 +181,7 @@ def ldbc_queries(t):
         for pid_, d in rows:
             assert deg[pid_ - 1000] == d, (pid_, d)
 
-    qs.append(("persons_by_knows_degree",
+    qs.append(Query("persons_by_knows_degree",
                "MATCH (p:Person)-[:KNOWS]-(:Person) "
                "RETURN p.id AS id, count(*) AS deg ORDER BY deg DESC LIMIT 10",
                {}, check_degree))
@@ -166,7 +189,7 @@ def ldbc_queries(t):
     cnt = np.bincount(t["post_creator"], minlength=P)
     order = np.lexsort((pids, -cnt))[:10]
     agg_rows = [[int(pids[i]), int(cnt[i])] for i in order]
-    qs.append(("agg_posts_per_creator",
+    qs.append(Query("agg_posts_per_creator",
                "MATCH (post:Post)-[:HAS_CREATOR]->(c:Person) "
                "RETURN c.id, count(post) AS cnt "
                "ORDER BY cnt DESC, c.id ASC LIMIT 10", {}, _equals(agg_rows)))
@@ -181,7 +204,7 @@ def ldbc_queries(t):
     np.maximum.at(hi, mf, mp)
     member_rows = [[int(t["forum_id"][f]), int(n[f]), float(s[f]),
                     int(lo[f]), int(hi[f])] for f in np.nonzero(n)[0]]
-    qs.append(("forum_member_stats",
+    qs.append(Query("forum_member_stats",
                "MATCH (f:Forum)-[:HAS_MEMBER]->(p:Person) "
                "WITH f, count(p) AS n, sum(p.id) AS s, min(p.id) AS lo, "
                "max(p.id) AS hi RETURN f.id, n, s, lo, hi ORDER BY f.id",
@@ -191,7 +214,7 @@ def ldbc_queries(t):
     dist = shortest_path(A, unweighted=True, indices=[src])[0]
     finite = np.isfinite(dist)
     far = int(np.argmax(np.where(finite, dist, -1)))
-    qs.append(("shortest_path_knows",
+    qs.append(Query("shortest_path_knows",
                "MATCH (a:Person {id: $a}), (b:Person {id: $b}) "
                "MATCH p = shortestPath((a)-[:KNOWS*]-(b)) RETURN length(p)",
                {"a": int(pids[src]), "b": int(pids[far])},
@@ -203,7 +226,7 @@ def ldbc_queries(t):
         [A.indices[A.indptr[f]:A.indptr[f + 1]] for f in friends]
         or [np.zeros(0, np.int32)]))
     fof = np.setdiff1d(fof, np.append(friends, k))
-    qs.append(("ic_fof_count",
+    qs.append(Query("ic_fof_count",
                "MATCH (p:Person {id: $id})-[:KNOWS*2..2]-(fof:Person) "
                "WHERE fof.id <> $id AND NOT (p)-[:KNOWS]-(fof) "
                "RETURN count(DISTINCT fof.id)",
@@ -216,7 +239,7 @@ def ldbc_queries(t):
                 + [(int(pids[a]), int(s_)) for a, s_ in
                    zip(ka[kb == k], ks[kb == k])],
                 key=lambda r: (-r[1], r[0]))
-    qs.append(("is3_friends",
+    qs.append(Query("is3_friends",
                "MATCH (:Person {id: $id})-[kn:KNOWS]-(f:Person) "
                "RETURN f.id, kn.since ORDER BY kn.since DESC, f.id ASC",
                {"id": int(pids[k])}, _equals([list(r) for r in fr])))
@@ -227,6 +250,227 @@ def _equals(want):
     def check(rows):
         assert rows == want, (rows[:5], want[:5])
     return check
+
+
+def _same_map(rtol, atol):
+    """Compare (node id, float) rows of the card and the CPU database as
+    id -> value maps: near-ties may order the rows differently."""
+    def same(rows, cpu_rows):
+        a, b = dict(rows), dict(cpu_rows)
+        assert len(a) == len(rows) and a.keys() == b.keys()
+        keys = sorted(a)
+        np.testing.assert_allclose([a[k] for k in keys],
+                                   [b[k] for k in keys], rtol=rtol, atol=atol)
+    return same
+
+
+def pagerank64(src, dst, n, damping=0.85, tol=1e-4, max_iters=100):
+    """PageRank of the same formula and stopping rule in float64 (the
+    oracle of algo.pageRank)."""
+    outdeg = np.bincount(src, minlength=n).astype(np.float64)
+    inv_out = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1), 0.0)
+    r = np.full(n, 1.0 / n)
+    for it in range(max_iters):
+        acc = np.bincount(dst, weights=(r * inv_out)[src], minlength=n)
+        r_new = (1 - damping) / n + damping * (acc + r[outdeg == 0].sum() / n)
+        err = np.abs(r_new - r).sum()
+        r = r_new
+        if err <= tol:
+            break
+    return r
+
+
+def betweenness64(a, b, n, sources):
+    """Brandes' betweenness of the directed graph a -> b in float64 from
+    the given sources, scaled by n / len(sources) (the oracle of a sampled
+    algo.betweenness).  Level-synchronous: path counts forward, then the
+    dependencies back one level at a time."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix((np.ones(len(a)), (a, b)), shape=(n, n))
+    AT = A.T.tocsr()
+    bc = np.zeros(n)
+    for s in sources:
+        level = np.full(n, -1)
+        level[s] = 0
+        sigma = np.zeros(n)
+        sigma[s] = 1.0
+        frontier, depth = sigma.copy(), 0
+        while True:
+            paths = AT @ frontier  # paths into each node from the frontier
+            fresh = (level < 0) & (paths > 0)
+            if not fresh.any():
+                break
+            depth += 1
+            level[fresh] = depth
+            sigma[fresh] = paths[fresh]
+            frontier = np.where(fresh, paths, 0.0)
+        delta = np.zeros(n)
+        for d in range(depth, 0, -1):
+            succ = level == d
+            share = A @ np.where(succ, (1.0 + delta) / np.where(succ, sigma, 1),
+                                 0.0)
+            prev = level == d - 1
+            delta[prev] += sigma[prev] * share[prev]
+        delta[s] = 0.0
+        bc += delta
+    return bc * (n / len(sources))
+
+
+# float outputs of the algorithm mix, card against the CPU database
+PR_TOL = dict(rtol=1e-5, atol=1e-9)  # both float32; sums in other orders
+BC_TOL = dict(rtol=1e-5, atol=1e-6)  # float32 path counts, dependencies
+
+
+def algo_queries(t):
+    """The algorithm mix over Person / KNOWS (stored a -> b with a < b)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import (
+        breadth_first_order, connected_components, dijkstra, shortest_path,
+    )
+
+    P = len(t["person_id"])
+    pids = t["person_id"]
+    a, b = t["knows_a"], t["knows_b"]
+    D = sp.csr_matrix((t["knows_since"].astype(np.float64), (a, b)),
+                      shape=(P, P))
+    qs = []
+
+    want_pr = pagerank64(a, b, P)
+
+    def check_pagerank(rows):
+        got = dict(rows)
+        assert len(rows) == len(got) == P
+        scores = np.array([got[int(i)] for i in pids])
+        err = float(np.abs(scores - want_pr).max())
+        rel = float((np.abs(scores - want_pr) / want_pr).max())
+        print(f"algo_pagerank: max |score - float64 oracle| = {err:.3e}, "
+              f"relative {rel:.3e} (held to rtol 1e-4)", flush=True)
+        np.testing.assert_allclose(scores, want_pr, rtol=1e-4, atol=0)
+
+    qs.append(Query("algo_pagerank",
+                    "CALL algo.pageRank('Person', 'KNOWS') YIELD node, score "
+                    "RETURN node.id, score", {}, check_pagerank,
+                    same=_same_map(**PR_TOL)))
+
+    _ncomp, lab = connected_components(D, directed=False)
+    least = np.full(lab.max() + 1, P)
+    np.minimum.at(least, lab, np.arange(P))  # the least member's compact id
+    qs.append(Query("algo_wcc",
+                    "CALL algo.WCC({nodeLabels: ['Person'], "
+                    "relationshipTypes: ['KNOWS']}) YIELD node, componentId "
+                    "RETURN node.id, componentId", {},
+                    _equals([[int(pids[i]), int(least[lab[i]])]
+                             for i in range(P)])))
+
+    src = 0
+    dist = dijkstra(D, directed=True, indices=src)
+    reach = np.nonzero(np.isfinite(dist))[0]
+
+    def check_sssp(rows):
+        assert [r[0] for r in rows] == [int(pids[i]) for i in reach]
+        np.testing.assert_allclose([r[1] for r in rows], dist[reach],
+                                   rtol=1e-6)
+
+    qs.append(Query("algo_sssp",
+                    "MATCH (p:Person {id: $id}) CALL algo.SSSP({sourceNode: "
+                    "p, relationshipTypes: ['KNOWS'], weightAttribute: "
+                    "'since'}) YIELD node, distance RETURN node.id, distance",
+                    {"id": int(pids[src])}, check_sssp))
+
+    order = breadth_first_order(D, src, directed=True,
+                                return_predecessors=False)
+    hops = shortest_path(D, unweighted=True, directed=True, indices=src)
+    order = np.sort(order)
+    order = order[np.lexsort((order, hops[order]))]  # by level, then id
+    bfs_rows = [[[int(pids[i]) for i in order]]]
+    bfs_q = ("MATCH (p:Person {id: $id}) CALL algo.BFS(p, null, 'KNOWS') "
+             "YIELD nodes RETURN [x IN nodes | x.id]")
+    qs.append(Query("algo_bfs_native", bfs_q, {"id": int(pids[src])},
+                    _equals(bfs_rows)))
+    qs.append(Query("algo_bfs_kernel", bfs_q, {"id": int(pids[src])},
+                    _equals(bfs_rows), env={"FALKOR_NO_NATIVE_BFS": "1"}))
+
+    bc_sources = np.random.default_rng(7).choice(P, size=8, replace=False)
+    want_bc = betweenness64(a, b, P, bc_sources)
+
+    def check_betweenness(rows):
+        got = dict(rows)
+        assert len(rows) == len(got) == P
+        scores = np.array([got[int(i)] for i in pids])
+        err = float(np.abs(scores - want_bc).max())
+        print(f"algo_betweenness: max |score - float64 Brandes| = {err:.3e} "
+              f"(scores up to {want_bc.max():.6e}; sources {bc_sources.tolist()})",
+              flush=True)
+        assert (want_bc > 0).any()
+        np.testing.assert_allclose(scores, want_bc, **BC_TOL)
+
+    qs.append(Query("algo_betweenness",
+                    "CALL algo.betweenness({nodeLabels: ['Person'], "
+                    "relationshipTypes: ['KNOWS'], samplingSize: 8, "
+                    "samplingSeed: 7}) YIELD node, score "
+                    "RETURN node.id, score", {}, check_betweenness,
+                    same=_same_map(**BC_TOL)))
+    return qs
+
+
+def small_algorithms(db, db_cpu, rng):
+    """algo.labelPropagation, MSF, SPpaths and maxFlow (host numpy in both
+    packages, no kernel) once each on a small generated graph, on the card
+    against the CPU database, with scipy oracles for MSF and maxFlow."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import maximum_flow, minimum_spanning_tree
+
+    n, m = 200, 700
+    u, v = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = u != v
+    pair = np.unique(u[keep] * n + v[keep])  # one edge per ordered pair
+    u, v = pair // n, pair % n
+    w = rng.integers(1, 10, len(u))
+    cap = rng.integers(1, 20, len(u))
+    edges = [[int(x), int(y), int(c), int(d)]
+             for x, y, c, d in zip(u, v, w, cap)]
+    graphs = []
+    for d in (db, db_cpu):
+        g = d.select_graph("small_algos")
+        g.query("UNWIND range(0, $n - 1) AS i CREATE (:S {k: i})", {"n": n})
+        g.query("UNWIND $e AS e MATCH (a:S {k: e[0]}), (b:S {k: e[1]}) "
+                "CREATE (a)-[:L {w: e[2], cap: e[3]}]->(b)", {"e": edges})
+        graphs.append(g)
+    queries = {
+        "cdlp": "CALL algo.labelPropagation({nodeLabels: ['S']}) "
+                "YIELD node, communityId RETURN node.k, communityId",
+        "msf": "CALL algo.MSF({weightAttribute: 'w'}) YIELD edge, weight "
+               "RETURN id(edge), weight",
+        "sppaths": "MATCH (s:S {k: 0}), (t:S {k: 1}) CALL algo.SPpaths("
+                   "{sourceNode: s, targetNode: t, relTypes: ['L'], "
+                   "weightProp: 'w', pathCount: 3, maxLen: 8}) "
+                   "YIELD path, pathWeight "
+                   "RETURN [x IN nodes(path) | x.k], pathWeight",
+        "maxflow": "MATCH (s:S {k: 0}), (t:S {k: 1}) CALL algo.maxFlow(s, t, "
+                   "{capacityAttribute: 'cap'}) YIELD flow RETURN flow",
+    }
+    got = {}
+    for name, q in queries.items():
+        rows, cpu_rows = (g.query(q).result_set for g in graphs)
+        assert rows == cpu_rows and rows, (name, rows[:3], cpu_rows[:3])
+        got[name] = rows
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    o = np.lexsort((w, hi, lo))  # per unordered pair, the cheaper edge first
+    first = np.ones(len(o), dtype=bool)
+    first[1:] = (lo[o][1:] != lo[o][:-1]) | (hi[o][1:] != hi[o][:-1])
+    o = o[first]
+    tri = sp.csr_matrix((w[o].astype(np.float64), (lo[o], hi[o])),
+                        shape=(n, n))
+    want_msf = minimum_spanning_tree(tri).sum()
+    assert sum(r[1] for r in got["msf"]) == want_msf, want_msf
+    capm = sp.csr_matrix((cap.astype(np.int32), (u, v)), shape=(n, n))
+    want_flow = maximum_flow(capm, 0, 1).flow_value
+    assert got["maxflow"] == [[float(want_flow)]], (got["maxflow"], want_flow)
+    print(f"small algorithms: n={n} edges={len(u)} "
+          f"rows={ {k: len(r) for k, r in got.items()} } "
+          f"msf_weight={want_msf} maxflow={want_flow} oracle=ok "
+          f"cpu_rows=equal", flush=True)
 
 
 MOTOGP = [
@@ -252,7 +496,6 @@ def motogp(db):
 def checkpoint_roundtrip():
     """The demo graph through FalkorDB.save and FalkorDB.load onto the
     card: the reloaded graph answers as the original does."""
-    import os
     import shutil
 
     db = FalkorDB()
@@ -303,7 +546,13 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "expand": "exact",
     "group_partials": "counts, integer sums, min, max exact; float64 sums "
                       "rtol 1e-12 atol 1e-9 (atomics add in any order)",
-    "topk": "exact", "bfs_levels": "exact"}
+    "topk": "exact", "bfs_levels": "exact",
+    "pagerank": "same steps; scores rtol 1e-5 atol 1e-9 (float32 sums in "
+                "other orders)",
+    "wcc": "exact", "sssp": "exact, inf as inf",
+    "bc_push_counts": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
+    "bc_pull_deps": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
+    "bfs_parents": "exact"}
 
 
 def _row(name, shape, ms, plain_ms, library_ms, nbytes, err):
@@ -441,6 +690,114 @@ def check_bfs(store, dev):
     return rows
 
 
+def _spmv(csr):
+    """A cuSPARSE SpMV over the CSR's pattern with unit values (the one
+    PyTorch call that sums x[cols] per row): the library yardstick."""
+    nnz = int(csr.nnz)
+    A = torch.sparse_csr_tensor(
+        csr.indptr, csr.cols[:nnz],
+        torch.ones(nnz, dtype=torch.float32, device=csr.device),
+        size=(csr.n_rows, csr.n_rows))
+    x = torch.rand(csr.n_rows, dtype=torch.float32, device=csr.device)
+    return lambda: A @ x
+
+
+def check_pagerank(store, dev):
+    """K5 over the whole compact graph and over Person / KNOWS (what
+    algo.pageRank('Person', 'KNOWS') runs), to the reference's tolerance."""
+    rows = []
+    for what, label, rels in (("whole graph", None, None),
+                              ("Person/KNOWS", "Person", ["KNOWS"])):
+        at = compact_adjacency(store, label, rels, directed=True).at
+        n, nnz = at.n_rows, int(at.nnz)
+        plain = (at.indptr, at.rows, at.cols, at.nnz, n)
+        rk, ik, ek = pagerank_transposed(at)
+        rp, ip, ep = pagerank_plain(*plain)
+        torch.cuda.synchronize()
+        assert ik == ip, f"pagerank {what}: {ik} steps, plain {ip}"
+        torch.testing.assert_close(rk, rp, **PR_TOL)
+        spmv = _spmv(at)
+        rows.append(_row(
+            "pagerank", f"{what} n={n} nnz={nnz} iters={ik} "
+            f"(plain {ip}) l1={ek:.3e} (plain {ep:.3e})",
+            cuda_ms(lambda: pagerank_transposed(at)),
+            cuda_ms(lambda: pagerank_plain(*plain)), cuda_ms(spmv) * ik,
+            ik * (4 * nnz + 16 * n) + 4 * nnz + 4 * n, _max_err(rk, rp)))
+    return rows
+
+
+def check_pull_min(store, dev):
+    """K6 in both forms at the shapes algo.WCC and algo.SSSP build: WCC over
+    Person / KNOWS symmetrised, SSSP over KNOWS weighted by `since` from the
+    first Person.  Exact."""
+    sym = compact_adjacency(store, "Person", ["KNOWS"], directed=False).csr
+    n, nnz = sym.n_rows, int(sym.nnz)
+    plain = (sym.indptr, sym.rows, sym.cols, sym.nnz, n)
+    lk, ik = wcc_run(sym)
+    lp, ip = wcc_plain(*plain)
+    torch.cuda.synchronize()
+    assert ik == ip and torch.equal(lk, lp), f"wcc: {ik} steps, plain {ip}"
+    wcc_rows = [_row("wcc", f"Person/KNOWS sym n={n} nnz={nnz} iters={ik}",
+                     cuda_ms(lambda: wcc_run(sym)),
+                     cuda_ms(lambda: wcc_plain(*plain)), None,
+                     ik * (4 * nnz + 12 * n), 0.0)]
+    comp = compact_adjacency(store, None, ["KNOWS"], directed=True,
+                             weight_attr="since")
+    at, src = comp.at, comp.remap[0]  # the first Person
+    n, nnz = at.n_rows, int(at.nnz)
+    plain = (at.indptr, at.rows, at.cols, at.vals, at.nnz, n, src)
+    dk, ik = sssp_run(at, src)
+    dp, ip = sssp_plain(*plain)
+    torch.cuda.synchronize()
+    assert ik == ip and torch.equal(dk, dp), f"sssp: {ik} steps, plain {ip}"
+    reached = int(torch.isfinite(dk).sum())
+    sssp_rows = [_row("sssp", f"KNOWS by since n={n} nnz={nnz} iters={ik} "
+                      f"reached={reached}", cuda_ms(lambda: sssp_run(at, src)),
+                      cuda_ms(lambda: sssp_plain(*plain)), None,
+                      ik * (8 * nnz + 12 * n), 0.0)]
+    return wcc_rows, sssp_rows
+
+
+def check_segment_sum_pull(store, dev):
+    """K7 over Person / KNOWS (as algo.betweenness builds it), the transpose
+    for the forward sweep and the forward CSR for the backward sweep."""
+    comp = compact_adjacency(store, "Person", ["KNOWS"], directed=True)
+    out = []
+    for name, csr in (("bc_push_counts", comp.at), ("bc_pull_deps", comp.csr)):
+        n, nnz = csr.n_rows, int(csr.nnz)
+        x = torch.rand(n, dtype=torch.float32, device=dev)
+        yk = segment_sum_pull(csr, x, name)
+        yp = segment_sum_pull_plain(csr.rows, csr.cols, csr.nnz, n, x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(yk, yp, **BC_TOL)
+        out.append([_row(
+            name, f"Person/KNOWS n={n} nnz={nnz}",
+            cuda_ms(lambda: segment_sum_pull(csr, x, name)),
+            cuda_ms(lambda: segment_sum_pull_plain(csr.rows, csr.cols,
+                                                   csr.nnz, n, x)),
+            cuda_ms(_spmv(csr)), 4 * nnz + 12 * n, _max_err(yk, yp))])
+    return out
+
+
+def check_bfs_parents(store, dev):
+    """K8 at the shape algo.BFS(p, null, 'KNOWS') builds (all nodes, KNOWS
+    directed) from the first Person.  Exact."""
+    comp = compact_adjacency(store, None, ["KNOWS"], directed=True)
+    at, src = comp.at, comp.remap[0]  # the first Person
+    n, nnz = at.n_rows, int(at.nnz)
+    plain = (at.indptr, at.rows, at.cols, at.nnz, n, src)
+    lk, pk = bfs_parents(at, src)
+    lp, pp = bfs_parents_plain(*plain)
+    torch.cuda.synchronize()
+    assert torch.equal(lk, lp) and torch.equal(pk, pp), "bfs_parents"
+    levels = int(lp[lp != UNREACHED].max()) + 1  # the last finds nothing
+    return [_row("bfs_parents", f"KNOWS directed n={n} nnz={nnz} "
+                 f"levels={levels} reached={int((lp != UNREACHED).sum())}",
+                 cuda_ms(lambda: bfs_parents(at, src)),
+                 cuda_ms(lambda: bfs_parents_plain(*plain)), None,
+                 levels * (4 * nnz + 8 * n) + 8 * n, 0.0)]
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 
@@ -460,30 +817,52 @@ def device_ms(fn):
     return us / 1e3 if us > 0 else None
 
 
+@contextlib.contextmanager
+def _environ(env):
+    """Set `env` in os.environ for the block only."""
+    old = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def run_queries(g_dev, g_cpu, queries, reps=3):
     """Each query `reps` times on the card (p50 on the host clock), checked
     against the oracle and against the CPU database, then once more under
     the profiler for the card's busy time.  Returns {name: stats}."""
     out = {}
-    for name, q, params, check in queries:
-        times = []
-        before = {k: v.launches for k, v in cuda.KERNELS.items()}
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            rows = g_dev.query(q, params).result_set
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        launched = {k: v.launches - before[k] for k, v in cuda.KERNELS.items()
-                    if v.launches > before[k]}
-        check(rows)
-        cpu_rows = g_cpu.query(q, params).result_set
-        assert rows == cpu_rows, (name, rows[:5], cpu_rows[:5])
+    for qq in queries:
+        with _environ(qq.env):
+            times = []
+            before = {k: v.launches for k, v in cuda.KERNELS.items()}
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                rows = g_dev.query(qq.cypher, qq.params).result_set
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launched = {k: v.launches - before[k]
+                        for k, v in cuda.KERNELS.items()
+                        if v.launches > before[k]}
+            qq.check(rows)
+            cpu_rows = g_cpu.query(qq.cypher, qq.params).result_set
+            if qq.same is None:
+                assert rows == cpu_rows, (qq.name, rows[:5], cpu_rows[:5])
+            else:
+                qq.same(rows, cpu_rows)
+            dev_ms = device_ms(lambda: g_dev.query(qq.cypher, qq.params))
         st = {"p50_ms": statistics.median(times), "rows": len(rows),
-              "launches_over_reps": launched,
-              "device_ms_one_run": device_ms(lambda: g_dev.query(q, params))}
-        out[name] = st
-        print(f"query {name}: {json.dumps(st)} oracle=ok cpu_rows=equal",
-              flush=True)
+              "launches_over_reps": launched, "device_ms_one_run": dev_ms,
+              "busy_share": None if dev_ms is None
+              else dev_ms / statistics.median(times)}
+        out[qq.name] = st
+        print(f"query {qq.name}: {json.dumps(st)} oracle=ok "
+              f"cpu={'equal' if qq.same is None else 'close'}", flush=True)
     return out
 
 
@@ -535,7 +914,12 @@ def main(argv=None):
         "group_partials": check_group_partials(dev, krng),
         "topk": check_topk(dev, krng),
         "bfs_levels": check_bfs(store, dev),
+        "pagerank": check_pagerank(store, dev),
+        "bfs_parents": check_bfs_parents(store, dev),
     }
+    results["wcc"], results["sssp"] = check_pull_min(store, dev)
+    results["bc_push_counts"], results["bc_pull_deps"] = \
+        check_segment_sum_pull(store, dev)
 
     # phase 4: main path, with launches counted from here only
     queries = ldbc_queries(t)
@@ -546,15 +930,22 @@ def main(argv=None):
     print("motogp: rows=ok checkpoint_roundtrip=ok", flush=True)
     query_stats = run_queries(db.select_graph("ldbc"),
                               db_cpu.select_graph("ldbc"), queries)
+    query_stats.update(run_queries(db.select_graph("ldbc"),
+                                   db_cpu.select_graph("ldbc"),
+                                   algo_queries(t)))
+    small_algorithms(db, db_cpu, np.random.default_rng(SEED + 2))
     launches = {k: v.launches for k, v in cuda.KERNELS.items()}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
 
-    # the kernels line: one shape each, as the read mix runs it — expand
+    # the kernels line: one shape each, as the main path runs it — expand
     # over KNOWS out-edges, group partials over the n ~ 5M super-batch,
-    # top-k at k = 10, BFS to the fixpoint; max_abs_err over every shape
-    main_row = {"expand": 0, "group_partials": 1, "topk": 0, "bfs_levels": 0}
+    # top-k at k = 10, BFS to the fixpoint, PageRank over Person / KNOWS;
+    # max_abs_err over every shape
+    main_row = {"expand": 0, "group_partials": 1, "topk": 0, "bfs_levels": 0,
+                "pagerank": 1, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
+                "bc_pull_deps": 0, "bfs_parents": 0}
     kernels = []
     for name, rows in results.items():
         k = cuda.KERNELS[name]
@@ -581,8 +972,6 @@ def main(argv=None):
 def open_out(name):
     """A file under chiprun_out/ (listed in .gitignore) for output too long
     for the end of the log."""
-    import os
-
     os.makedirs("chiprun_out", exist_ok=True)
     return open(os.path.join("chiprun_out", name), "w")
 

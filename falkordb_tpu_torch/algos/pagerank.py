@@ -1,0 +1,105 @@
+"""PageRank (LAGr_PageRank replacement) — power iteration (kernel K5).
+
+r <- (1-d)/n + d * (A^T D^-1 r + dangling/n), a row-wise sum over the
+transpose CSR per step, to the tolerance.  falkordb_tpu runs this as a
+jitted while_loop (algos/pagerank.py:_pagerank_jit); here CUDA tensors
+launch csrc/pagerank.cu, whose host loop reads the step's L1 change, and
+CPU tensors run `pagerank_plain`.
+
+The blocked-ELL variant (pagerank_ell) waits for the ELL family (ROADMAP.md
+module 7)."""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from falkordb_tpu_torch.native import cuda as _cuda
+from falkordb_tpu_torch.sparse.csr import CSR
+
+# blocks of a pass over the nodes, at most: csrc/pagerank.cu sizes its grid
+# to the length of the per-block scratch it is given
+MAX_BLOCKS = 132 * 16
+
+
+def pagerank(a_csr: CSR, damping=0.85, tol=1e-4, max_iters=100):
+    """PageRank scores of the FORWARD adjacency `a_csr`, as an (n,) float32
+    tensor on its device."""
+    at = a_csr.transpose_host()
+    if at.n_rows == 0:
+        return torch.zeros(0, dtype=torch.float32, device=at.device)
+    return pagerank_transposed(at, damping, tol, max_iters)[0]
+
+
+def _scalars(n: int, damping, tol):
+    """The float32 constants of the reference: r0 = 1/n (rounded from a
+    double), d, tol and (1 - d)/n computed in float32."""
+    d = np.float32(damping)
+    base = (np.float32(1.0) - d) / np.float32(n)
+    return np.float32(1.0 / n), d, np.float32(tol), np.float32(base)
+
+
+def pagerank_transposed(at: CSR, damping=0.85, tol=1e-4, max_iters=100):
+    """Power iteration over the TRANSPOSE adjacency (rows = destinations).
+    Returns (r (n,) float32, steps run, the last step's L1 change) with the
+    reference's stopping rule: the first step always runs, then it stops at
+    L1 <= tol or after max_iters steps."""
+    n = at.n_rows
+    if not _cuda.on_cuda(at.indptr, at.cols, at.nnz):
+        return pagerank_plain(at.indptr, at.rows, at.cols, at.nnz, n,
+                              damping, tol, max_iters)
+    _cuda.check_input("pagerank", "indptr", at.indptr, torch.int32, n + 1)
+    _cuda.check_input("pagerank", "cols", at.cols, torch.int32)
+    r0, d, tol32, base = _scalars(n, damping, tol)
+    dev = at.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    deg = torch.empty(n, dtype=torch.int32, device=dev)
+    inv_out, contrib = torch.empty(n, **f32), torch.empty(n, **f32)
+    r_a, r_b = torch.empty(n, **f32), torch.empty(n, **f32)
+    partial, scalars = torch.empty(MAX_BLOCKS, **f32), torch.empty(2, **f32)
+    iters, err, in_b = ctypes.c_int64(0), ctypes.c_float(0), ctypes.c_int32(0)
+    p = _cuda.ptr
+    rc = _cuda.lib().fk_pagerank(
+        p(at.indptr), p(at.cols), p(at.nnz), n, float(d), float(tol32),
+        int(max_iters), float(r0), float(base), p(deg), p(inv_out),
+        p(contrib), p(r_a), p(r_b), p(partial), partial.numel(), p(scalars),
+        ctypes.byref(iters), ctypes.byref(err), ctypes.byref(in_b),
+        _cuda.stream_ptr(r_a))
+    _cuda.check(rc, "pagerank")
+    _cuda.count_launch("pagerank")
+    return (r_b if in_b.value else r_a), int(iters.value), float(err.value)
+
+
+def pagerank_plain(indptr, rows, cols, nnz, n: int, damping=0.85, tol=1e-4,
+                   max_iters=100):
+    """Plain PyTorch version of `pagerank_transposed`: the reference's loop
+    step by step, in float32."""
+    dev = cols.device
+    r0, d, tol32, base = _scalars(max(n, 1), damping, tol)
+    valid = torch.arange(cols.shape[0], device=dev) < nnz
+    src_of = cols.to(torch.int64).clamp(0, max(n - 1, 0))
+    dst_of = rows.to(torch.int64)
+    ones = valid.to(torch.float32)
+    outdeg = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(
+        0, src_of, ones)
+    inv_out = torch.where(outdeg > 0, 1.0 / outdeg,
+                          torch.zeros_like(outdeg))
+    dangling_mask = (outdeg == 0).to(torch.float32)
+    n_t = torch.full((1,), float(n), dtype=torch.float32, device=dev)
+    d_t = torch.tensor(d, device=dev)
+    base_t = torch.tensor(base, device=dev)
+    r = torch.full((n,), float(r0), dtype=torch.float32, device=dev)
+    it, err = 0, 0.0
+    while it < max_iters and (it == 0 or err > tol32):
+        gath = torch.where(valid, (r * inv_out)[src_of],
+                           torch.zeros((), dtype=torch.float32, device=dev))
+        acc = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(
+            0, dst_of, gath)
+        dangling = (r * dangling_mask).sum(0, keepdim=True) / n_t
+        r_new = base_t + d_t * (acc + dangling)
+        err = np.float32((r_new - r).abs().sum().item())
+        r = r_new
+        it += 1
+    return r, it, float(err)

@@ -159,8 +159,8 @@ class GraphCore:
         self._running: dict[int, dict] = {}
         self._running_lock = threading.Lock()
         self._query_seq = 0
-        # ensure the index procedures are registered (the algorithm
-        # procedures arrive with ROADMAP.md module 7)
+        # ensure algorithm + index procedures are registered
+        import falkordb_tpu_torch.algos.procedures  # noqa: F401
         import falkordb_tpu_torch.index.procedures  # noqa: F401
 
     # ------------------------------------------------------------------ query

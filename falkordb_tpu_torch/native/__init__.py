@@ -3,10 +3,12 @@
 The reference's runtime core is native (Rust + C GraphBLAS); here the
 CUDA kernels under falkordb_tpu_torch/csrc are the device compute path
 (built and bound by native/cuda.py), and this module supplies native
-implementations of the host-side hot spots around them — currently fast
-CSR construction (radix sort + indptr assembly), the commit-path /
-bulk-load bottleneck.  Compiled lazily with g++ -O3 on first use; callers
-fall back to numpy when no toolchain is available."""
+implementations of the host-side hot spots around them: fast CSR
+construction (radix sort + indptr assembly), the commit-path / bulk-load
+bottleneck, and the direction-optimizing single-source BFS that algo.BFS
+takes first (bfsnative.cpp).  Compiled lazily with g++ -O3 on first use;
+without a toolchain CSR builds fall back to numpy and algo.BFS to its
+kernel (K8), as in falkordb_tpu."""
 
 from __future__ import annotations
 
@@ -35,10 +37,14 @@ def _compile_load(stem, extra_flags=()):
         try:
             if (not os.path.exists(so)
                     or os.path.getmtime(so) < os.path.getmtime(src)):
+                # build beside, then rename: a process that loads the
+                # library meanwhile never sees a half-written file
+                tmp = f"{so}.{os.getpid()}.tmp"
                 subprocess.run(
                     ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     *extra_flags, "-o", so, src],
+                     *extra_flags, "-o", tmp, src],
                     check=True, capture_output=True, timeout=120)
+                os.replace(tmp, so)
             _libs[stem] = ctypes.CDLL(so)
         except Exception:  # noqa: BLE001 — no toolchain → numpy fallback
             _libs[stem] = None
@@ -97,3 +103,53 @@ def build_csr_native(rows: np.ndarray, cols: np.ndarray, vals, n_rows: int):
     if rc != 0:
         return None
     return rows_out, cols_out, vals_out, indptr
+
+
+def _load_bfs():
+    lib = _compile_load("bfsnative", extra_flags=("-fopenmp",))
+    if lib is None:
+        # some toolchains lack libgomp; retry serial (drop the cached miss)
+        with _lock:
+            _libs.pop("bfsnative", None)
+        lib = _compile_load("bfsnative")
+    if lib is not None and not hasattr(lib, "_sig_done"):
+        lib.bfs_single_diropt.restype = ctypes.c_int64
+        lib.bfs_single_diropt.argtypes = [
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib._sig_done = True
+    return lib
+
+
+def bfs_available() -> bool:
+    return _load_bfs() is not None
+
+
+def bfs_single_native(fwd_indptr, fwd_cols, rev_indptr, rev_cols, root,
+                      alpha=15, beta=24):
+    """Direction-optimizing single-source BFS (bfsnative.cpp).
+
+    Returns (depth int32[n] with -1 unreached, n_levels) or None when the
+    native library is unavailable."""
+    lib = _load_bfs()
+    if lib is None:
+        return None
+    fwd_indptr = np.ascontiguousarray(fwd_indptr, dtype=np.int64)
+    rev_indptr = np.ascontiguousarray(rev_indptr, dtype=np.int64)
+    fwd_cols = np.ascontiguousarray(fwd_cols, dtype=np.int32)
+    rev_cols = np.ascontiguousarray(rev_cols, dtype=np.int32)
+    n = len(fwd_indptr) - 1
+    depth = np.empty(n, dtype=np.int32)
+    levels = lib.bfs_single_diropt(
+        fwd_indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        fwd_cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        rev_indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        rev_cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n, int(root), int(alpha), int(beta),
+        depth.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if levels < 0:
+        return None
+    return depth, int(levels)

@@ -52,6 +52,18 @@ KERNELS = {
                "falkordb_tpu/runtime/ops.py:2255"),
         Kernel("bfs_levels", "falkordb_tpu_torch/csrc/bfs_levels.cu",
                "falkordb_tpu/algos/bfs.py:22"),
+        Kernel("pagerank", "falkordb_tpu_torch/csrc/pagerank.cu",
+               "falkordb_tpu/algos/pagerank.py:17"),
+        Kernel("wcc", "falkordb_tpu_torch/csrc/pull_min.cu",
+               "falkordb_tpu/algos/wcc.py:18"),
+        Kernel("sssp", "falkordb_tpu_torch/csrc/pull_min.cu",
+               "falkordb_tpu/algos/sssp.py:18"),
+        Kernel("bc_push_counts", "falkordb_tpu_torch/csrc/segment_sum_pull.cu",
+               "falkordb_tpu/algos/betweenness.py:25"),
+        Kernel("bc_pull_deps", "falkordb_tpu_torch/csrc/segment_sum_pull.cu",
+               "falkordb_tpu/algos/betweenness.py:33"),
+        Kernel("bfs_parents", "falkordb_tpu_torch/csrc/bfs_parents.cu",
+               "falkordb_tpu/algos/bfs.py:56"),
     )
 }
 
@@ -65,14 +77,24 @@ def count_launch(name: str) -> None:
     KERNELS[name].launches += 1
 
 
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
+_OUT_I64 = ctypes.POINTER(ctypes.c_int64)
+_OUT_I32 = ctypes.POINTER(ctypes.c_int32)
 _SIGNATURES = {
     "fk_expand": [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P,
                   _P, _P, _P],
     "fk_group_partials": [_P, _P, _P, _I64, _I64, _INT, _P, _P, _P],
     "fk_topk": [_P, _I64, _INT, _INT, _P, _P, _P, _P, _P, _P],
-    "fk_bfs_levels": [_P, _P, _P, _I64, _I64, _I64, _P, _P,
-                      ctypes.POINTER(ctypes.c_int64), _P],
+    "fk_bfs_levels": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _OUT_I64, _P],
+    "fk_pagerank": [_P, _P, _P, _I64, _F32, _F32, _I64, _F32, _F32, _P, _P,
+                    _P, _P, _P, _P, _I64, _P, _OUT_I64,
+                    ctypes.POINTER(ctypes.c_float), _OUT_I32, _P],
+    "fk_wcc": [_P, _P, _P, _I64, _P, _P, _P, _OUT_I64, _OUT_I32, _P],
+    "fk_sssp": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _OUT_I32,
+                _P],
+    "fk_segment_sum_pull": [_P, _P, _P, _I64, _P, _P, _P],
+    "fk_bfs_parents": [_P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _P],
 }
 
 _lock = threading.Lock()

@@ -59,3 +59,33 @@ def test_jax_checkpoint_loads_into_port(tmp_path, monkeypatch, vkeys):
     gt.query("MATCH (a:P {id: 0}), (b:P {id: 1}) CREATE (a)-[:K {w: -1}]->(b)")
     g.query("MATCH (a:P {id: 0}), (b:P {id: 1}) CREATE (a)-[:K {w: -1}]->(b)")
     assert gt.query(QUERIES[2]).result_set == g.query(QUERIES[2]).result_set
+
+
+@pytest.mark.parametrize("vkeys", [False, True])
+def test_jax_checkpoint_gives_same_algorithms(tmp_path, monkeypatch, vkeys):
+    """algo.pageRank and algo.WCC on a graph saved by falkordb_tpu and
+    loaded into the port: WCC equal, PageRank node by node at rtol 1e-5,
+    atol 1e-9 (both float32, summed in different orders)."""
+    monkeypatch.setenv("FALKOR_DIST", "0")
+    monkeypatch.setenv("FALKOR_DIST_QUERY", "0")
+    config = {"vkey_max_entity_count": 50} if vkeys else None
+    jdb = JaxFalkorDB(config=config)
+    g = jdb.select_graph("ck")
+    _build(g, np.random.default_rng(11))
+    path = str(tmp_path / "ck")
+    jdb.save(path)
+    gt = FalkorDB.load(path, device="cpu").select_graph("ck")
+
+    q = ("CALL algo.WCC({nodeLabels: ['P'], relationshipTypes: ['K']}) "
+         "YIELD node, componentId RETURN node.id, componentId")
+    want = g.query(q).result_set
+    assert len(want) == 58  # 60 nodes, two deleted
+    assert gt.query(q).result_set == want
+    q = ("CALL algo.pageRank('P', 'K') YIELD node, score "
+         "RETURN node.id, score")
+    want = dict(g.query(q).result_set)
+    got = dict(gt.query(q).result_set)
+    assert got.keys() == want.keys()
+    keys = sorted(want)
+    np.testing.assert_allclose([got[k] for k in keys],
+                               [want[k] for k in keys], rtol=1e-5, atol=1e-9)

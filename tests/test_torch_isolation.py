@@ -13,7 +13,11 @@ import torch
 
 import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
-from falkordb_tpu_torch.algos.bfs import bfs_levels
+from falkordb_tpu_torch.algos.betweenness import segment_sum_pull
+from falkordb_tpu_torch.algos.bfs import bfs_levels, bfs_parents
+from falkordb_tpu_torch.algos.pagerank import pagerank_transposed
+from falkordb_tpu_torch.algos.sssp import sssp_run
+from falkordb_tpu_torch.algos.wcc import wcc_run
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.runtime.ops import group_partials, topk_smallest
 from falkordb_tpu_torch.sparse.csr import CSR
@@ -54,10 +58,19 @@ def test_no_jax_or_reference_imports():
 
 def test_import_and_query_leave_jax_out():
     code = ("import sys, falkordb_tpu_torch as F\n"
+            "import falkordb_tpu_torch.algos.procedures\n"
             "g = F.FalkorDB(device='cpu').select_graph('g')\n"
             "g.query(\"CREATE (:A {v: 1})-[:R]->(:B {v: 2})\")\n"
             "r = g.query('MATCH (a)-[:R]->(b) RETURN a.v, b.v')\n"
             "assert r.result_set == [[1, 2]], r.result_set\n"
+            "for q in ('CALL algo.pageRank(null, null) YIELD node, score',\n"
+            "          'CALL algo.WCC(null) YIELD node, componentId',\n"
+            "          'CALL algo.betweenness(null) YIELD node, score',\n"
+            "          'MATCH (a:A) CALL algo.SSSP({sourceNode: a}) '\n"
+            "          'YIELD node, distance',\n"
+            "          'CALL algo.labelPropagation(null) YIELD node',\n"
+            "          'MATCH (a:A) CALL algo.BFS(a, null, null) YIELD nodes'):\n"
+            "    assert g.query(q + ' RETURN 1').result_set, q\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'falkordb_tpu')]\n"
             "assert not bad, bad\n")
@@ -90,8 +103,16 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
                    dtype=torch.float64), None, 2, "sum")
     topk_smallest(torch.arange(8, dtype=torch.float64), 3)
     bfs_levels(at, 0)
+    pagerank_transposed(at)
+    wcc_run(at)
+    sssp_run(at, 0)
+    segment_sum_pull(at, torch.ones(3), "bc_push_counts")
+    segment_sum_pull(at, torch.ones(3), "bc_pull_deps")
+    bfs_parents(at, 0)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == {
-        "expand": 0, "group_partials": 0, "topk": 0, "bfs_levels": 0}
+        "expand": 0, "group_partials": 0, "topk": 0, "bfs_levels": 0,
+        "pagerank": 0, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
+        "bc_pull_deps": 0, "bfs_parents": 0}
     assert cuda._lib is None  # nothing was built or loaded
 
 
@@ -101,3 +122,6 @@ def test_wrappers_refuse_other_devices():
         topk_smallest(c, 3)
     with pytest.raises(ValueError, match="several devices"):
         group_partials(torch.zeros(16, dtype=torch.int32), c, None, 2, "sum")
+    at = CSR.from_coo_numpy([0, 1], [1, 2], None, shape=(3, 3), dedup=False)
+    with pytest.raises(ValueError, match="several devices"):
+        segment_sum_pull(at, torch.ones(3, device="meta"), "bc_pull_deps")

@@ -240,11 +240,11 @@ def test_ldbc_read_mix(thresholds, monkeypatch):
     t = chip_smoke.gen_dataset(2000, np.random.default_rng(chip_smoke.SEED))
     queries = chip_smoke.ldbc_queries(t)
     calls.clear()  # count the read mix only, not the load
-    rows = run_both([(q, p) for _, q, p, _ in queries],
+    rows = run_both([(q.cypher, q.params) for q in queries],
                     setup=lambda g: (chip_smoke.load_ldbc(g, t),
                                      calls.clear()))
-    for (name, _, _, check), got in zip(queries, rows):
-        check(got)
+    for q, got in zip(queries, rows):
+        q.check(got)
     if thresholds == "kernel_path":
         assert sorted(calls) == sorted(name for _, name in PLAIN), calls
     else:
