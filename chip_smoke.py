@@ -1,7 +1,8 @@
 """Drive falkordb_tpu_torch on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py              # the full run: P = 430,000 persons
+    python3 chip_smoke.py              # the full run: P = 430,000, RMAT-22
     python3 chip_smoke.py --persons N  # a smaller LDBC-shaped graph
+    python3 chip_smoke.py --rmat-scale S  # a smaller RMAT graph for the BFS
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -10,17 +11,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. Build: the hand-written kernels (falkordb_tpu_torch/csrc/*.cu) are
    compiled for sm_90a, and the seconds it took are printed.
 3. Kernels: each kernel against its plain PyTorch version on the card at
-   the shapes the main path gives it, timed with CUDA events (median of 7
+   the shapes the main paths give it, timed with CUDA events (median of 7
    after a warm-up) beside its memory-traffic bound, its plain version and,
    where one exists, the one PyTorch call that computes the same function.
-4. Main path: the README demo, then an LDBC SNB SF1-class graph (the
-   generator below, a copy of bench_ldbc.py's) loaded with bulk_insert and
-   indexed, a read mix and an algorithm mix (CALL algo.* over Person /
-   KNOWS) whose answers are checked against a numpy / scipy oracle over the
-   generated tables and against the same database run with device="cpu"
-   (row for row; float scores node by node at the kernels' tolerances),
-   and the host-only procedures once each on a small graph.  Every kernel
-   must have launched during the main path.
+   The packed-BFS kernels also run a whole small BFS for every word type
+   (int8, int16, int32) against the same BFS on the host.
+4. Main paths, each with the launch counts set to 0 just before it and
+   read just after:
+   a. The README demo, then an LDBC SNB SF1-class graph (the generator
+      below, a copy of bench_ldbc.py's) loaded with bulk_insert and
+      indexed, a read mix and an algorithm mix (CALL algo.* over Person /
+      KNOWS) whose answers are checked against a numpy / scipy oracle over
+      the generated tables and against the same database run with
+      device="cpu" (row for row; float scores node by node at the kernels'
+      tolerances), and the host-only procedures once each on a small graph.
+   b. bench_port.py's batched BFS: RMAT-22 (n = 4,194,304, 67,108,864
+      edges; scale is the only cut from bench_port.py's RMAT-24, made to
+      fit the run's time limit), 2048 lanes as int16 words, max 24 levels,
+      chunks of 32M padded edges, sparse first level; one warm-up and 3
+      timed runs.  16 sampled lanes must reach what scipy's BFS over the
+      forward CSR reaches, with the same edge counts, and a run that gathers
+      every chunk at the first device level must give the same visited bits
+      and levels.
+   Every kernel of a path must have launched during that path.
 
 The line before the last is a JSON object {"kernels": [...]} and the last
 line {"ok": true, "device": {...}}.
@@ -43,11 +56,17 @@ import torch
 
 import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
+import bench_port
 from falkordb_tpu_torch.algos.betweenness import (
     segment_sum_pull, segment_sum_pull_plain,
 )
 from falkordb_tpu_torch.algos.bfs import (
     UNREACHED, bfs_levels, bfs_levels_plain, bfs_parents, bfs_parents_plain,
+)
+from falkordb_tpu_torch.algos.bfs_packed import (
+    bfs_multi_gated, bfs_multi_gated_hostdriven, chunk_bounds, chunk_reach,
+    packed_counts, packed_counts_plain, packed_epilogue, packed_epilogue_plain,
+    packed_seed, packed_seed_plain, packed_to, reach_plain, sparse_reach,
 )
 from falkordb_tpu_torch.algos.common import compact_adjacency
 from falkordb_tpu_torch.algos.pagerank import pagerank_plain, pagerank_transposed
@@ -513,13 +532,17 @@ def checkpoint_roundtrip():
 # -- measurement helpers --------------------------------------------------------
 
 
-def cuda_ms(fn, reps=7):
+def cuda_ms(fn, reps=7, setup=None):
     """Median milliseconds of fn() on the card (CUDA events), after one
-    warm-up call."""
+    warm-up call; setup(), when given, runs untimed before each call."""
+    if setup is not None:
+        setup()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -552,14 +575,20 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "wcc": "exact", "sssp": "exact, inf as inf",
     "bc_push_counts": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
     "bc_pull_deps": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
-    "bfs_parents": "exact"}
+    "bfs_parents": "exact",
+    "packed_chunk_reach": "exact (reach bit for bit)",
+    "packed_sparse_reach": "exact (reach bit for bit)",
+    "packed_epilogue": "exact (visited, frontier, flags)",
+    "packed_seed": "exact", "packed_counts": "rtol 1e-6 (float64 sums of "
+                                             "integer weights, rounded once "
+                                             "to float32)"}
 
 
-def _row(name, shape, ms, plain_ms, library_ms, nbytes, err):
+def _row(name, shape, ms, plain_ms, library_ms, nbytes, err, **extra):
     r = {"name": name, "shape": shape, "ms": ms, "plain_ms": plain_ms,
          "library_ms": library_ms, "bound_ms": bound_ms(nbytes),
          "bound_by": "bytes", "max_abs_err": err,
-         "tolerance": TOLERANCE[name]}
+         "tolerance": TOLERANCE[name], **extra}
     print(f"kernel {json.dumps(r)}", flush=True)
     return r
 
@@ -798,23 +827,234 @@ def check_bfs_parents(store, dev):
                  levels * (4 * nnz + 8 * n) + 8 * n, 0.0)]
 
 
+BFS_LANES = 2048  # bench_port.py's batch: 2048 lanes as int16 words
+BFS_WORD = "int16"
+BFS_MAX_LEVELS = 24
+
+
+def distinct_rows(colsTs):
+    """The frontier rows a set of ELL column arrays names: what a gather-OR
+    over them must read at least (the sentinel row n included)."""
+    return int(torch.unique(torch.cat([c.flatten() for c in colsTs])).numel())
+
+
+def check_packed(prep, dev):
+    """K9-K12 against their plain versions on the card, at the shapes the
+    batched BFS gives them on the RMAT graph: the seed of 2048 roots, the
+    first device level over the mini-ELL buckets, its epilogue, the next
+    level over every chunk (the widest, hub, chunk also on its own) and the
+    counts.  All bit-exact but K12 (rtol 1e-6).  The byte bounds count what
+    this run's data needs: K9 reads its columns, the distinct frontier rows
+    they name and writes its rows; K10 reads reach and visited, writes
+    frontier, and writes visited only in rows that gained bits; K11 writes
+    both arrays and reads 12 bytes a pair (an int64 index, a uint32 mask);
+    K12 reads visited and the weights."""
+    n = prep.n
+    bits = 16
+    W = BFS_LANES // bits
+    R = 2 * W
+    ri, rm, ni, nm = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                      for a in bench_port.seed_arrays(
+                          prep.roots[:BFS_LANES], prep.nbr_indptr,
+                          prep.nbr_cols, bits))
+    seed_args = (n, W, torch.int16, 0, True, ri, rm, ni, nm)
+    vk, fk = packed_seed(*seed_args)
+    vp, fp = packed_seed_plain(*seed_args)
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vp) and torch.equal(fk, fp), "packed_seed"
+    del vp, fp
+    out = {"packed_seed": [_row(
+        "packed_seed", f"n={n} W={W} int16 roots={ri.numel()} "
+        f"level-1 pairs={ni.numel()}", cuda_ms(lambda: packed_seed(*seed_args)),
+        cuda_ms(lambda: packed_seed_plain(*seed_args)), None,
+        2 * R * (n + 1) + 12 * (ri.numel() + ni.numel()), 0.0)]}
+
+    # the first device level: the mini-ELL buckets of the level-1 union
+    reach_k = torch.zeros_like(vk)
+    reach_p = torch.zeros_like(vk)
+    for ids, colsT, _w, _v in prep.sparse:
+        sparse_reach(ids, colsT, fk, reach_k)
+        reach_plain(colsT, ids.numel(), fk, reach_p, 0, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(reach_k, reach_p), "packed_sparse_reach"
+    del reach_p
+    rows = sum(ids.numel() for ids, *_ in prep.sparse)
+    padded = sum(c.numel() for _i, c, *_ in prep.sparse)
+    named = distinct_rows([c for _i, c, *_ in prep.sparse])
+    out["packed_sparse_reach"] = [_row(
+        "packed_sparse_reach", f"first device level: {len(prep.sparse)} "
+        f"mini-ELL buckets, {rows} rows, {padded} padded edges, widest "
+        f"{max(w for *_x, w, _v in prep.sparse)}",
+        cuda_ms(lambda: [sparse_reach(i, c, fk, reach_k)
+                         for i, c, _w, _v in prep.sparse]),
+        cuda_ms(lambda: [reach_plain(c, i.numel(), fk, reach_k, 0, i)
+                         for i, c, _w, _v in prep.sparse]), None,
+        4 * padded + R * rows + R * named, 0.0,
+        gathered_bytes=R * padded)]
+
+    # its epilogue, each timed call on a fresh copy of the state
+    bounds = chunk_bounds(prep.packed, dev)
+    vp, fp = vk.clone(), fk.clone()
+    flags_k = packed_epilogue(reach_k, vk, fk, bounds)
+    flags_p = packed_epilogue_plain(reach_k, vp, fp, bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vp) and torch.equal(fk, fp) and \
+        torch.equal(flags_k, flags_p), "packed_epilogue"
+    state = [vp, fp]  # scratch copies for the timed calls
+
+    def restore():
+        state[0].copy_(vk)
+        state[1].copy_(fk)
+
+    fresh_rows = int((fk[:n] != 0).any(1).sum())
+    out["packed_epilogue"] = [_row(
+        "packed_epilogue", f"n={n} W={W} int16 chunks={bounds.shape[0]} "
+        f"after the first device level ({fresh_rows} rows with fresh bits)",
+        cuda_ms(lambda: packed_epilogue(reach_k, state[0], state[1], bounds),
+                setup=restore),
+        cuda_ms(lambda: packed_epilogue_plain(reach_k, state[0], state[1],
+                                              bounds), setup=restore),
+        None, 3 * R * (n + 1) + R * fresh_rows, 0.0)]
+    del vp, fp, state
+
+    # the next level over every chunk, and the widest chunk alone
+    chunks = prep.packed.chunks
+    reach_p = reach_k.clone()
+    for c in chunks:
+        chunk_reach(c, fk, reach_k)
+        reach_plain(c.colsT, c.rows, fk, reach_p, c.row_offset)
+    torch.cuda.synchronize()
+    assert torch.equal(reach_k, reach_p), "packed_chunk_reach"
+    del reach_p
+    hub = max(chunks, key=lambda c: c.width)
+    rows = sum(c.rows for c in chunks)
+    pe = prep.packed.padded_edges
+    named = distinct_rows([c.colsT for c in chunks])
+    out["packed_chunk_reach"] = [_row(
+        "packed_chunk_reach", f"one full level: {len(chunks)} chunks, {rows} "
+        f"rows, {pe} padded edges", cuda_ms(lambda: [chunk_reach(
+            c, fk, reach_k) for c in chunks]),
+        cuda_ms(lambda: [reach_plain(c.colsT, c.rows, fk, reach_k,
+                                     c.row_offset) for c in chunks]), None,
+        4 * pe + R * rows + R * named, 0.0, gathered_bytes=R * pe),
+        _row("packed_chunk_reach", f"widest (hub) chunk: rows={hub.rows} "
+             f"width={hub.width}", cuda_ms(lambda: chunk_reach(hub, fk,
+                                                               reach_k)),
+             cuda_ms(lambda: reach_plain(hub.colsT, hub.rows, fk, reach_k,
+                                         hub.row_offset)), None,
+             4 * hub.rows * hub.width + R * hub.rows
+             + R * distinct_rows([hub.colsT]), 0.0,
+             gathered_bytes=R * hub.rows * hub.width)]
+
+    w = torch.from_numpy(prep.outdeg_sorted).to(dev)
+    ck = packed_counts(vk, BFS_LANES, w)
+    cp = packed_counts_plain(vk, BFS_LANES, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ck, cp, rtol=1e-6, atol=0)
+    out["packed_counts"] = [_row(
+        "packed_counts", f"n={n} W={W} int16 k={BFS_LANES} weighted",
+        cuda_ms(lambda: packed_counts(vk, BFS_LANES, w)),
+        cuda_ms(lambda: packed_counts_plain(vk, BFS_LANES, w)), None,
+        R * (n + 1) + 4 * n, _max_err(ck, cp))]
+    return out
+
+
+def check_packed_words(dev):
+    """The whole batched BFS with K9-K12 on the card against the same BFS
+    on the host (the plain versions) for every word type, lane counts that
+    are not a multiple of the word bits (padding lanes) and both driver
+    forms, on a small RMAT graph: visited bits, levels and counts exact."""
+    prep = bench_port.prepare(12, 64, 1 << 14, None, True, "cpu")
+    on_card = packed_to(prep.packed, dev)
+    # the mini-ELL of the first 64 roots' level-1 union covers any prefix
+    sparse = [(i.to(dev), c.to(dev), w, v) for i, c, w, v in prep.sparse]
+    for word, k in (("int8", 17), ("int16", 37), ("int32", 40)):
+        roots = prep.roots[:k]
+        bits = np.dtype(word).itemsize * 8
+        seeds = bench_port.seed_arrays(roots, prep.nbr_indptr, prep.nbr_cols,
+                                       bits)
+        kw = dict(fwd_indptr=prep.nbr_indptr, fwd_cols=prep.nbr_cols,
+                  word_dtype=word, seed_arrays=seeds)
+        runs = [(bfs_multi_gated_hostdriven(roots, on_card,
+                                            sparse_first=sparse, **kw),
+                 bfs_multi_gated_hostdriven(roots, prep.packed,
+                                            sparse_first=prep.sparse, **kw)),
+                (bfs_multi_gated(None, roots, packed=on_card, **kw),
+                 bfs_multi_gated(None, roots, packed=prep.packed, **kw))]
+        for card, host in runs:
+            assert card.nlevels == host.nlevels, (word, k)
+            assert torch.equal(card.visited.cpu(), host.visited), (word, k)
+            w = prep.outdeg_sorted
+            assert torch.equal(card.weighted_counts(w).cpu(),
+                               host.weighted_counts(w)), (word, k)
+    print("packed BFS, every word type, card against host: equal", flush=True)
+
+
+def reached_lane(visited, lane, n):
+    """The nodes lane `lane` reached, from the packed int16 visited rows."""
+    col = visited[:n, lane // 16].to(torch.int64) & 0xFFFF
+    return torch.nonzero((col >> (lane % 16)) & 1).flatten().cpu().numpy()
+
+
+def bfs_path(prep, dev, rng):
+    """bench_port.py's batched BFS on the prepared RMAT graph: one warm-up
+    and 3 timed runs (sparse first level), then the same BFS over every
+    chunk at the first device level, which must give the same visited bits
+    and levels, and 16 sampled lanes against scipy's BFS on the forward
+    CSR (reached set and traversed-edge count, exactly)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import breadth_first_order
+
+    args = (prep, BFS_LANES, BFS_MAX_LEVELS, BFS_WORD)
+    r = bench_port.run_gated(*args)
+    full = bench_port.bfs_once(*args, sparse_l2=False)
+    assert torch.equal(full.visited, r.result.visited), \
+        "sparse-first and all-chunks runs differ"
+    assert full.nlevels == r.nlevels, (full.nlevels, r.nlevels)
+    full_chunks = full.level_chunks
+    del full
+    by_kernel = bench_port.device_times(lambda: bench_port.bfs_once(*args))
+    dev_ms = sum(by_kernel.values()) if by_kernel else None
+
+    n = prep.n
+    fip, fcols = (t.cpu().numpy() for t in prep.fwd)
+    A = sp.csr_matrix((np.ones(len(fcols), np.int8), fcols, fip),
+                      shape=(n, n))
+    lanes = np.sort(rng.choice(BFS_LANES, size=16, replace=False))
+    for lane in lanes:
+        want = np.sort(breadth_first_order(A, int(prep.roots[lane]),
+                                           directed=True,
+                                           return_predecessors=False))
+        got = reached_lane(r.result.visited, int(lane), n)
+        assert np.array_equal(got, want), f"lane {lane}: reached set"
+        edges = np.float32(prep.outdeg_sorted[want].astype(np.float64).sum())
+        assert r.counts[lane] == edges, (lane, r.counts[lane], edges)
+    stats = {"gteps": r.gteps, "total_edges": r.total_edges,
+             "best_ms": r.best_s * 1e3, "runs_ms": [t * 1e3 for t in r.run_s],
+             "levels": r.nlevels, "chunks_per_level": r.level_chunks,
+             "chunks_per_level_all_chunks_run": full_chunks,
+             "device_ms_one_run": dev_ms, "device_ms_by_kernel": by_kernel,
+             "busy_share": None if dev_ms is None else dev_ms / (r.best_s * 1e3),
+             "gen_s": prep.gen_s, "upload_s": prep.upload_s,
+             "prep_s": prep.prep_s, "pad_ratio": prep.pad_ratio,
+             "chunks": len(prep.packed.chunks),
+             "padded_edges": prep.packed.padded_edges,
+             "sparse_buckets": len(prep.sparse),
+             "peak_bytes": r.peak_bytes, "checked_lanes": lanes.tolist()}
+    print(f"bfs rmat{prep.scale} n={n} m={prep.m} lanes={BFS_LANES} "
+          f"{json.dumps(stats)} scipy=ok (16 lanes) all_chunks=equal",
+          flush=True)
+    return stats
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 
 def device_ms(fn):
     """Milliseconds the card spent in the work fn() launches, from a
     torch.profiler trace; None when the trace holds no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # the device's own rows (kernels, copies, sets), each counted once
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 if us > 0 else None
+    times = bench_port.device_times(fn)
+    return sum(times.values()) if times else None
 
 
 @contextlib.contextmanager
@@ -866,10 +1106,19 @@ def run_queries(g_dev, g_cpu, queries, reps=3):
     return out
 
 
+LDBC_KERNELS = ("expand", "group_partials", "topk", "bfs_levels", "pagerank",
+                "wcc", "sssp", "bc_push_counts", "bc_pull_deps", "bfs_parents")
+BFS_KERNELS = ("packed_seed", "packed_sparse_reach", "packed_chunk_reach",
+               "packed_epilogue", "packed_counts")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=SF1_PERSONS,
                     help="LDBC persons P (SF1 class: 430000)")
+    ap.add_argument("--rmat-scale", type=int, default=22,
+                    help="RMAT scale of the batched BFS path (bench_port.py's "
+                         "full size is 24)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -893,7 +1142,16 @@ def main(argv=None):
     with open_out("build_log.txt") as f:
         f.write(cuda.build_log)
 
-    # phase 3 needs the main path's graph: generate and load it first
+    # phase 3 needs the main paths' graphs: generate and load them first
+    t0 = time.perf_counter()
+    prep = bench_port.prepare(args.rmat_scale, BFS_LANES, 32 << 20, None,
+                              True, "cuda")
+    print(f"rmat: scale={args.rmat_scale} n={prep.n} m={prep.m} "
+          f"gen_s={prep.gen_s:.1f} upload_s={prep.upload_s:.2f} "
+          f"prep_s={prep.prep_s:.2f} chunks={len(prep.packed.chunks)} "
+          f"padded_edges={prep.packed.padded_edges} "
+          f"sparse_buckets={len(prep.sparse)} "
+          f"s={time.perf_counter() - t0:.1f}", flush=True)
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     t = gen_dataset(args.persons, rng)
@@ -920,8 +1178,11 @@ def main(argv=None):
     results["wcc"], results["sssp"] = check_pull_min(store, dev)
     results["bc_push_counts"], results["bc_pull_deps"] = \
         check_segment_sum_pull(store, dev)
+    check_packed_words(dev)
+    results.update(check_packed(prep, dev))
 
-    # phase 4: main path, with launches counted from here only
+    # phase 4: the main paths, each with its launches counted from just
+    # before it to just after it
     queries = ldbc_queries(t)
     cuda.reset_launches()
     motogp(db)
@@ -934,22 +1195,31 @@ def main(argv=None):
                                    db_cpu.select_graph("ldbc"),
                                    algo_queries(t)))
     small_algorithms(db, db_cpu, np.random.default_rng(SEED + 2))
-    launches = {k: v.launches for k, v in cuda.KERNELS.items()}
-    print(f"main path launches: {json.dumps(launches)}", flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    launches = {k: cuda.KERNELS[k].launches for k in LDBC_KERNELS}
+    print(f"main path launches (LDBC read and algorithm mixes): "
+          f"{json.dumps(launches)}", flush=True)
+    missing = [k for k in LDBC_KERNELS if launches[k] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
+    del db, db_cpu, store
+
+    cuda.reset_launches()
+    bfs_stats = bfs_path(prep, dev, np.random.default_rng(SEED + 3))
+    bfs_launches = {k: cuda.KERNELS[k].launches for k in BFS_KERNELS}
+    print(f"main path launches (batched BFS): {json.dumps(bfs_launches)}",
+          flush=True)
+    missing = [k for k in BFS_KERNELS if bfs_launches[k] == 0]
+    assert not missing, f"kernels not launched on the BFS path: {missing}"
+    launches.update(bfs_launches)
 
     # the kernels line: one shape each, as the main path runs it — expand
     # over KNOWS out-edges, group partials over the n ~ 5M super-batch,
-    # top-k at k = 10, BFS to the fixpoint, PageRank over Person / KNOWS;
-    # max_abs_err over every shape
-    main_row = {"expand": 0, "group_partials": 1, "topk": 0, "bfs_levels": 0,
-                "pagerank": 1, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
-                "bc_pull_deps": 0, "bfs_parents": 0}
+    # top-k at k = 10, BFS to the fixpoint, PageRank over Person / KNOWS,
+    # the packed gather-OR over one full level; max_abs_err over every shape
+    main_row = {"group_partials": 1, "pagerank": 1}
     kernels = []
     for name, rows in results.items():
         k = cuda.KERNELS[name]
-        r = rows[main_row[name]]
+        r = rows[main_row.get(name, 0)]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
@@ -959,7 +1229,8 @@ def main(argv=None):
             "library_ms": r["library_ms"], "shape": r["shape"]})
     with open_out("chip_smoke.json") as f:
         json.dump({"nvidia_smi": smi.stdout.strip(), "persons": args.persons,
-                   "kernel_rows": results, "queries": query_stats,
+                   "rmat_scale": args.rmat_scale, "kernel_rows": results,
+                   "queries": query_stats, "bfs": bfs_stats,
                    "launches": launches}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

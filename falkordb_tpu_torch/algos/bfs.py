@@ -8,8 +8,9 @@ level, until no node is new.  Here CUDA tensors launch csrc/bfs_levels.cu
 and csrc/bfs_parents.cu, a pull kernel per level driven by a host loop, and
 CPU tensors run `bfs_levels_plain` and `bfs_parents_plain`.
 
-The multi-source and packed families wait for ROADMAP.md modules 7-8; the
-direction-optimising host BFS is native/bfsnative.cpp."""
+The multi-source ELL family waits for ROADMAP.md module 7; the batched
+packed BFS is bfs_packed.py; the direction-optimising host BFS is
+native/bfsnative.cpp."""
 
 from __future__ import annotations
 

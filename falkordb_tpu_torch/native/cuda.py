@@ -64,6 +64,17 @@ KERNELS = {
                "falkordb_tpu/algos/betweenness.py:33"),
         Kernel("bfs_parents", "falkordb_tpu_torch/csrc/bfs_parents.cu",
                "falkordb_tpu/algos/bfs.py:56"),
+        Kernel("packed_chunk_reach", "falkordb_tpu_torch/csrc/packed_reach.cu",
+               "falkordb_tpu/algos/bfs_packed.py:324"),
+        Kernel("packed_sparse_reach",
+               "falkordb_tpu_torch/csrc/packed_reach.cu",
+               "falkordb_tpu/algos/bfs_packed.py:682"),
+        Kernel("packed_epilogue", "falkordb_tpu_torch/csrc/packed_epilogue.cu",
+               "falkordb_tpu/algos/bfs_packed.py:377"),
+        Kernel("packed_seed", "falkordb_tpu_torch/csrc/packed_seed.cu",
+               "falkordb_tpu/algos/bfs_packed.py:218"),
+        Kernel("packed_counts", "falkordb_tpu_torch/csrc/packed_counts.cu",
+               "falkordb_tpu/algos/bfs_packed.py:263"),
     )
 }
 
@@ -95,6 +106,13 @@ _SIGNATURES = {
                 _P],
     "fk_segment_sum_pull": [_P, _P, _P, _I64, _P, _P, _P],
     "fk_bfs_parents": [_P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _P],
+    "fk_packed_reach": [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _P, _I64,
+                        _P, _I64, _I64, _P],
+    "fk_packed_epilogue": [_P, _P, _P, _I64, _I64, _P, _I64, _P, _I64, _INT,
+                           _P, _P],
+    "fk_packed_seed": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P, _P, _I64,
+                       _I64, _INT, _P],
+    "fk_packed_counts": [_P, _I64, _I64, _I64, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,10 @@ import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
 from falkordb_tpu_torch.algos.betweenness import segment_sum_pull
 from falkordb_tpu_torch.algos.bfs import bfs_levels, bfs_parents
+from falkordb_tpu_torch.algos.bfs_packed import (
+    PackedChunk, chunk_reach, packed_counts, packed_epilogue, packed_seed,
+    sparse_reach,
+)
 from falkordb_tpu_torch.algos.pagerank import pagerank_transposed
 from falkordb_tpu_torch.algos.sssp import sssp_run
 from falkordb_tpu_torch.algos.wcc import wcc_run
@@ -28,7 +32,8 @@ PKG = os.path.dirname(os.path.abspath(falkordb_tpu_torch.__file__))
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "bench_port.py")]
     for root, _dirs, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return out
@@ -109,10 +114,22 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
     segment_sum_pull(at, torch.ones(3), "bc_push_counts")
     segment_sum_pull(at, torch.ones(3), "bc_pull_deps")
     bfs_parents(at, 0)
+    one = torch.tensor([1], dtype=torch.int64)
+    visited, frontier = packed_seed(2, 1, torch.int16, 0, True, one, one)
+    reach = torch.zeros_like(visited)
+    colsT = torch.tensor([[1, 2]], dtype=torch.int32)
+    chunk_reach(PackedChunk(0, 2, 1, colsT, False), frontier, reach)
+    sparse_reach(torch.tensor([0, 1], dtype=torch.int32), colsT, frontier,
+                 reach)
+    packed_epilogue(reach, visited, frontier,
+                    torch.tensor([[0, 2]], dtype=torch.int64))
+    packed_counts(visited, 16)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == {
         "expand": 0, "group_partials": 0, "topk": 0, "bfs_levels": 0,
         "pagerank": 0, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
-        "bc_pull_deps": 0, "bfs_parents": 0}
+        "bc_pull_deps": 0, "bfs_parents": 0, "packed_chunk_reach": 0,
+        "packed_sparse_reach": 0, "packed_epilogue": 0, "packed_seed": 0,
+        "packed_counts": 0}
     assert cuda._lib is None  # nothing was built or loaded
 
 
