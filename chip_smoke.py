@@ -1,8 +1,10 @@
 """Drive falkordb_tpu_torch on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py              # the full run: P = 430,000, RMAT-22
+    python3 chip_smoke.py              # the full run: P = 430,000, RMAT-22,
+                                       # 1,000,000 + 1,183,514 vectors
     python3 chip_smoke.py --persons N  # a smaller LDBC-shaped graph
     python3 chip_smoke.py --rmat-scale S  # a smaller RMAT graph for the BFS
+    python3 chip_smoke.py --vectors N  # smaller vector indexes
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -15,7 +17,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    after a warm-up) beside its memory-traffic bound, its plain version and,
    where one exists, the one PyTorch call that computes the same function.
    The packed-BFS kernels also run a whole small BFS for every word type
-   (int8, int16, int32) against the same BFS on the host.
+   (int8, int16, int32) against the same BFS on the host.  The vector
+   kernels run at SIFT1M's build and query shapes (below); K13's library
+   column is the product alone (torch.mm, TF32 off), K14's index_add_,
+   K15's torch.mv over the same rows made contiguous.
 4. Main paths, each with the launch counts set to 0 just before it and
    read just after:
    a. The README demo, then an LDBC SNB SF1-class graph (the generator
@@ -33,6 +38,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
       forward CSR reaches, with the same edge counts, and a run that gathers
       every chunk at the first device level must give the same visited bits
       and levels.
+   c. The vector index, on two indexes of ANN-Benchmarks' shapes whose
+      vectors are seeded Gaussian mixtures of 1,000 components (the real
+      vectors are not in the repository): sift-128-euclidean (1,000,000 x
+      128, L2) and glove-100-angular (1,183,514 x 100, cosine; n * nlist
+      passes 2^31).  Each is bulk-inserted as Item nodes, indexed with
+      CREATE VECTOR INDEX (k-means on the card: K13, K14) and queried
+      through db.idx.vector.queryNodes at k = 10 (K15): 1,000 queries on
+      SIFT and 200 on GloVe (cuts from the benchmark's 10,000, for time),
+      held to recall@10 >= 0.9 against a float64 oracle on the card; the
+      same queries on the plain path of the same index give the same ids up
+      to float32 ties (distances within tie_band of the 10th: K15's error
+      bound); 20 (10) queries with every list probed give the oracle's top
+      10 up to such ties; one
+      profiled pass of 100 queries gives the card's busy share.  On SIFT,
+      1,000 SETs of existing vectors and 1,000 creations (one query each)
+      and 100 deletions go through the delta path: each written vector
+      comes back as its own nearest at distance 0, every score is the
+      distance to its node's current vector (no tombstoned row comes
+      back), and deleted nodes never come back.  Last, an exact-store
+      index (n = 5,000 < IVF_MIN) of integer vectors gives identical rows
+      on FalkorDB() and FalkorDB(device="cpu").
    Every kernel of a path must have launched during that path.
 
 The line before the last is a JSON object {"kernels": [...]} and the last
@@ -72,13 +98,20 @@ from falkordb_tpu_torch.algos.common import compact_adjacency
 from falkordb_tpu_torch.algos.pagerank import pagerank_plain, pagerank_transposed
 from falkordb_tpu_torch.algos.sssp import sssp_plain, sssp_run
 from falkordb_tpu_torch.algos.wcc import wcc_plain, wcc_run
+from falkordb_tpu_torch.index import vector_index
+from falkordb_tpu_torch.index.vector_index import (
+    kmeans_assign, kmeans_assign_plain, kmeans_update, kmeans_update_plain,
+    vector_scores, vector_scores_plain,
+)
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.runtime.ops import (
     group_partials, group_partials_plain, topk_smallest, topk_smallest_plain,
 )
+from falkordb_tpu_torch.runtime.value import VectorF32
 from falkordb_tpu_torch.sparse.ops import expand, expand_plain
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+FP32_FLOPS_PER_S = 66.9e12  # H100 SXM float32 outside the tensor cores
 SEED = 42
 SF1_PERSONS = 430_000
 
@@ -553,8 +586,10 @@ def cuda_ms(fn, reps=7, setup=None):
     return statistics.median(times)
 
 
-def bound_ms(nbytes):
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(nbytes, flops=0):
+    """The least milliseconds the card could take: the larger of the bytes
+    over the memory rate and the float32 operations over their peak."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
 
 
 def _max_err(x, y):
@@ -581,13 +616,26 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "packed_epilogue": "exact (visited, frontier, flags)",
     "packed_seed": "exact", "packed_counts": "rtol 1e-6 (float64 sums of "
                                              "integer weights, rounded once "
-                                             "to float32)"}
+                                             "to float32)",
+    "kmeans_assign": "exact on constructed ties; equal wherever the two "
+                     "nearest centroids are more than 1e-5 of |x|^2 + |c|^2 "
+                     "apart, else within that of the float64 minimum "
+                     "(float32 sums in other orders); max_abs_err: float64 "
+                     "squared distance of its pick against the plain pick's",
+    "kmeans_update": "rtol 1e-4 atol 1e-5 (float32 sums in another order "
+                     "than index_add_'s); two runs bit-identical",
+    "vector_scores": "cosine rtol 1e-5 atol 1e-6; euclidean squared "
+                     "scores within d * 2^-23 * (|m|^2 + |q|^2), the float32 "
+                     "bound of the cancelling formula (sums in other "
+                     "orders)"}
 
 
-def _row(name, shape, ms, plain_ms, library_ms, nbytes, err, **extra):
+def _row(name, shape, ms, plain_ms, library_ms, nbytes, err, flops=0,
+         **extra):
+    by_ops = flops / FP32_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
     r = {"name": name, "shape": shape, "ms": ms, "plain_ms": plain_ms,
-         "library_ms": library_ms, "bound_ms": bound_ms(nbytes),
-         "bound_by": "bytes", "max_abs_err": err,
+         "library_ms": library_ms, "bound_ms": bound_ms(nbytes, flops),
+         "bound_by": "operations" if by_ops else "bytes", "max_abs_err": err,
          "tolerance": TOLERANCE[name], **extra}
     print(f"kernel {json.dumps(r)}", flush=True)
     return r
@@ -1047,6 +1095,445 @@ def bfs_path(prep, dev, rng):
     return stats
 
 
+# -- the vector index: ANN-Benchmarks shapes -----------------------------------
+
+
+@dataclasses.dataclass
+class AnnConfig:
+    name: str
+    n: int
+    d: int
+    metric: str  # the index's similarityFunction
+    queries: int  # of the benchmark's 10,000 test vectors
+    all_lists: int  # queries also run with every list probed
+    source: str
+
+
+SIFT = AnnConfig("sift-128-euclidean", 1_000_000, 128, "euclidean", 1000, 20,
+                 "ANN-Benchmarks sift-128-euclidean: 1,000,000 base vectors, "
+                 "d = 128, L2, k = 10")
+GLOVE = AnnConfig("glove-100-angular", 1_183_514, 100, "cosine", 200, 10,
+                  "ANN-Benchmarks glove-100-angular: 1,183,514 base vectors, "
+                  "d = 100, angular, k = 10")
+ANN_COMPONENTS = 1000
+ANN_K = 10
+ANN_WRITES = 1000  # SET x.emb on existing nodes, then as many creations
+ANN_DELETES = 100
+ANN_CYPHER = ("CALL db.idx.vector.queryNodes('Item', 'emb', 10, vecf32($q)) "
+              "YIELD node, score RETURN node.id, score")
+
+
+def mixture(n, d, rng):
+    """n base vectors, drawn from one seeded Gaussian mixture of
+    ANN_COMPONENTS components (tests/test_vector_ivf.py's generator: centres
+    N(0, 16) per coordinate, spread 0.6), float32; and draw(m) for more
+    vectors of the same mixture (the queries, the writes)."""
+    centers = rng.standard_normal((ANN_COMPONENTS, d), dtype=np.float32) * 4.0
+
+    def draw(m):
+        out = rng.standard_normal((m, d), dtype=np.float32)
+        out *= 0.6
+        out += centers[rng.integers(0, ANN_COMPONENTS, m)]
+        return out
+
+    return draw(n), draw
+
+
+def ann_nlist(n):
+    """The reference's default list count (vector_index.py:109-110)."""
+    return min(4096, max(16, int(np.sqrt(n) * 2)))
+
+
+def picked_d2(X, C64, assign, chunk=1 << 18):
+    """The float64 squared distance |x|^2 - 2 x.c + |c|^2 of each row of X
+    to its assigned centroid of C64, in row chunks."""
+    c2 = (C64 * C64).sum(1)
+    out = torch.empty(X.shape[0], dtype=torch.float64, device=X.device)
+    for lo in range(0, X.shape[0], chunk):
+        x = X[lo:lo + chunk].double()
+        a = assign[lo:lo + chunk]
+        out[lo:lo + chunk] = ((x * x).sum(1) - 2.0 * (x * C64[a]).sum(1)
+                              + c2[a])
+    return out
+
+
+def check_assign_ties(dev):
+    """K13 on exact ties across its tiles (128 rows a block, 128 centroids a
+    tile, 8 a thread): integer-valued rows and centroids, so every float32
+    step is exact; one centroid repeated within a thread's 8, across
+    threads and across tiles, and zero rows (empty clusters) in the same
+    places.  K13 must give float64 argmin's first minimum, exactly."""
+    rng = np.random.default_rng(SEED + 10)
+    n, nlist = 3000, 300  # partial last row block and centroid tile
+    for d in (6, 24):  # a tail of the 16-column slice; two slices
+        X = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+        C = rng.integers(-4, 5, size=(nlist, d)).astype(np.float32)
+        C[[7, 20, 130, 290]] = C[3]
+        C[[30, 31, 35, 200, 257, 299]] = 0.0
+        X[:200] = C[3]
+        X[200:300] = 0.0
+        x, c = X.astype(np.float64), C.astype(np.float64)
+        d2 = (x * x).sum(1)[:, None] - 2.0 * x @ c.T + (c * c).sum(1)[None]
+        srt = np.sort(d2, 1)
+        ties = int((srt[:, 0] == srt[:, 1]).sum())
+        want = d2.argmin(1)  # the first of equal minima
+        got = kmeans_assign(torch.from_numpy(X).to(dev),
+                            torch.from_numpy(C).to(dev)).cpu().numpy()
+        assert ties >= 300 and (want[:200] == 3).all() and \
+            (want[200:300] == 30).all(), (d, ties)
+        assert np.array_equal(got, want), \
+            f"kmeans_assign ties d={d}: {int((got != want).sum())} rows"
+        print(f"kmeans_assign ties: n={n} d={d} nlist={nlist} tied rows="
+              f"{ties} equal to float64 argmin", flush=True)
+
+
+def check_vector_kernels(X, dev, rng):
+    """K13-K15 against their plain versions on the card at SIFT1M's build
+    and query shapes: K13 on constructed exact ties, on the initial
+    centroids (rows of X, as _kmeans picks them) and after one update (a
+    row may differ from the plain pick only at a tie, and K13's pick must
+    be within the tie of the float64 minimum), K14 on that assignment
+    (twice, bit for bit), K15 on the centroids, on one query's probed lists
+    and on an exact store of IVF_MIN - 8 rows, both metrics.  The library
+    columns are the product alone, in float32 (TF32 off)."""
+    n, d = X.shape
+    nlist = ann_nlist(n)
+    Xd = torch.from_numpy(X).to(dev)
+    C0 = Xd[torch.from_numpy(np.random.default_rng(3).choice(
+        n, size=nlist, replace=False)).to(dev)].contiguous()
+    flops = 2 * n * nlist * d
+    nbytes = 4 * n * d + 4 * nlist * d + 8 * n
+    rows = {"kmeans_assign": [], "kmeans_update": [], "vector_scores": []}
+    check_assign_ties(dev)
+    x2 = (Xd.double() ** 2).sum(1)
+    C = C0
+    for step in ("initial centroids", "after one update"):
+        ak = kmeans_assign(Xd, C)
+        ap = kmeans_assign_plain(Xd, C)
+        torch.cuda.synchronize()
+        Cd = C.double()
+        c2 = (Cd * Cd).sum(1)
+        dk, dp = picked_d2(Xd, Cd, ak), picked_d2(Xd, Cd, ap)
+        diff = torch.nonzero(ak != ap).flatten()
+        if diff.numel():  # allowed only where K13 picked one of a tie
+            d2 = (x2[diff, None] - 2.0 * Xd[diff].double() @ Cd.T
+                  + c2[None, :])
+            two = torch.topk(d2, 2, dim=1, largest=False).values
+            scale = x2[diff] + c2[ak[diff]]
+            gap = ((two[:, 1] - two[:, 0]) / scale).max().item()
+            off = ((dk[diff] - two[:, 0]) / scale).max().item()
+            assert gap <= 1e-5 and off <= 1e-5, \
+                f"kmeans_assign {step}: gap {gap:.3e}, pick off {off:.3e}"
+        share = diff.numel() / n
+        empty = nlist - int(torch.unique(ak).numel())
+        rel = float(((dk - dp).abs() / (x2 + c2[ak])).max())
+        rows["kmeans_assign"].append(_row(
+            "kmeans_assign", f"sift-128 {step}: n={n} d={d} nlist={nlist} "
+            f"empty={empty} rows differing from plain={diff.numel()} "
+            f"({share:.2e})", cuda_ms(lambda: kmeans_assign(Xd, C)),
+            cuda_ms(lambda: kmeans_assign_plain(Xd, C)),
+            cuda_ms(lambda: torch.mm(Xd, C.T)), nbytes, _max_err(dk, dp),
+            flops=flops, differing_share=share, max_rel_gap=rel))
+        uk = kmeans_update(Xd, ak, nlist)
+        if step == "initial centroids":
+            C = uk
+    up = kmeans_update_plain(Xd, ak, nlist)
+    again = kmeans_update(Xd, ak, nlist)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(uk, up, rtol=1e-4, atol=1e-5)
+    assert torch.equal(uk.view(torch.int32), again.view(torch.int32)), \
+        "kmeans_update: two runs differ"
+    rows["kmeans_update"].append(_row(
+        "kmeans_update", f"sift-128 after one update: n={n} d={d} "
+        f"nlist={nlist} empty={nlist - int(torch.unique(ak).numel())}",
+        cuda_ms(lambda: kmeans_update(Xd, ak, nlist)),
+        cuda_ms(lambda: kmeans_update_plain(Xd, ak, nlist)),
+        cuda_ms(lambda: torch.zeros(nlist, d, device=dev).index_add_(
+            0, ak, Xd)), 4 * n * d + 8 * n + 4 * nlist * d,
+        _max_err(uk, up), flops=n * d, bit_identical_runs=True))
+
+    # K15 on what a query reads: the centroids, its probed lists of the
+    # grouped matrix, an exact store
+    order = torch.sort(ak, stable=True).indices
+    grouped = Xd[order].contiguous()
+    indptr = torch.zeros(nlist + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(ak, minlength=nlist), 0)
+    q = torch.from_numpy(X[int(rng.integers(0, n))] + rng.standard_normal(
+        d, dtype=np.float32) * 0.3).to(dev)
+    exact = Xd[: vector_index.IVF_MIN - 8].contiguous()
+    for metric in ("euclidean", "cosine"):
+        if metric == "cosine":
+            norm = lambda t: (t / t.norm(dim=-1, keepdim=True)).contiguous()
+            Cm, Gm, Em, qm = norm(C), norm(grouped), norm(exact), norm(q)
+        else:
+            Cm, Gm, Em, qm = C, grouped, exact, q
+        cd = vector_scores(Cm, qm, metric).cpu().numpy()
+        lists = np.argpartition(cd, max(1, nlist // 8) - 1)[:nlist // 8]
+        starts, offsets = vector_index.list_ranges(indptr.cpu().numpy(),
+                                                   lists)
+        total = int(offsets[-1])
+        st, of = (torch.from_numpy(a).to(dev) for a in (starts, offsets))
+        probed = Gm[torch.from_numpy(vector_index.list_rows(
+            starts, offsets)).to(dev)].contiguous()
+        for what, M, sel, r in (("centroids", Cm, (), nlist),
+                                ("probed lists", Gm, (st, of, total), total),
+                                ("exact store", Em, (), Em.shape[0])):
+            sk = vector_scores(M, qm, metric, *sel)
+            sp = vector_scores_plain(M, qm, metric, *sel)
+            torch.cuda.synchronize()
+            dense = probed if what == "probed lists" else M
+            if metric == "cosine":
+                torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-6)
+            else:  # |m|^2 - 2 m.q + |q|^2 cancels: ulps of its terms
+                scale = (dense.double() ** 2).sum(1) + (qm.double() ** 2).sum()
+                off = (sk.double() ** 2 - sp.double() ** 2).abs() / scale
+                assert float(off.max()) <= d * 2.0 ** -23, \
+                    f"vector_scores {what}: {float(off.max()):.3e}"
+            rows["vector_scores"].append(_row(
+                "vector_scores", f"sift-128 {metric} {what}: rows={r} d={d}"
+                + (f" lists={len(lists)}" if sel else ""),
+                cuda_ms(lambda: vector_scores(M, qm, metric, *sel)),
+                cuda_ms(lambda: vector_scores_plain(M, qm, metric, *sel)),
+                cuda_ms(lambda: torch.mv(dense, qm)),
+                4 * r * d + 4 * r + 4 * d, _max_err(sk, sp),
+                flops=(2 if metric == "cosine" else 4) * r * d))
+    return rows
+
+
+@contextlib.contextmanager
+def plain_scores():
+    """The vector index scores with K15's plain version for the block."""
+    vector_index.vector_scores = vector_scores_plain
+    try:
+        yield
+    finally:
+        vector_index.vector_scores = vector_scores
+
+
+def ann_oracle(X, Q, metric, dev, k):
+    """The exact k nearest base rows of each query, (ids, distances), in
+    float64 on the card: the check, not the path."""
+    Xd = torch.from_numpy(X).to(dev, torch.float64)
+    Qd = torch.from_numpy(Q).to(dev, torch.float64)
+    if metric == "cosine":
+        Xd /= Xd.norm(dim=1, keepdim=True)
+        Qd /= Qd.norm(dim=1, keepdim=True)
+    x2 = (Xd * Xd).sum(1)
+    ids, dist = [], []
+    for lo in range(0, len(Q), 64):
+        q = Qd[lo:lo + 64]
+        if metric == "cosine":
+            dd = 1.0 - q @ Xd.T
+        else:
+            dd = ((q * q).sum(1)[:, None] - 2.0 * q @ Xd.T
+                  + x2[None, :]).clamp_(min=0.0)
+        v, i = torch.topk(dd, k, dim=1, largest=False)
+        ids.append(i.cpu())
+        dist.append((v if metric == "cosine" else v.sqrt()).cpu())
+    del Xd, Qd, x2
+    return torch.cat(ids).numpy(), torch.cat(dist).numpy()
+
+
+def tie_band(metric, q, kth):
+    """How far a score near the k-th, kth, can be from another float32
+    computation of it: the bound the K15 check holds squared distances to,
+    d * 2^-23 * (|m|^2 + |q|^2), with |m| <= |q| + kth for the rows near
+    the k-th, taken back to a distance.  Cosine scores of unit vectors are
+    half their squared distance, whose scale is 2: the band is d * 2^-23."""
+    eps = len(q) * 2.0 ** -23
+    if metric == "cosine":
+        return eps
+    qn = float(np.linalg.norm(q.astype(np.float64)))
+    b = eps * ((qn + kth) ** 2 + qn ** 2)
+    return float(np.sqrt(kth * kth + b) - kth)
+
+
+def topk_agrees(got, ref_ids, ref_dist, band, k=ANN_K):
+    """(ok, tied): `got` holds k ids that are the reference's first k up to
+    float32 ties: every id clearly inside the reference's k-th distance,
+    and only ids within `band` (tie_band) of it.  tied: the sets differ at
+    a tie."""
+    kth = ref_dist[k - 1]
+    inside = set(ref_ids[ref_dist < kth - band].tolist())
+    near = set(ref_ids[ref_dist <= kth + band].tolist())
+    g = set(got)
+    return (len(got) == len(g) == k and inside <= g <= near,
+            g != set(ref_ids[:k].tolist()))
+
+
+def load_items(g, X, first_id=0):
+    """bulk_insert the rows of X as Item nodes with `id` and `emb`."""
+    g.bulk_insert(nodes=[(["Item"], len(X), {
+        "id": list(range(first_id, first_id + len(X))),
+        "emb": [VectorF32(r) for r in X]})])
+
+
+def vector_impl(db, name):
+    return next(d.impl for d in db._get_or_create(name).indexes.values()
+                if d.kind == "vector")
+
+
+def ann_path(cfg, X, draw, dev, rng, writes):
+    """One ANN-Benchmarks-shaped deployment end to end on the card:
+    bulk_insert, CREATE VECTOR INDEX, cfg.queries queries through Cypher
+    (latency, recall@10 against the float64 oracle), the same queries on
+    the plain path of the same index, cfg.all_lists queries with every list
+    probed (the oracle's top-10 up to float32 ties), one profiled pass for
+    the card's busy share, and with `writes` the delta path."""
+    db = FalkorDB()
+    g = db.select_graph(cfg.name)
+    t0 = time.perf_counter()
+    load_items(g, X)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g.query(f"CREATE VECTOR INDEX FOR (x:Item) ON (x.emb) OPTIONS "
+            f"{{dimension: {cfg.d}, similarityFunction: '{cfg.metric}'}}")
+    build_s = time.perf_counter() - t0
+    impl = vector_impl(db, cfg.name)
+    nlist = len(impl.ivf["indptr"]) - 1
+    assert impl.matrix.device.type == dev.type and nlist == ann_nlist(cfg.n)
+    Q = draw(cfg.queries)
+    times, got = [], []
+    for q in Q:
+        t0 = time.perf_counter()
+        rows = g.query(ANN_CYPHER, {"q": q.tolist()}).result_set
+        times.append((time.perf_counter() - t0) * 1e3)
+        got.append([r[0] for r in rows])
+    o_ids, o_dist = ann_oracle(X, Q, cfg.metric, dev, ANN_K + 10)
+    recall = float(np.mean([len(set(a) & set(b[:ANN_K].tolist())) / ANN_K
+                            for a, b in zip(got, o_ids)]))
+    assert recall >= 0.9, f"{cfg.name}: recall@10 {recall}"
+    with plain_scores():
+        plain = [impl.query(q, ANN_K + 10) for q in Q]
+    plain_ties, bands, rel = 0, [], []
+    for i, p in enumerate(plain):
+        dist = np.array([s for _, s in p])
+        bands.append(tie_band(cfg.metric, Q[i], dist[ANN_K - 1]))
+        rel.append(bands[-1] / max(dist[ANN_K - 1], 1e-30))
+        ok, tied = topk_agrees(got[i], np.array([e for e, _ in p]), dist,
+                               bands[-1])
+        assert ok, f"{cfg.name} query {i}: kernel {got[i]} plain {p[:11]}"
+        plain_ties += tied
+    exact_ties = 0
+    for i in range(cfg.all_lists):
+        r = impl.query(Q[i], ANN_K, nprobe=nlist)
+        band = tie_band(cfg.metric, Q[i], o_dist[i][ANN_K - 1])
+        ok, tied = topk_agrees([e for e, _ in r], o_ids[i], o_dist[i], band)
+        assert ok, f"{cfg.name} all lists, query {i}: {r} {o_ids[i][:11]}"
+        exact_ties += tied
+    wall = []
+
+    def profiled():
+        t0 = time.perf_counter()
+        for q in Q[:100]:
+            g.query(ANN_CYPHER, {"q": q.tolist()})
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    by_kernel = bench_port.device_times(profiled)
+    dev_ms = sum(by_kernel.values()) if by_kernel else None
+    st = {"source": cfg.source, "n": cfg.n, "d": cfg.d, "nlist": nlist,
+          "nprobe": max(1, nlist // 8), "queries": cfg.queries,
+          "load_s": load_s, "build_s": build_s, "build_steps_s": impl.timings,
+          "grouped_matrix_bytes": impl.matrix.numel() * 4,
+          "p50_ms": float(np.percentile(times, 50)),
+          "p99_ms": float(np.percentile(times, 99)),
+          "recall_at_10": recall, "plain_path_ties": plain_ties,
+          "tie_band_median": float(np.median(bands)),
+          "tie_band_rel_max": float(max(rel)),
+          "all_lists_queries": cfg.all_lists, "all_lists_ties": exact_ties,
+          "profiled_queries": 100, "profiled_wall_ms": wall[0],
+          "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
+          "busy_share": None if dev_ms is None else dev_ms / wall[0]}
+    if writes:
+        st["writes"] = ann_writes(g, db, impl, X, draw, rng, cfg)
+    print(f"vector {cfg.name}: {json.dumps(st)} oracle=ok plain=ok "
+          f"all_lists=exact", flush=True)
+    return st
+
+
+def ann_writes(g, db, impl, X, draw, rng, cfg):
+    """ANN_WRITES SETs of existing vectors and ANN_WRITES creations, one
+    query each, then ANN_DELETES deletions in one query, all through the
+    delta path (no rebuild, no
+    compaction at this size).  Each written vector must come back as its
+    own nearest at distance 0; each answer's score must be the distance to
+    its node's current vector, so no tombstoned row comes back; deleted
+    nodes never come back."""
+    n = len(X)
+    set_ids = rng.choice(n, ANN_WRITES, replace=False)
+    del_ids = rng.choice(np.setdiff1d(np.arange(n), set_ids), ANN_DELETES,
+                         replace=False)
+    new_set, new_made = draw(ANN_WRITES), draw(ANN_WRITES)
+    made_ids = np.arange(n, n + ANN_WRITES)
+    t0 = time.perf_counter()
+    for i, v in zip(set_ids.tolist(), new_set):
+        g.query("MATCH (x:Item) WHERE id(x) = $id SET x.emb = vecf32($v)",
+                {"id": i, "v": v.tolist()})
+    set_s = time.perf_counter() - t0
+    for i, v in zip(made_ids.tolist(), new_made):
+        g.query("CREATE (:Item {id: $id, emb: vecf32($v)})",
+                {"id": i, "v": v.tolist()})
+    g.query("MATCH (x:Item) WHERE id(x) IN $ids DELETE x",
+            {"ids": del_ids.tolist()})
+    write_s = time.perf_counter() - t0
+    assert vector_impl(db, cfg.name) is impl, "a write rebuilt the index"
+    assert len(impl.delta_ids) == 2 * ANN_WRITES
+    assert len(impl.deleted) == ANN_WRITES + ANN_DELETES
+    current = dict(zip(made_ids.tolist(), new_made))
+    current.update(zip(set_ids.tolist(), new_set))
+    gone = set(del_ids.tolist())
+    ulps = cfg.d * 2.0 ** -23  # the float32 bound of the score's sums
+
+    def check(q, answer):
+        q64 = q.astype(np.float64)
+        for e, s in answer:
+            assert e not in gone, f"deleted node {e} came back"
+            v = current.get(e)
+            v = (X[e] if v is None else v).astype(np.float64)
+            want = np.sum((v - q64) ** 2)
+            scale = np.sum(v * v) + np.sum(q64 * q64)
+            assert abs(s * s - want) <= ulps * scale, (e, s, want ** 0.5)
+
+    t0 = time.perf_counter()
+    for e, v in current.items():
+        answer = impl.query(v, ANN_K)
+        assert answer[0] == (e, 0.0), (e, answer[:2])
+        check(v, answer)
+    for e in np.concatenate([del_ids, set_ids[:200]]).tolist():
+        check(X[e], impl.query(X[e], ANN_K))
+    readback_s = time.perf_counter() - t0
+    return {"sets": ANN_WRITES, "creations": ANN_WRITES,
+            "deletions": ANN_DELETES, "set_s": set_s, "write_s": write_s,
+            "readback_queries": len(current) + ANN_DELETES + 200,
+            "readback_s": readback_s, "delta_rows": len(impl.delta_ids),
+            "tombstones": len(impl.deleted)}
+
+
+def small_vector_index(rng):
+    """An exact-store index (n < IVF_MIN) on FalkorDB() and on
+    FalkorDB(device="cpu"): integer-valued vectors, so every float32 step
+    is exact and the rows (ids, scores, tie order) must be identical."""
+    n, d = 5000, 24
+    M = rng.integers(-8, 9, (n, d)).astype(np.float32)
+    Q = rng.integers(-8, 9, (50, d)).astype(np.float32)
+    out = []
+    for db in (FalkorDB(), FalkorDB(device="cpu")):
+        g = db.select_graph("small_vectors")
+        load_items(g, M)
+        g.query(f"CREATE VECTOR INDEX FOR (x:Item) ON (x.emb) OPTIONS "
+                f"{{dimension: {d}, similarityFunction: 'euclidean'}}")
+        assert vector_impl(db, "small_vectors").ivf is None
+        out.append([g.query(ANN_CYPHER, {"q": q.tolist()}).result_set
+                    for q in Q])
+    assert out[0] == out[1], "card and CPU rows differ"
+    for q, rows in zip(Q, out[0]):
+        d2 = ((M - q) ** 2).sum(1)  # exact in float32 here
+        assert [r[1] for r in rows] == np.sqrt(np.sort(d2)[:ANN_K]).tolist()
+    print(f"vector small exact store: n={n} d={d} queries={len(Q)} "
+          f"card_rows=cpu_rows oracle=ok", flush=True)
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 
@@ -1110,6 +1597,7 @@ LDBC_KERNELS = ("expand", "group_partials", "topk", "bfs_levels", "pagerank",
                 "wcc", "sssp", "bc_push_counts", "bc_pull_deps", "bfs_parents")
 BFS_KERNELS = ("packed_seed", "packed_sparse_reach", "packed_chunk_reach",
                "packed_epilogue", "packed_counts")
+VECTOR_KERNELS = ("kmeans_assign", "kmeans_update", "vector_scores")
 
 
 def main(argv=None):
@@ -1119,8 +1607,15 @@ def main(argv=None):
     ap.add_argument("--rmat-scale", type=int, default=22,
                     help="RMAT scale of the batched BFS path (bench_port.py's "
                          "full size is 24)")
+    ap.add_argument("--vectors", type=int, default=SIFT.n,
+                    help="base vectors of the sift-128-euclidean index "
+                         "(1000000); glove-100-angular is cut in proportion")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full
+    sift = dataclasses.replace(SIFT, n=args.vectors)
+    glove = dataclasses.replace(
+        GLOVE, n=round(GLOVE.n * args.vectors / SIFT.n))
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1180,6 +1675,13 @@ def main(argv=None):
         check_segment_sum_pull(store, dev)
     check_packed_words(dev)
     results.update(check_packed(prep, dev))
+    t0 = time.perf_counter()
+    sift_X, sift_draw = mixture(sift.n, sift.d,
+                                np.random.default_rng(SEED + 4))
+    print(f"vectors: {sift.name} n={sift.n} d={sift.d} "
+          f"gen_s={time.perf_counter() - t0:.1f}", flush=True)
+    results.update(check_vector_kernels(sift_X, dev,
+                                        np.random.default_rng(SEED + 5)))
 
     # phase 4: the main paths, each with its launches counted from just
     # before it to just after it
@@ -1210,12 +1712,35 @@ def main(argv=None):
     missing = [k for k in BFS_KERNELS if bfs_launches[k] == 0]
     assert not missing, f"kernels not launched on the BFS path: {missing}"
     launches.update(bfs_launches)
+    del prep
+
+    cuda.reset_launches()
+    vec_stats = {sift.name: ann_path(sift, sift_X, sift_draw, dev,
+                                     np.random.default_rng(SEED + 6),
+                                     writes=True)}
+    del sift_X
+    glove_X, glove_draw = mixture(glove.n, glove.d,
+                                  np.random.default_rng(SEED + 7))
+    vec_stats[glove.name] = ann_path(glove, glove_X, glove_draw, dev,
+                                     np.random.default_rng(SEED + 8),
+                                     writes=False)
+    del glove_X
+    small_vector_index(np.random.default_rng(SEED + 9))
+    vec_launches = {k: cuda.KERNELS[k].launches for k in VECTOR_KERNELS}
+    print(f"main path launches (vector index): {json.dumps(vec_launches)}",
+          flush=True)
+    missing = [k for k in VECTOR_KERNELS if vec_launches[k] == 0]
+    assert not missing, f"kernels not launched on the vector path: {missing}"
+    launches.update(vec_launches)
 
     # the kernels line: one shape each, as the main path runs it — expand
     # over KNOWS out-edges, group partials over the n ~ 5M super-batch,
     # top-k at k = 10, BFS to the fixpoint, PageRank over Person / KNOWS,
-    # the packed gather-OR over one full level; max_abs_err over every shape
-    main_row = {"group_partials": 1, "pagerank": 1}
+    # the packed gather-OR over one full level, k-means assignment after one
+    # update, scores over one query's probed lists (euclidean); max_abs_err
+    # over every shape
+    main_row = {"group_partials": 1, "pagerank": 1, "kmeans_assign": 1,
+                "vector_scores": 1}
     kernels = []
     for name, rows in results.items():
         k = cuda.KERNELS[name]
@@ -1230,7 +1755,8 @@ def main(argv=None):
     with open_out("chip_smoke.json") as f:
         json.dump({"nvidia_smi": smi.stdout.strip(), "persons": args.persons,
                    "rmat_scale": args.rmat_scale, "kernel_rows": results,
-                   "queries": query_stats, "bfs": bfs_stats,
+                   "vectors": args.vectors, "queries": query_stats,
+                   "bfs": bfs_stats, "vector_index": vec_stats,
                    "launches": launches}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,3 +1,3 @@
-"""L3' — indexes: range (sorted-column), fulltext (inverted index).
-The vector index waits for ROADMAP.md module 4.  Reference:
+"""L3' — indexes: range (sorted-column), fulltext (inverted index), vector
+(exact / IVF, kernels K13-K15 on the device).  Reference:
 graph/src/index/."""

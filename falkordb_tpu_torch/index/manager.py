@@ -92,9 +92,9 @@ def build_index(store, d: IndexDef):
 
         d.impl = RangeIndex.build(store, d)
     elif d.kind == "vector":
-        raise NotImplementedError(
-            "vector indexes are not ported to falkordb_tpu_torch yet "
-            "(ROADMAP.md module 4)")
+        from falkordb_tpu_torch.index.vector_index import VectorIndex
+
+        d.impl = VectorIndex.build(store, d)
     elif d.kind == "fulltext":
         from falkordb_tpu_torch.index.fulltext import FulltextIndex
 

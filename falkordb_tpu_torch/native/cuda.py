@@ -75,6 +75,12 @@ KERNELS = {
                "falkordb_tpu/algos/bfs_packed.py:218"),
         Kernel("packed_counts", "falkordb_tpu_torch/csrc/packed_counts.cu",
                "falkordb_tpu/algos/bfs_packed.py:263"),
+        Kernel("kmeans_assign", "falkordb_tpu_torch/csrc/kmeans_assign.cu",
+               "falkordb_tpu/index/vector_index.py:72"),
+        Kernel("kmeans_update", "falkordb_tpu_torch/csrc/kmeans_update.cu",
+               "falkordb_tpu/index/vector_index.py:80"),
+        Kernel("vector_scores", "falkordb_tpu_torch/csrc/vector_scores.cu",
+               "falkordb_tpu/index/vector_index.py:216"),
     )
 }
 
@@ -113,6 +119,9 @@ _SIGNATURES = {
     "fk_packed_seed": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P, _P, _I64,
                        _I64, _INT, _P],
     "fk_packed_counts": [_P, _I64, _I64, _I64, _P, _P, _P, _P],
+    "fk_kmeans_assign": [_P, _P, _I64, _I64, _I64, _P, _P],
+    "fk_kmeans_update": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
+    "fk_vector_scores": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,19 @@ import numpy as np
 FORMAT_VERSION = 1
 
 
+class _Unpickler(pickle.Unpickler):
+    """Reads attribute values as the port's own classes: a checkpoint that
+    falkordb_tpu wrote pickles its VectorF32, points and temporal values
+    under falkordb_tpu's module names, and loading those would import the
+    JAX package and give values that the port's isinstance checks (the
+    vector index's among them) do not recognise."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "falkordb_tpu":
+            module = "falkordb_tpu_torch" + module[len("falkordb_tpu"):]
+        return super().find_class(module, name)
+
+
 def save_db(db, path: str) -> None:
     os.makedirs(path, exist_ok=True)
     names = []
@@ -180,7 +193,7 @@ def load_graph(core, gdir: str) -> None:
         d.base.to(g.device)  # place the adjacency on the store's device now
         g.adj[t] = d
     with open(os.path.join(gdir, "attrs.pkl"), "rb") as f:
-        attrs = pickle.load(f)
+        attrs = _Unpickler(f).load()
     g.node_attrs.cap = g.node_cap
     g.edge_attrs.cap = g.edge_cap
     for aid, data in attrs["node"].items():

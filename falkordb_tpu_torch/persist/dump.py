@@ -116,12 +116,13 @@ def restore_graph_vkeys(core, payloads) -> None:
 
     from falkordb_tpu_torch.graph.attrstore import Column
     from falkordb_tpu_torch.index.manager import IndexDef, build_index
+    from falkordb_tpu_torch.persist.checkpoint import _Unpickler
     from falkordb_tpu_torch.sparse.delta import DeltaMatrix
 
     meta = None
     node_chunks, edge_chunks = [], []
     for payload in payloads:
-        c = pickle.loads(payload)
+        c = _Unpickler(io.BytesIO(payload)).load()
         if c["kind"] == "meta":
             meta = c
         elif c["kind"] == "nodes":

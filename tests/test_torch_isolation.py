@@ -22,6 +22,9 @@ from falkordb_tpu_torch.algos.bfs_packed import (
 from falkordb_tpu_torch.algos.pagerank import pagerank_transposed
 from falkordb_tpu_torch.algos.sssp import sssp_run
 from falkordb_tpu_torch.algos.wcc import wcc_run
+from falkordb_tpu_torch.index.vector_index import (
+    VectorIndex, kmeans_assign, kmeans_update, vector_scores,
+)
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.runtime.ops import group_partials, topk_smallest
 from falkordb_tpu_torch.sparse.csr import CSR
@@ -96,6 +99,40 @@ def test_no_device_means_cuda_and_raises_without_it(tmp_path):
         FalkorDB.load(str(tmp_path / "ck"))
     assert FalkorDB.load(str(tmp_path / "ck"), device="cpu").device.type \
         == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VectorIndex([0], torch.ones(1, 3).numpy(), 3, "euclidean")
+    assert VectorIndex([0], torch.ones(1, 3).numpy(), 3, "euclidean",
+                       device="cpu").matrix.device.type == "cpu"
+
+
+def test_reference_checkpoint_loads_without_jax(tmp_path):
+    """A checkpoint that falkordb_tpu wrote pickles its own value classes;
+    the port loads it (vector index included) without importing JAX."""
+    from falkordb_tpu import FalkorDB as JaxFalkorDB
+
+    jdb = JaxFalkorDB()
+    g = jdb.select_graph("v")
+    g.query("CREATE (:D {id: 1, e: vecf32([1.0, 0.0])}), "
+            "(:D {id: 2, e: vecf32([0.0, 1.0])}), "
+            "(:T {at: point({latitude: 1.5, longitude: 2.5})})")
+    g.query("CREATE VECTOR INDEX FOR (d:D) ON (d.e) "
+            "OPTIONS {dimension: 2, similarityFunction: 'euclidean'}")
+    jdb.save(str(tmp_path / "ck"))
+    code = ("import sys, falkordb_tpu_torch as F\n"
+            f"g = F.FalkorDB.load({str(tmp_path / 'ck')!r}, device='cpu')"
+            ".select_graph('v')\n"
+            "r = g.query(\"CALL db.idx.vector.queryNodes('D', 'e', 1, "
+            "vecf32([0.1, 0.9])) YIELD node RETURN node.id\")\n"
+            "assert r.result_set == [[2]], r.result_set\n"
+            "r = g.query('MATCH (t:T) RETURN distance(t.at, "
+            "point({latitude: 1.5, longitude: 2.5}))')\n"
+            "assert r.result_set == [[0.0]], r.result_set\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'falkordb_tpu')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=120)
 
 
 def test_wrappers_on_cpu_take_plain_path_without_launch():
@@ -124,12 +161,19 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
     packed_epilogue(reach, visited, frontier,
                     torch.tensor([[0, 2]], dtype=torch.int64))
     packed_counts(visited, 16)
+    X = torch.zeros(4, 3)
+    kmeans_update(X, kmeans_assign(X, torch.ones(2, 3)), 2)
+    starts = torch.tensor([1], dtype=torch.int64)
+    vector_scores(X, torch.ones(3), "euclidean", starts,
+                  torch.tensor([0, 2], dtype=torch.int64), 2)
+    vector_scores(X, torch.ones(3), "cosine")
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == {
         "expand": 0, "group_partials": 0, "topk": 0, "bfs_levels": 0,
         "pagerank": 0, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
         "bc_pull_deps": 0, "bfs_parents": 0, "packed_chunk_reach": 0,
         "packed_sparse_reach": 0, "packed_epilogue": 0, "packed_seed": 0,
-        "packed_counts": 0}
+        "packed_counts": 0, "kmeans_assign": 0, "kmeans_update": 0,
+        "vector_scores": 0}
     assert cuda._lib is None  # nothing was built or loaded
 
 
