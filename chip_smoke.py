@@ -20,7 +20,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (int8, int16, int32) against the same BFS on the host.  The vector
    kernels run at SIFT1M's build and query shapes (below); K13's library
    column is the product alone (torch.mm, TF32 off), K14's index_add_,
-   K15's torch.mv over the same rows made contiguous.
+   K15's torch.mv over the same rows made contiguous.  K16 runs one level
+   and a whole 64-lane BFS over Person / KNOWS (harmonic centrality's
+   shape) and over the RMAT graph's unsorted transpose from the stepped
+   mode's roots (its hub rows take the block-per-row kernel); K10 with no
+   chunk, K17 (2048 int8 lanes, 64 int32 lanes) and
+   K18 (one step, beside a CSR SpMV) run on the RMAT graph's sorted
+   transpose ELL.
 4. Main paths, each with the launch counts set to 0 just before it and
    read just after:
    a. The README demo, then an LDBC SNB SF1-class graph (the generator
@@ -30,6 +36,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
       the generated tables and against the same database run with
       device="cpu" (row for row; float scores node by node at the kernels'
       tolerances), and the host-only procedures once each on a small graph.
+      Each query runs twice on the card for its p50 (cut from 3, for the
+      run's time), once on the CPU database and once under the profiler.
    b. bench_port.py's batched BFS: RMAT-22 (n = 4,194,304, 67,108,864
       edges; scale is the only cut from bench_port.py's RMAT-24, made to
       fit the run's time limit), 2048 lanes as int16 words, max 24 levels,
@@ -44,21 +52,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
       128, L2) and glove-100-angular (1,183,514 x 100, cosine; n * nlist
       passes 2^31).  Each is bulk-inserted as Item nodes, indexed with
       CREATE VECTOR INDEX (k-means on the card: K13, K14) and queried
-      through db.idx.vector.queryNodes at k = 10 (K15): 1,000 queries on
+      through db.idx.vector.queryNodes at k = 10 (K15): 500 queries on
       SIFT and 200 on GloVe (cuts from the benchmark's 10,000, for time),
       held to recall@10 >= 0.9 against a float64 oracle on the card; the
       same queries on the plain path of the same index give the same ids up
       to float32 ties (distances within tie_band of the 10th: K15's error
       bound); 20 (10) queries with every list probed give the oracle's top
-      10 up to such ties; one
-      profiled pass of 100 queries gives the card's busy share.  On SIFT,
-      1,000 SETs of existing vectors and 1,000 creations (one query each)
+      10 up to such ties; one profiled pass of 100 queries gives the
+      card's busy share.  On SIFT, 150 SETs of existing vectors and 150
+      creations (one query each; cut from 1,000 each, for the run's time)
       and 100 deletions go through the delta path: each written vector
       comes back as its own nearest at distance 0, every score is the
       distance to its node's current vector (no tombstoned row comes
       back), and deleted nodes never come back.  Last, an exact-store
       index (n = 5,000 < IVF_MIN) of integer vectors gives identical rows
       on FalkorDB() and FalkorDB(device="cpu").
+   d. algo.harmonicCentrality over Person / KNOWS on the SF1-class graph
+      (K16, 6,719 batches of 64 lanes), its busy share, 64 sampled
+      persons against a float64 scipy oracle (rel 1e-9); on the small
+      graph of a., the card against the CPU database and an all-pairs
+      oracle (within 1e-9).
+   e. The multi-source BFS family on the RMAT graph of b.: bench_port's
+      stepped mode (64 roots, K16) and packed mode (2048 roots, max 24
+      levels, fused: K9, K10, K12), 8 lanes of each against scipy's BFS,
+      the packed per-lane edge counts equal to b.'s, its stepped form
+      equal; bfs_multi_ell over the unsorted ELL equal to the stepped
+      levels; bfs_multi_ell_sorted fused and stepped (K17) equal to each
+      other and to the packed levels; pagerank_ell (K18) against K5 and a
+      float64 PageRank (rtol 1e-4).
    Every kernel of a path must have launched during that path.
 
 The line before the last is a JSON object {"kernels": [...]} and the last
@@ -87,7 +108,11 @@ from falkordb_tpu_torch.algos.betweenness import (
     segment_sum_pull, segment_sum_pull_plain,
 )
 from falkordb_tpu_torch.algos.bfs import (
-    UNREACHED, bfs_levels, bfs_levels_plain, bfs_parents, bfs_parents_plain,
+    UNREACHED, UNREACHED8, bfs_levels, bfs_levels_plain, bfs_multi,
+    bfs_multi_ell, bfs_multi_ell_packed, bfs_multi_ell_sorted,
+    bfs_multi_plain, bfs_multi_stepped, bfs_parents, bfs_parents_plain,
+    ell_reach_parts, multi_bfs_level, multi_bfs_level_plain,
+    multi_bfs_state_at, packed_init, packed_levels, packed_levels_plain,
 )
 from falkordb_tpu_torch.algos.bfs_packed import (
     bfs_multi_gated, bfs_multi_gated_hostdriven, chunk_bounds, chunk_reach,
@@ -95,7 +120,10 @@ from falkordb_tpu_torch.algos.bfs_packed import (
     packed_seed, packed_seed_plain, packed_to, reach_plain, sparse_reach,
 )
 from falkordb_tpu_torch.algos.common import compact_adjacency
-from falkordb_tpu_torch.algos.pagerank import pagerank_plain, pagerank_transposed
+from falkordb_tpu_torch.algos.harmonic import LANES as HARMONIC_LANES
+from falkordb_tpu_torch.algos.pagerank import (
+    ell_pagerank_step, ell_pagerank_step_plain, pagerank_ell_run, pagerank_plain, pagerank_transposed,
+)
 from falkordb_tpu_torch.algos.sssp import sssp_plain, sssp_run
 from falkordb_tpu_torch.algos.wcc import wcc_plain, wcc_run
 from falkordb_tpu_torch.index import vector_index
@@ -108,6 +136,8 @@ from falkordb_tpu_torch.runtime.ops import (
     group_partials, group_partials_plain, topk_smallest, topk_smallest_plain,
 )
 from falkordb_tpu_torch.runtime.value import VectorF32
+from falkordb_tpu_torch.sparse.csr import CSR
+from falkordb_tpu_torch.sparse.ell import build_blocked_ell
 from falkordb_tpu_torch.sparse.ops import expand, expand_plain
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -469,7 +499,8 @@ def algo_queries(t):
 def small_algorithms(db, db_cpu, rng):
     """algo.labelPropagation, MSF, SPpaths and maxFlow (host numpy in both
     packages, no kernel) once each on a small generated graph, on the card
-    against the CPU database, with scipy oracles for MSF and maxFlow."""
+    against the CPU database, with scipy oracles for MSF and maxFlow.
+    Returns the graph (n, u, v): edges u -> v."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import maximum_flow, minimum_spanning_tree
 
@@ -523,6 +554,7 @@ def small_algorithms(db, db_cpu, rng):
           f"rows={ {k: len(r) for k, r in got.items()} } "
           f"msf_weight={want_msf} maxflow={want_flow} oracle=ok "
           f"cpu_rows=equal", flush=True)
+    return n, u, v
 
 
 MOTOGP = [
@@ -627,7 +659,11 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "vector_scores": "cosine rtol 1e-5 atol 1e-6; euclidean squared "
                      "scores within d * 2^-23 * (|m|^2 + |q|^2), the float32 "
                      "bound of the cancelling formula (sums in other "
-                     "orders)"}
+                     "orders)",
+    "multi_bfs": "exact (levels, next frontier bits, the alive flag)",
+    "packed_levels": "exact",
+    "ell_pagerank": "one step: scores rtol 1e-5 atol 1e-9, L1 change rtol "
+                    "1e-4 (float32 sums in other orders)"}
 
 
 def _row(name, shape, ms, plain_ms, library_ms, nbytes, err, flops=0,
@@ -1038,6 +1074,183 @@ def check_packed_words(dev):
     print("packed BFS, every word type, card against host: equal", flush=True)
 
 
+# -- the multi-source BFS family: K16-K18 and K10 with no chunk --------------
+
+
+def named_rows(at):
+    """The distinct source rows that a transpose CSR's edges before nnz
+    name: the frontier rows a pull level must read at least once."""
+    cols = at.cols[:int(at.nnz)].to(torch.int64)
+    return int((torch.bincount(cols, minlength=at.n_rows) > 0).sum())
+
+
+def check_multi_bfs(cases):
+    """K16 at the shapes its main paths give it, one case each: (what, the
+    transpose CSR, the roots, whether it has hub rows, timed repetitions).
+    For each, one level from the state after 3 levels (levels, next
+    frontier and alive flag against the plain level) and the run to the
+    fixpoint (bfs_multi against the plain loop), exact; a case with hub
+    rows must hand some to the block-per-row kernel.  Bound per level: the
+    cols and indptr, the frontier words of each distinct source row once
+    (the gather's operand), per node the visited words read and the next
+    frontier written, and the visited words of the rows that gain lanes and
+    the fresh lanes' levels written; the run adds the (n, k) levels written
+    once."""
+    rows = []
+    for what, at, roots, hubs, reps in cases:
+        n, nnz, k = at.n_rows, int(at.nnz), len(roots)
+        R = 4 * (-(-k // 32))  # bytes of a node's frontier words
+        per_level = 4 * nnz + 4 * (n + 1) + R * named_rows(at) + 2 * R * n
+        d = 3
+        l3 = bfs_multi_plain(at, roots, max_depth=d)
+        f3 = (l3 == d).to(torch.int8)
+        want_l, want_f, want_any = multi_bfs_level_plain(
+            at.rows, at.cols, at.nnz, n, f3, l3, d)
+        st = [multi_bfs_state_at(at, l3, f3, d)]
+        n_wide = st[0].wide.numel()
+        assert n_wide > 0 or not hubs, f"multi_bfs {what}: no hub row"
+        multi_bfs_level(at, st[0])
+        torch.cuda.synchronize()
+        assert torch.equal(st[0].levels, want_l), f"multi_bfs {what}: levels"
+        assert torch.equal(st[0].lanes(), want_f), \
+            f"multi_bfs {what}: next frontier"
+        assert st[0].alive == bool(want_any) and st[0].depth == d + 1
+        fresh = int(want_f.sum(dtype=torch.int64))
+        fresh_rows = int(want_f.any(1).sum())
+        del want_l, want_f
+
+        def restore():
+            st[0] = multi_bfs_state_at(at, l3, f3, d)
+
+        rows.append(_row(
+            "multi_bfs", f"{what} n={n} nnz={nnz} k={k} hub rows={n_wide}: "
+            f"one level at depth {d} ({fresh} fresh lanes in {fresh_rows} "
+            f"rows)", cuda_ms(lambda: multi_bfs_level(at, st[0]), reps=reps,
+                              setup=restore),
+            cuda_ms(lambda: multi_bfs_level_plain(at.rows, at.cols, at.nnz, n,
+                                                  f3, l3, d), reps=reps),
+            None, per_level + R * fresh_rows + 4 * fresh, 0.0))
+        del st, l3, f3
+        lk = bfs_multi(at, roots)
+        lp = bfs_multi_plain(at, roots)
+        torch.cuda.synchronize()
+        assert torch.equal(lk, lp), f"multi_bfs {what}: to the fixpoint"
+        del lk
+        top = int(lp[lp != UNREACHED].max())
+        gained = sum(int((lp == x).any(1).sum()) for x in range(1, top + 1))
+        reached = int((lp != UNREACHED).sum())
+        del lp
+        rows.append(_row(
+            "multi_bfs", f"{what} n={n} nnz={nnz} k={k} hub rows={n_wide} to "
+            f"the fixpoint: levels={top + 1} reached (node, lane) pairs="
+            f"{reached}", cuda_ms(lambda: bfs_multi(at, roots), reps=reps),
+            cuda_ms(lambda: bfs_multi_plain(at, roots), reps=reps), None,
+            (top + 1) * per_level + R * gained + 4 * n * k, 0.0))
+    return rows
+
+
+def check_ell_kernels(pprep, at_sorted, dev):
+    """K10 with no chunk, K17 and K18 on the RMAT graph's sorted transpose
+    ELL, at the shapes the ELL BFS family and pagerank_ell give them: from
+    bench_port's 2048 packed roots, the second level's reach (K9) into K10
+    (int32 words, W = 64) against the plain epilogue; its fresh bits into
+    the int8 levels of 2048 lanes and the int32 levels of the first 64
+    (K17) against the plain unpack; one pagerank_ell step from r0 (K18)
+    against the plain step, beside a CSR SpMV over the same transpose.
+    Bounds: K10 reads reach and visited, writes frontier, and writes
+    visited in rows that gained bits; K17 reads the fresh words and reads
+    and writes the level of each fresh lane; K18 reads the padded edges'
+    columns, the gathered contrib vector once, r, inv_out and the dangling
+    mask, and writes r'."""
+    ell = pprep.ell
+    n, k = ell.n, len(pprep.roots)
+    W, visited, frontier, lv8 = packed_init(n, pprep.roots, dev, torch.int8)
+    R = 4 * W
+    parts = ell_reach_parts(ell, dev, by_range=True)
+    reach = torch.zeros_like(visited)
+    none = torch.empty((0, 2), dtype=torch.int64, device=dev)
+    for depth in (0, 1):  # level 1 in full, then level 2's gather
+        for c in parts:
+            chunk_reach(c, frontier, reach)
+        if depth == 0:
+            packed_epilogue(reach, visited, frontier, none)
+            packed_levels(frontier, lv8, 0)
+    vk, fk = visited.clone(), frontier.clone()
+    flags_k = packed_epilogue(reach, vk, fk, none)
+    vp, fp = visited.clone(), frontier.clone()
+    flags_p = packed_epilogue_plain(reach, vp, fp, none)
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vp) and torch.equal(fk, fp) and \
+        torch.equal(flags_k, flags_p) and bool(flags_k[0]), \
+        "packed_epilogue, no chunk"
+    del vp, fp
+
+    def restore_state():
+        vk.copy_(visited)
+        fk.copy_(frontier)
+
+    fresh_rows = int((fk[:n] != 0).any(1).sum())
+    k10 = _row("packed_epilogue", f"ELL family, no chunk: n={n} W={W} int32 "
+               f"k={k} level 2 ({fresh_rows} rows with fresh bits)",
+               cuda_ms(lambda: packed_epilogue(reach, vk, fk, none),
+                       setup=restore_state),
+               cuda_ms(lambda: packed_epilogue_plain(reach, vk, fk, none),
+                       setup=restore_state), None,
+               3 * R * (n + 1) + R * fresh_rows, 0.0)
+    restore_state()
+    packed_epilogue(reach, vk, fk, none)  # fk: level 2's fresh words
+    del visited, frontier, reach, vk
+    rows = []
+    lv32 = torch.where(lv8[:, :64] == UNREACHED8,
+                       torch.full((), UNREACHED, dtype=torch.int32,
+                                  device=dev), lv8[:, :64].to(torch.int32))
+    fresh64 = fk[:, :2].contiguous()
+    for what, fresh, base, lanes in (("int8", fk, lv8, k),
+                                     ("int32", fresh64, lv32, 64)):
+        lk = base.clone()
+        packed_levels(fresh, lk, 1)
+        lp = packed_levels_plain(fresh, base.clone(), 1)
+        torch.cuda.synchronize()
+        assert torch.equal(lk, lp), f"packed_levels {what}"
+        del lp
+        set_ = sum(int(torch.count_nonzero(lk[i:i + (1 << 16)]
+                                           != base[i:i + (1 << 16)]))
+                   for i in range(0, n, 1 << 16))
+        w = fresh.shape[1]
+        rows.append(_row(
+            "packed_levels", f"sorted ELL n={n} k={lanes} {what} levels, level "
+            f"2 ({set_} levels set)", cuda_ms(lambda: packed_levels(
+                fresh, lk, 1), setup=lambda: lk.copy_(base)),
+            cuda_ms(lambda: packed_levels_plain(fresh, lk, 1),
+                    setup=lambda: lk.copy_(base)), None,
+            4 * w * n + 2 * base.element_size() * set_, 0.0))
+        del lk
+    del lv8, lv32, fk, fresh64, parts
+    parts = ell_reach_parts(ell, dev, by_range=False)
+    od = torch.from_numpy(pprep.outdeg_sorted).to(dev)
+    inv_out = torch.where(od > 0, 1.0 / od.clamp(min=1),
+                          torch.zeros((), device=dev))
+    dmask = (od == 0).to(torch.float32)
+    r = torch.full((n,), float(np.float32(1.0 / n)), device=dev)
+    rk, ek = ell_pagerank_step(parts, r, inv_out, dmask, 0.85)
+    rp = ell_pagerank_step_plain(parts, r, inv_out, dmask, 0.85)
+    ep = (rp - r).abs().sum()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rk, rp, **PR_TOL)
+    torch.testing.assert_close(ek[0], ep, rtol=1e-4, atol=0)
+    pr_row = _row("ell_pagerank", f"sorted ELL n={n} buckets={len(parts)} "
+                  f"padded edges={ell.padded_edges}: one step from r0 "
+                  f"(l1 {float(ek):.6e}, plain {float(ep):.6e})",
+                  cuda_ms(lambda: ell_pagerank_step(parts, r, inv_out, dmask,
+                                                    0.85)),
+                  cuda_ms(lambda: ell_pagerank_step_plain(
+                      parts, r, inv_out, dmask, 0.85)),
+                  cuda_ms(_spmv(at_sorted)),
+                  4 * ell.padded_edges + 4 * (n + 1) + 16 * n,
+                  _max_err(rk, rp))
+    return rows, k10, [pr_row]
+
+
 def reached_lane(visited, lane, n):
     """The nodes lane `lane` reached, from the packed int16 visited rows."""
     col = visited[:n, lane // 16].to(torch.int64) & 0xFFFF
@@ -1049,7 +1262,8 @@ def bfs_path(prep, dev, rng):
     and 3 timed runs (sparse first level), then the same BFS over every
     chunk at the first device level, which must give the same visited bits
     and levels, and 16 sampled lanes against scipy's BFS on the forward
-    CSR (reached set and traversed-edge count, exactly)."""
+    CSR (reached set and traversed-edge count, exactly).  Returns (stats,
+    the per-lane edge counts)."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import breadth_first_order
 
@@ -1061,8 +1275,7 @@ def bfs_path(prep, dev, rng):
     assert full.nlevels == r.nlevels, (full.nlevels, r.nlevels)
     full_chunks = full.level_chunks
     del full
-    by_kernel = bench_port.device_times(lambda: bench_port.bfs_once(*args))
-    dev_ms = sum(by_kernel.values()) if by_kernel else None
+    trace = bench_port.device_times(lambda: bench_port.bfs_once(*args))
 
     n = prep.n
     fip, fcols = (t.cpu().numpy() for t in prep.fwd)
@@ -1081,8 +1294,7 @@ def bfs_path(prep, dev, rng):
              "best_ms": r.best_s * 1e3, "runs_ms": [t * 1e3 for t in r.run_s],
              "levels": r.nlevels, "chunks_per_level": r.level_chunks,
              "chunks_per_level_all_chunks_run": full_chunks,
-             "device_ms_one_run": dev_ms, "device_ms_by_kernel": by_kernel,
-             "busy_share": None if dev_ms is None else dev_ms / (r.best_s * 1e3),
+             **trace_stats(trace, r.best_s * 1e3),
              "gen_s": prep.gen_s, "upload_s": prep.upload_s,
              "prep_s": prep.prep_s, "pad_ratio": prep.pad_ratio,
              "chunks": len(prep.packed.chunks),
@@ -1092,7 +1304,218 @@ def bfs_path(prep, dev, rng):
     print(f"bfs rmat{prep.scale} n={n} m={prep.m} lanes={BFS_LANES} "
           f"{json.dumps(stats)} scipy=ok (16 lanes) all_chunks=equal",
           flush=True)
-    return stats
+    return stats, r.counts
+
+
+# -- harmonic centrality and the multi-source BFS family ------------------------
+
+HARMONIC_CYPHER = ("CALL algo.harmonicCentrality({nodeLabels: ['Person'], "
+                   "relationshipTypes: ['KNOWS']}) YIELD node, score "
+                   "RETURN node.id, score")
+SMALL_HARMONIC_CYPHER = ("CALL algo.harmonicCentrality(null) YIELD node, "
+                         "score RETURN node.k, score")
+HARMONIC_SAMPLE = 64
+FAMILY_LANES = 8  # lanes of each BFS form checked against scipy
+
+
+def harmonic_path(db, db_cpu, t, small, rng):
+    """algo.harmonicCentrality over Person / KNOWS on the SF1-class graph
+    on the card (K16, 64 lanes a batch): timed on the host clock, then once
+    more under torch.profiler for the card's busy share; 64 sampled persons'
+    scores against a float64 oracle, the sum of 1/d over scipy's
+    unweighted BFS from the person on the transpose (rel 1e-9).  Then the
+    small algorithms' graph on the card and on the CPU database, row for
+    row within 1e-9 and against the all-pairs scipy oracle.  (The plain
+    CPU path at SF1 would take hours, so the CPU database runs only the
+    small graph.)"""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+
+    g = db.select_graph("ldbc")
+    t0 = time.perf_counter()
+    rows = g.query(HARMONIC_CYPHER).result_set
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = bench_port.device_times(lambda: g.query(HARMONIC_CYPHER))
+    P = len(t["person_id"])
+    got = dict(rows)
+    assert len(rows) == len(got) == P, (len(rows), P)
+    a, b = t["knows_a"], t["knows_b"]
+    AT = sp.csr_matrix((np.ones(len(a), np.float32), (b, a)), shape=(P, P))
+    sample = np.sort(rng.choice(P, HARMONIC_SAMPLE, replace=False))
+    D = shortest_path(AT, directed=True, unweighted=True, indices=sample)
+    worst = 0.0
+    for i, v in enumerate(sample):
+        d = D[i]
+        want = float((1.0 / d[np.isfinite(d) & (d > 0)]).sum())
+        have = got[int(t["person_id"][v])]
+        err = abs(have - want) / want if want else abs(have)
+        assert err <= 1e-9, (int(v), have, want)
+        worst = max(worst, err)
+    n, u, v = small
+    small_rows = [d.select_graph("small_algos").query(
+        SMALL_HARMONIC_CYPHER).result_set for d in (db, db_cpu)]
+    assert [r[0] for r in small_rows[0]] == [r[0] for r in small_rows[1]]
+    np.testing.assert_allclose([r[1] for r in small_rows[0]],
+                               [r[1] for r in small_rows[1]], rtol=0,
+                               atol=1e-9)
+    Dall = shortest_path(sp.csr_matrix((np.ones(len(u), np.float32), (u, v)),
+                                       shape=(n, n)),
+                         directed=True, unweighted=True)
+    np.fill_diagonal(Dall, np.inf)
+    h = np.where(np.isfinite(Dall), 1.0 / Dall, 0.0).sum(0)  # over sources
+    np.testing.assert_allclose([r[1] for r in small_rows[0]],
+                               [h[k] for k, _ in small_rows[0]], rtol=0,
+                               atol=1e-9)
+    batches = -(-P // HARMONIC_LANES)
+    st = {"persons": P, "batches": batches, "wall_ms": wall_ms,
+          **trace_stats(trace, wall_ms),
+          "checked_persons": HARMONIC_SAMPLE, "max_rel_err": worst,
+          "score_max": max(got.values()), "small_n": n}
+    print(f"harmonic: {json.dumps(st)} oracle=ok small_cpu=close "
+          f"small_oracle=ok", flush=True)
+    return st
+
+
+def sorted_transpose_csr(scale, dev):
+    """The RMAT graph's degree-sorted transpose as a CSR on the card (what
+    K5 and the SpMV yardstick read), its permutation (perm[new] = old),
+    and the edges (src, dst) of the original ids."""
+    src, dst, n = bench_port.load_rmat(scale, bench_port.CACHE_DIR)
+    indptr, cols, perm, _, _ = bench_port.sorted_csrs(
+        torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev), n,
+        forward=False)
+    m = cols.numel()
+    rows = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=dev),
+        indptr[1:] - indptr[:-1], output_size=m)
+    at = CSR(indptr.to(torch.int32), rows, cols, None,
+             torch.tensor(m, dtype=torch.int32, device=dev), n, n)
+    return at, perm, (src, dst)
+
+
+def _levels_of(D):
+    return np.where(np.isinf(D), UNREACHED, D).astype(np.int64)
+
+
+def bfs_family_path(prep, sprep, pprep, at_sorted, perm, edges,
+                    gated_counts, rng):
+    """The multi-source BFS family on the RMAT graph: bench_port's stepped
+    mode (64 roots, K16), its levels of 8 sampled lanes against scipy's BFS
+    on the forward graph; bfs_multi_ell over the unsorted transpose ELL from
+    the same roots, equal to them; bench_port's packed mode (2048 roots,
+    max 24 levels, fused; K9, K10, K12), 8 lanes' levels_for_lane against
+    scipy, its per-lane edge counts equal to the gated path's (same roots),
+    its stepped form giving the same visited bits and level count;
+    bfs_multi_ell_sorted fused and stepped (K17, int8 levels), equal to
+    each other and to the packed run's levels; pagerank_ell (K18) against
+    K5's pagerank_transposed and a float64 PageRank, rtol 1e-4."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+
+    n = sprep.n
+    out = {}
+    sr = bench_port.run_stepped(sprep, len(sprep.roots))
+    levels = sr.result
+    trace = bench_port.device_times(
+        lambda: bfs_multi_stepped(sprep.at, sprep.roots))
+    m = int(sprep.at.nnz)
+    AT = sp.csr_matrix((np.ones(m, np.float32),
+                        sprep.at.cols[:m].cpu().numpy(),
+                        sprep.at.indptr.cpu().numpy()), shape=(n, n))
+    lanes = np.sort(rng.choice(len(sprep.roots), FAMILY_LANES, replace=False))
+    D = shortest_path(AT.T.tocsr(), directed=True, unweighted=True,
+                      indices=sprep.roots[lanes])
+    del AT
+    for i, lane in enumerate(lanes):
+        assert np.array_equal(levels[:, lane].cpu().numpy(),
+                              _levels_of(D[i])), f"stepped lane {lane}"
+    out["stepped"] = {
+        "gteps": sr.gteps, "total_edges": sr.total_edges,
+        "best_ms": sr.best_s * 1e3, "runs_ms": [x * 1e3 for x in sr.run_s],
+        "levels": sr.nlevels, "peak_bytes": sr.peak_bytes,
+        **trace_stats(trace, sr.best_s * 1e3),
+        "prep_s": sprep.prep_s, "checked_lanes": lanes.tolist()}
+    ell_u = build_blocked_ell(sprep.at.indptr, sprep.at.cols[:m], n,
+                              device=levels.device)
+    t0 = time.perf_counter()
+    lu = bfs_multi_ell(ell_u, sprep.roots.tolist())
+    torch.cuda.synchronize()
+    out["unsorted_ell"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "buckets": len(ell_u.buckets),
+                           "padded_edges": ell_u.padded_edges,
+                           "widest": max(b.width for b in ell_u.buckets)}
+    assert torch.equal(lu, levels), "bfs_multi_ell against stepped"
+    del lu, ell_u, levels, sr
+
+    assert np.array_equal(pprep.roots, prep.roots[:len(pprep.roots)])
+    pr = bench_port.run_packed(pprep, len(pprep.roots), BFS_MAX_LEVELS)
+    res = pr.result
+    assert np.array_equal(pr.counts, gated_counts), "packed against gated"
+    trace = bench_port.device_times(lambda: bfs_multi_ell_packed(
+        pprep.ell, pprep.roots, max_levels=BFS_MAX_LEVELS))
+    fip, fcols = (x.cpu().numpy() for x in prep.fwd)
+    A = sp.csr_matrix((np.ones(len(fcols), np.float32), fcols, fip),
+                      shape=(n, n))
+    lanes = np.sort(rng.choice(len(pprep.roots), FAMILY_LANES, replace=False))
+    D = shortest_path(A, directed=True, unweighted=True,
+                      indices=pprep.roots[lanes])
+    del A
+    for i, lane in enumerate(lanes):
+        assert np.array_equal(res.levels_for_lane(int(lane)).cpu().numpy(),
+                              _levels_of(D[i])), f"packed lane {lane}"
+    stepped = bfs_multi_ell_packed(pprep.ell, pprep.roots, fused=False)
+    assert stepped.nlevels == res.nlevels and \
+        torch.equal(stepped.visited, res.visited), "packed stepped form"
+    del stepped
+    out["packed"] = {
+        "gteps": pr.gteps, "total_edges": pr.total_edges,
+        "best_ms": pr.best_s * 1e3, "runs_ms": [x * 1e3 for x in pr.run_s],
+        "levels": pr.nlevels, "peak_bytes": pr.peak_bytes,
+        "history_rows": len(res.hist),
+        **trace_stats(trace, pr.best_s * 1e3),
+        "prep_s": pprep.prep_s, "pad_ratio": pprep.pad_ratio,
+        "checked_lanes": lanes.tolist()}
+
+    times = {}
+    for fused in (True, False):
+        t0 = time.perf_counter()
+        v, lv = bfs_multi_ell_sorted(pprep.ell, pprep.roots, fused=fused)
+        torch.cuda.synchronize()
+        times["fused" if fused else "stepped"] = \
+            (time.perf_counter() - t0) * 1e3
+        assert torch.equal(v, res.visited), f"sorted fused={fused}: visited"
+        if fused:
+            want = lv
+        else:
+            assert torch.equal(lv, want), "sorted: fused and stepped differ"
+        del v, lv
+    lanes_all = torch.arange(len(pprep.roots), device=want.device)
+    from_hist = torch.full_like(want, UNREACHED8)
+    from_hist[torch.as_tensor(pprep.roots, device=want.device), lanes_all] = 0
+    for d, h in enumerate(res.hist):
+        packed_levels_plain(h, from_hist, d)
+    assert torch.equal(from_hist, want), "sorted against packed levels"
+    del from_hist, want, res, pr
+    out["sorted_ms"] = times
+
+    t0 = time.perf_counter()
+    r_ell, steps, l1 = pagerank_ell_run(pprep.ell, pprep.outdeg_sorted)
+    torch.cuda.synchronize()
+    ell_ms = (time.perf_counter() - t0) * 1e3
+    r5, steps5, _l1 = pagerank_transposed(at_sorted)
+    want = torch.from_numpy(pagerank64(*edges, n)[perm.cpu().numpy()])
+    torch.testing.assert_close(r_ell, r5, rtol=1e-4, atol=0)
+    torch.testing.assert_close(r_ell.cpu().double(), want, rtol=1e-4, atol=0)
+    out["pagerank_ell"] = {
+        "ms": ell_ms, "steps": steps, "l1": l1, "k5_steps": steps5,
+        "max_rel_vs_k5": float(((r_ell - r5).abs() / r5).max()),
+        "max_rel_vs_float64": float(((r_ell.cpu().double() - want).abs()
+                                     / want).max())}
+    print(f"bfs family rmat{sprep.scale} n={n} {json.dumps(out)} "
+          f"stepped_scipy=ok unsorted=stepped packed_scipy=ok "
+          f"packed_counts=gated sorted=packed pagerank_ell=ok", flush=True)
+    return out
 
 
 # -- the vector index: ANN-Benchmarks shapes -----------------------------------
@@ -1109,7 +1532,7 @@ class AnnConfig:
     source: str
 
 
-SIFT = AnnConfig("sift-128-euclidean", 1_000_000, 128, "euclidean", 1000, 20,
+SIFT = AnnConfig("sift-128-euclidean", 1_000_000, 128, "euclidean", 500, 20,
                  "ANN-Benchmarks sift-128-euclidean: 1,000,000 base vectors, "
                  "d = 128, L2, k = 10")
 GLOVE = AnnConfig("glove-100-angular", 1_183_514, 100, "cosine", 200, 10,
@@ -1117,7 +1540,7 @@ GLOVE = AnnConfig("glove-100-angular", 1_183_514, 100, "cosine", 200, 10,
                   "d = 100, angular, k = 10")
 ANN_COMPONENTS = 1000
 ANN_K = 10
-ANN_WRITES = 1000  # SET x.emb on existing nodes, then as many creations
+ANN_WRITES = 150  # SET x.emb on existing nodes, then as many creations
 ANN_DELETES = 100
 ANN_CYPHER = ("CALL db.idx.vector.queryNodes('Item', 'emb', 10, vecf32($q)) "
               "YIELD node, score RETURN node.id, score")
@@ -1430,8 +1853,7 @@ def ann_path(cfg, X, draw, dev, rng, writes):
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
 
-    by_kernel = bench_port.device_times(profiled)
-    dev_ms = sum(by_kernel.values()) if by_kernel else None
+    trace = bench_port.device_times(profiled)
     st = {"source": cfg.source, "n": cfg.n, "d": cfg.d, "nlist": nlist,
           "nprobe": max(1, nlist // 8), "queries": cfg.queries,
           "load_s": load_s, "build_s": build_s, "build_steps_s": impl.timings,
@@ -1443,8 +1865,7 @@ def ann_path(cfg, X, draw, dev, rng, writes):
           "tie_band_rel_max": float(max(rel)),
           "all_lists_queries": cfg.all_lists, "all_lists_ties": exact_ties,
           "profiled_queries": 100, "profiled_wall_ms": wall[0],
-          "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
-          "busy_share": None if dev_ms is None else dev_ms / wall[0]}
+          **trace_stats(trace, wall[0])}
     if writes:
         st["writes"] = ann_writes(g, db, impl, X, draw, rng, cfg)
     print(f"vector {cfg.name}: {json.dumps(st)} oracle=ok plain=ok "
@@ -1500,12 +1921,13 @@ def ann_writes(g, db, impl, X, draw, rng, cfg):
         answer = impl.query(v, ANN_K)
         assert answer[0] == (e, 0.0), (e, answer[:2])
         check(v, answer)
-    for e in np.concatenate([del_ids, set_ids[:200]]).tolist():
+    again = np.concatenate([del_ids, set_ids[:200]])
+    for e in again.tolist():
         check(X[e], impl.query(X[e], ANN_K))
     readback_s = time.perf_counter() - t0
     return {"sets": ANN_WRITES, "creations": ANN_WRITES,
             "deletions": ANN_DELETES, "set_s": set_s, "write_s": write_s,
-            "readback_queries": len(current) + ANN_DELETES + 200,
+            "readback_queries": len(current) + len(again),
             "readback_s": readback_s, "delta_rows": len(impl.delta_ids),
             "tombstones": len(impl.deleted)}
 
@@ -1537,11 +1959,18 @@ def small_vector_index(rng):
 # -- phase 4: the main path ---------------------------------------------------
 
 
-def device_ms(fn):
-    """Milliseconds the card spent in the work fn() launches, from a
-    torch.profiler trace; None when the trace holds no device activity."""
-    times = bench_port.device_times(fn)
-    return sum(times.values()) if times else None
+def trace_stats(trace, wall_ms, by_kernel=True):
+    """A device trace's fields for a stats line: device ms (by kernel) and
+    the busy share over wall_ms only from a whole trace, else null beside
+    the reason."""
+    out = {"device_ms": trace.total_ms, "trace_span_ms": trace.span_ms,
+           "busy_share": trace.busy_share(wall_ms),
+           "trace_kernels": trace.kernels,
+           "trace_launch_calls": trace.launch_calls,
+           "trace_problem": trace.problem}
+    if by_kernel:
+        out["device_ms_by_kernel"] = trace.by_kernel
+    return out
 
 
 @contextlib.contextmanager
@@ -1559,7 +1988,7 @@ def _environ(env):
                 os.environ[k] = v
 
 
-def run_queries(g_dev, g_cpu, queries, reps=3):
+def run_queries(g_dev, g_cpu, queries, reps=2):
     """Each query `reps` times on the card (p50 on the host clock), checked
     against the oracle and against the CPU database, then once more under
     the profiler for the card's busy time.  Returns {name: stats}."""
@@ -1582,11 +2011,12 @@ def run_queries(g_dev, g_cpu, queries, reps=3):
                 assert rows == cpu_rows, (qq.name, rows[:5], cpu_rows[:5])
             else:
                 qq.same(rows, cpu_rows)
-            dev_ms = device_ms(lambda: g_dev.query(qq.cypher, qq.params))
-        st = {"p50_ms": statistics.median(times), "rows": len(rows),
-              "launches_over_reps": launched, "device_ms_one_run": dev_ms,
-              "busy_share": None if dev_ms is None
-              else dev_ms / statistics.median(times)}
+            trace = bench_port.device_times(
+                lambda: g_dev.query(qq.cypher, qq.params))
+        p50 = statistics.median(times)
+        st = {"p50_ms": p50, "rows": len(rows),
+              "launches_over_reps": launched,
+              **trace_stats(trace, p50, by_kernel=False)}
         out[qq.name] = st
         print(f"query {qq.name}: {json.dumps(st)} oracle=ok "
               f"cpu={'equal' if qq.same is None else 'close'}", flush=True)
@@ -1598,6 +2028,22 @@ LDBC_KERNELS = ("expand", "group_partials", "topk", "bfs_levels", "pagerank",
 BFS_KERNELS = ("packed_seed", "packed_sparse_reach", "packed_chunk_reach",
                "packed_epilogue", "packed_counts")
 VECTOR_KERNELS = ("kmeans_assign", "kmeans_update", "vector_scores")
+HARMONIC_KERNELS = ("multi_bfs",)
+FAMILY_KERNELS = ("multi_bfs", "packed_levels", "ell_pagerank",
+                  "packed_chunk_reach", "packed_sparse_reach",
+                  "packed_epilogue", "packed_counts")
+
+
+def path_launches(what, kernels, total):
+    """Read the launch counts of a main path just after it (they were set to
+    0 just before it), fail if one of its kernels never launched, and add
+    them to `total`."""
+    got = {k: cuda.KERNELS[k].launches for k in kernels}
+    print(f"main path launches ({what}): {json.dumps(got)}", flush=True)
+    missing = [k for k in kernels if got[k] == 0]
+    assert not missing, f"kernels not launched on the {what} path: {missing}"
+    for k, c in got.items():
+        total[k] = total.get(k, 0) + c
 
 
 def main(argv=None):
@@ -1638,14 +2084,26 @@ def main(argv=None):
         f.write(cuda.build_log)
 
     # phase 3 needs the main paths' graphs: generate and load them first
+    # (the RMAT edges are generated once and cached for the other builds)
     t0 = time.perf_counter()
-    prep = bench_port.prepare(args.rmat_scale, BFS_LANES, 32 << 20, None,
-                              True, "cuda")
+    prep = bench_port.prepare(args.rmat_scale, BFS_LANES, 32 << 20,
+                              bench_port.CACHE_DIR, True, "cuda")
     print(f"rmat: scale={args.rmat_scale} n={prep.n} m={prep.m} "
           f"gen_s={prep.gen_s:.1f} upload_s={prep.upload_s:.2f} "
           f"prep_s={prep.prep_s:.2f} chunks={len(prep.packed.chunks)} "
           f"padded_edges={prep.packed.padded_edges} "
           f"sparse_buckets={len(prep.sparse)} "
+          f"s={time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    sprep = bench_port.prepare_stepped(args.rmat_scale,
+                                       bench_port.STEPPED_NBFS,
+                                       bench_port.CACHE_DIR, "cuda")
+    pprep = bench_port.prepare_packed(args.rmat_scale, BFS_LANES,
+                                      bench_port.CACHE_DIR, "cuda")
+    at_sorted, perm, rmat_edges = sorted_transpose_csr(args.rmat_scale, dev)
+    print(f"rmat family: stepped prep_s={sprep.prep_s:.2f} packed "
+          f"prep_s={pprep.prep_s:.2f} pad={pprep.pad_ratio:.3f} "
+          f"buckets={len(pprep.ell.buckets)} "
           f"s={time.perf_counter() - t0:.1f}", flush=True)
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -1675,6 +2133,17 @@ def main(argv=None):
         check_segment_sum_pull(store, dev)
     check_packed_words(dev)
     results.update(check_packed(prep, dev))
+    knows_t = compact_adjacency(store, "Person", ["KNOWS"], directed=True).at
+    results["multi_bfs"] = check_multi_bfs([
+        ("Person/KNOWS transpose", knows_t,
+         np.sort(krng.choice(knows_t.n_rows, HARMONIC_LANES,
+                             replace=False)).astype(np.int32), False, 7),
+        (f"RMAT-{args.rmat_scale} unsorted transpose (stepped roots)",
+         sprep.at, sprep.roots, True, 3)])
+    del knows_t
+    results["packed_levels"], k10_no_chunk, results["ell_pagerank"] = \
+        check_ell_kernels(pprep, at_sorted, dev)
+    results["packed_epilogue"].append(k10_no_chunk)
     t0 = time.perf_counter()
     sift_X, sift_draw = mixture(sift.n, sift.d,
                                 np.random.default_rng(SEED + 4))
@@ -1696,23 +2165,27 @@ def main(argv=None):
     query_stats.update(run_queries(db.select_graph("ldbc"),
                                    db_cpu.select_graph("ldbc"),
                                    algo_queries(t)))
-    small_algorithms(db, db_cpu, np.random.default_rng(SEED + 2))
-    launches = {k: cuda.KERNELS[k].launches for k in LDBC_KERNELS}
-    print(f"main path launches (LDBC read and algorithm mixes): "
-          f"{json.dumps(launches)}", flush=True)
-    missing = [k for k in LDBC_KERNELS if launches[k] == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
+    small = small_algorithms(db, db_cpu, np.random.default_rng(SEED + 2))
+    launches = {}
+    path_launches("LDBC read and algorithm mixes", LDBC_KERNELS, launches)
+
+    cuda.reset_launches()
+    harmonic_stats = harmonic_path(db, db_cpu, t, small,
+                                   np.random.default_rng(SEED + 11))
+    path_launches("harmonic centrality", HARMONIC_KERNELS, launches)
     del db, db_cpu, store
 
     cuda.reset_launches()
-    bfs_stats = bfs_path(prep, dev, np.random.default_rng(SEED + 3))
-    bfs_launches = {k: cuda.KERNELS[k].launches for k in BFS_KERNELS}
-    print(f"main path launches (batched BFS): {json.dumps(bfs_launches)}",
-          flush=True)
-    missing = [k for k in BFS_KERNELS if bfs_launches[k] == 0]
-    assert not missing, f"kernels not launched on the BFS path: {missing}"
-    launches.update(bfs_launches)
-    del prep
+    bfs_stats, gated_counts = bfs_path(prep, dev,
+                                       np.random.default_rng(SEED + 3))
+    path_launches("batched BFS", BFS_KERNELS, launches)
+
+    cuda.reset_launches()
+    family_stats = bfs_family_path(prep, sprep, pprep, at_sorted, perm,
+                                   rmat_edges, gated_counts,
+                                   np.random.default_rng(SEED + 12))
+    path_launches("multi-source BFS family", FAMILY_KERNELS, launches)
+    del prep, sprep, pprep, at_sorted, perm, rmat_edges
 
     cuda.reset_launches()
     vec_stats = {sift.name: ann_path(sift, sift_X, sift_draw, dev,
@@ -1726,21 +2199,17 @@ def main(argv=None):
                                      writes=False)
     del glove_X
     small_vector_index(np.random.default_rng(SEED + 9))
-    vec_launches = {k: cuda.KERNELS[k].launches for k in VECTOR_KERNELS}
-    print(f"main path launches (vector index): {json.dumps(vec_launches)}",
-          flush=True)
-    missing = [k for k in VECTOR_KERNELS if vec_launches[k] == 0]
-    assert not missing, f"kernels not launched on the vector path: {missing}"
-    launches.update(vec_launches)
+    path_launches("vector index", VECTOR_KERNELS, launches)
 
     # the kernels line: one shape each, as the main path runs it — expand
     # over KNOWS out-edges, group partials over the n ~ 5M super-batch,
     # top-k at k = 10, BFS to the fixpoint, PageRank over Person / KNOWS,
     # the packed gather-OR over one full level, k-means assignment after one
-    # update, scores over one query's probed lists (euclidean); max_abs_err
-    # over every shape
+    # update, scores over one query's probed lists (euclidean), the
+    # multi-source BFS to the fixpoint, the level unpack at 2048 int8 lanes,
+    # one ELL PageRank step; max_abs_err over every shape
     main_row = {"group_partials": 1, "pagerank": 1, "kmeans_assign": 1,
-                "vector_scores": 1}
+                "vector_scores": 1, "multi_bfs": 1}
     kernels = []
     for name, rows in results.items():
         k = cuda.KERNELS[name]
@@ -1757,6 +2226,7 @@ def main(argv=None):
                    "rmat_scale": args.rmat_scale, "kernel_rows": results,
                    "vectors": args.vectors, "queries": query_stats,
                    "bfs": bfs_stats, "vector_index": vec_stats,
+                   "harmonic": harmonic_stats, "bfs_family": family_stats,
                    "launches": launches}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

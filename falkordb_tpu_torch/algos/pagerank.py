@@ -6,8 +6,11 @@ jitted while_loop (algos/pagerank.py:_pagerank_jit); here CUDA tensors
 launch csrc/pagerank.cu, whose host loop reads the step's L1 change, and
 CPU tensors run `pagerank_plain`.
 
-The blocked-ELL variant (pagerank_ell) waits for the ELL family (ROADMAP.md
-module 7)."""
+The blocked-ELL variant (pagerank_ell, which no procedure calls) steps over
+the buckets of a transpose ELL: CUDA tensors launch csrc/ell_pagerank.cu
+(kernel K18, one pass per bucket) once a step, and the host reads the
+step's L1 change, as the reference does; CPU tensors run
+`ell_pagerank_step_plain`."""
 
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ import ctypes
 import numpy as np
 import torch
 
+from falkordb_tpu_torch.algos.bfs import ell_reach_parts
 from falkordb_tpu_torch.native import cuda as _cuda
 from falkordb_tpu_torch.sparse.csr import CSR
+from falkordb_tpu_torch.sparse.ell import as_tensor, ell_device
 
 # blocks of a pass over the nodes, at most: csrc/pagerank.cu sizes its grid
 # to the length of the per-block scratch it is given
@@ -103,3 +108,102 @@ def pagerank_plain(indptr, rows, cols, nnz, n: int, damping=0.85, tol=1e-4,
         r = r_new
         it += 1
     return r, it, float(err)
+
+
+# -- the blocked-ELL form (K18) ------------------------------------------------
+
+
+def ell_pagerank_step(parts, r, inv_out, dangling_mask, damping):
+    """K18: one step r' = (1-d)/n + d * (ELL row sums of r * inv_out + the
+    dangling mass sum(r * dangling_mask) / n), float32, over the transpose
+    ELL's buckets as bfs.ell_reach_parts(ell, dev, by_range=False) gives
+    them: (node_ids (rows,), colsT (w, rows)) int32 each.  Returns (r', the
+    L1 change sum|r' - r| as a (1,) tensor on the device)."""
+    n = r.shape[0]
+    if not _cuda.on_cuda(r, inv_out, dangling_mask,
+                         *(t for part in parts for t in part)):
+        r_new = ell_pagerank_step_plain(parts, r, inv_out, dangling_mask,
+                                        damping)
+        return r_new, (r_new - r).abs().sum(0, keepdim=True)
+    for name, t in (("r", r), ("inv_out", inv_out),
+                    ("dangling_mask", dangling_mask)):
+        _cuda.check_input("ell_pagerank", name, t, torch.float32, n)
+    for ids, colsT in parts:
+        if colsT.dtype != torch.int32 or colsT.dim() != 2 or \
+                not colsT.is_contiguous():
+            raise ValueError(f"ell_pagerank: colsT must be a contiguous (w, "
+                             f"rows) int32 tensor, got {colsT.dtype} "
+                             f"{tuple(colsT.shape)}")
+        _cuda.check_input("ell_pagerank", "node_ids", ids, torch.int32,
+                          colsT.shape[1])
+    _r0, d, _tol, base = _scalars(n, damping, 0.0)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    contrib, acc = torch.empty(n + 1, **f32), torch.empty(n, **f32)
+    r_new = torch.empty(n, **f32)
+    partial, scalars = torch.empty(MAX_BLOCKS, **f32), torch.empty(2, **f32)
+    lib, p, s = _cuda.lib(), _cuda.ptr, _cuda.stream_ptr(r)
+    _cuda.check(lib.fk_ell_pagerank_prep(
+        p(r), p(inv_out), p(dangling_mask), n, p(contrib), p(acc), p(partial),
+        partial.numel(), p(scalars), s), "ell_pagerank")
+    for ids, colsT in parts:
+        _cuda.check(lib.fk_ell_pagerank_rows(
+            p(colsT), p(ids), colsT.shape[1], colsT.shape[0], p(contrib), n,
+            p(acc), s), "ell_pagerank")
+    _cuda.check(lib.fk_ell_pagerank_update(
+        p(r), p(acc), n, float(d), float(base), p(r_new), p(partial),
+        partial.numel(), p(scalars), s), "ell_pagerank")
+    _cuda.count_launch("ell_pagerank")
+    return r_new, scalars[1:]
+
+
+def ell_pagerank_step_plain(parts, r, inv_out, dangling_mask, damping):
+    """Plain PyTorch version of K18's step: falkordb_tpu's
+    `_step_ell_pagerank` (gather by the clipped cols, sum over the width,
+    set by node id; uncovered nodes sum to 0)."""
+    n = r.shape[0]
+    dev = r.device
+    _r0, d, _tol, base = _scalars(max(n, 1), damping, 0.0)
+    contrib = torch.cat([r * inv_out, torch.zeros(1, dtype=torch.float32,
+                                                  device=dev)])
+    acc = torch.zeros(n + 1, dtype=torch.float32, device=dev)
+    for ids, colsT in parts:
+        acc[ids.to(torch.int64)] = contrib[colsT.to(torch.int64).clamp(
+            0, n)].sum(0)
+    n_t = torch.full((1,), float(n), dtype=torch.float32, device=dev)
+    dangling = (r * dangling_mask).sum(0, keepdim=True) / n_t
+    return torch.tensor(base, device=dev) + torch.tensor(d, device=dev) * (
+        acc[:n] + dangling)
+
+
+def pagerank_ell(ell, outdeg, damping=0.85, tol=1e-4, max_iters=100):
+    """PageRank over the blocked-ELL TRANSPOSE adjacency `ell` (rows =
+    destinations, neighbour lists = sources), `outdeg` the ORIGINAL graph's
+    (n,) out-degrees: (n,) float32 scores.  Runs where the buckets lie (the
+    card for numpy buckets)."""
+    return pagerank_ell_run(ell, outdeg, damping, tol, max_iters)[0]
+
+
+def pagerank_ell_run(ell, outdeg, damping=0.85, tol=1e-4, max_iters=100):
+    """pagerank_ell with its steps and last L1 change: (r, steps, l1).  The
+    reference's loop: at most max_iters steps, stopping after the first
+    whose L1 change, read on the host, is <= tol."""
+    dev = ell_device(ell)
+    n = ell.n
+    parts = ell_reach_parts(ell, dev, by_range=False)
+    od = as_tensor(np.asarray(outdeg, dtype=np.float32)
+                   if not isinstance(outdeg, torch.Tensor) else outdeg,
+                   dev).to(torch.float32)
+    inv_out = torch.where(od > 0, 1.0 / od.clamp(min=1),
+                          torch.zeros((), dtype=torch.float32, device=dev))
+    dmask = (od == 0).to(torch.float32)
+    r0, *_ = _scalars(max(n, 1), damping, tol)
+    r = torch.full((n,), float(r0), dtype=torch.float32, device=dev)
+    steps, err = 0, 0.0
+    for _ in range(max_iters):
+        r2, l1 = ell_pagerank_step(parts, r, inv_out, dmask, damping)
+        err = float(l1)  # the host read of each step
+        r = r2
+        steps += 1
+        if err <= tol:
+            break
+    return r, steps, err

@@ -3,10 +3,10 @@
 Each builds a compacted adjacency snapshot on the graph's device
 (build_compact_adj role, algo_procedures.rs doc:54-61) and dispatches to the
 algorithms in falkordb_tpu_torch.algos.*: PageRank (kernel K5), WCC and
-SSSP (K6), betweenness (K7) and BFS with parents (K8) on the card; label
-propagation, MSF, maxFlow and the path enumerations on the host, as in
-falkordb_tpu.  Names, yields, row order and configuration keys are
-falkordb_tpu's."""
+SSSP (K6), betweenness (K7), BFS with parents (K8) and harmonic centrality
+(K16) on the card; label propagation, MSF, maxFlow and the path
+enumerations on the host, as in falkordb_tpu.  Names, yields, row order
+and configuration keys are falkordb_tpu's."""
 
 from __future__ import annotations
 
@@ -216,7 +216,7 @@ def algo_harmonic(rt, cfg=None):
                              cfg.get("relationshipTypes"), directed=True)
     if comp is None:
         return
-    scores = np.asarray(harmonic_centrality(comp.csr))
+    scores = harmonic_centrality(comp.csr).cpu().numpy()
     for ci in range(len(comp.ids)):
         yield {"node": rt.ctx.node_value(int(comp.ids[ci])),
                "score": float(scores[ci])}

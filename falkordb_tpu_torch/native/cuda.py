@@ -81,6 +81,12 @@ KERNELS = {
                "falkordb_tpu/index/vector_index.py:80"),
         Kernel("vector_scores", "falkordb_tpu_torch/csrc/vector_scores.cu",
                "falkordb_tpu/index/vector_index.py:216"),
+        Kernel("multi_bfs", "falkordb_tpu_torch/csrc/multi_bfs.cu",
+               "falkordb_tpu/algos/bfs.py:89"),
+        Kernel("packed_levels", "falkordb_tpu_torch/csrc/packed_levels.cu",
+               "falkordb_tpu/algos/bfs.py:287"),
+        Kernel("ell_pagerank", "falkordb_tpu_torch/csrc/ell_pagerank.cu",
+               "falkordb_tpu/algos/pagerank.py:62"),
     )
 }
 
@@ -122,6 +128,13 @@ _SIGNATURES = {
     "fk_kmeans_assign": [_P, _P, _I64, _I64, _I64, _P, _P],
     "fk_kmeans_update": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
     "fk_vector_scores": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _P, _P],
+    "fk_multi_bfs": [_P, _P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P,
+                     _P, _P, _I64, _I64, _I64, _P, _OUT_I64, _OUT_I32, _P],
+    "fk_packed_levels": [_P, _I64, _I64, _P, _I64, _I64, _I64, _P],
+    "fk_ell_pagerank_prep": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P],
+    "fk_ell_pagerank_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P],
+    "fk_ell_pagerank_update": [_P, _P, _I64, _F32, _F32, _P, _P, _I64, _P,
+                               _P],
 }
 
 _lock = threading.Lock()

@@ -4,7 +4,8 @@ Nodes are partitioned into degree buckets; each bucket stores its nodes'
 edge lists in a dense (rows, width) int32 matrix padded with the sentinel
 index n (gather tables carry one extra all-zero row n).  The batched packed
 BFS (algos/bfs_packed.py) splits the buckets of a degree-sorted transpose
-into row chunks that it gathers and gates chunk by chunk.
+into row chunks that it gathers and gates chunk by chunk; the multi-source
+ELL BFS (algos/bfs.py) and pagerank_ell read the buckets as they are.
 
 The builders run in PyTorch on `device` (a CUDA card builds RMAT-24 in
 seconds, where numpy takes minutes) and give the arrays of falkordb_tpu's
@@ -55,6 +56,15 @@ def as_tensor(a, dev: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(dev)
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def ell_device(ell: BlockedEll) -> torch.device:
+    """Where an algorithm over `ell` runs: where its buckets' tensors lie,
+    else the card (numpy buckets)."""
+    for b in ell.buckets:
+        if isinstance(b.cols, torch.Tensor):
+            return b.cols.device
+    return torch.device("cuda")
 
 
 def deliver(t: torch.Tensor, device):

@@ -15,6 +15,7 @@ these tests pin what the CUDA kernels are compared with on the card
     packages stop one step apart, 71 and 72).
   * Betweenness: rtol 1e-5, atol 1e-6, compared node by node: the path
     counts and dependencies are float32 sums.
+  * Harmonic centrality: abs 1e-9 (float64 sums of 1/level).
 
 Both packages run with FALKOR_DIST=0, so the 8-device virtual mesh of
 tests/conftest.py does not route falkordb_tpu's procedures through
@@ -351,12 +352,28 @@ def test_procedure_matches_jax(monkeypatch, case, no_native):
                                rtol=rtol, atol=atol)
 
 
-def test_harmonic_raises_not_implemented():
-    g = FalkorDB(device="cpu").select_graph("algo")
-    _build_random(g, n=15)
-    with pytest.raises(NotImplementedError, match="_bfs_multi_jit"):
-        g.query("CALL algo.harmonicCentrality(null) YIELD node, score "
-                "RETURN node.k, score")
+def _build_mixed(g):
+    """_build_random's V/E graph plus X nodes tied to it by F edges, so that
+    the label and type filters change the answer."""
+    _build_random(g, n=20)
+    g.query("UNWIND range(0, 5) AS i CREATE (:X {k: 100 + i})")
+    g.query("UNWIND [[100, 0], [0, 101], [101, 102], [3, 103], [103, 100], "
+            "[104, 105], [105, 7]] AS e "
+            "MATCH (a {k: e[0]}), (b {k: e[1]}) CREATE (a)-[:F]->(b)")
+
+
+@pytest.mark.parametrize("config", [
+    "null", "{nodeLabels: ['V'], relationshipTypes: ['E']}",
+    "{relationshipTypes: ['F']}", "{nodeLabels: ['X']}"])
+def test_harmonic_matches_jax(config):
+    want, got = _run_both(
+        _build_mixed, f"CALL algo.harmonicCentrality({config}) "
+        "YIELD node, score RETURN node.k, score")
+    assert len(got) == len(want) > 0
+    assert [r[0] for r in got] == [r[0] for r in want]
+    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want],
+                               rtol=0, atol=1e-9)
+    assert any(r[1] > 0 for r in got)
 
 
 # -- the native direction-optimising BFS (native/bfsnative.cpp) ---------------

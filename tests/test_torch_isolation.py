@@ -14,12 +14,17 @@ import torch
 import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
 from falkordb_tpu_torch.algos.betweenness import segment_sum_pull
-from falkordb_tpu_torch.algos.bfs import bfs_levels, bfs_parents
+from falkordb_tpu_torch.algos.bfs import (
+    bfs_levels, bfs_multi, bfs_multi_stepped, bfs_parents, multi_bfs_level,
+    multi_bfs_state, packed_levels,
+)
 from falkordb_tpu_torch.algos.bfs_packed import (
     PackedChunk, chunk_reach, packed_counts, packed_epilogue, packed_seed,
     sparse_reach,
 )
-from falkordb_tpu_torch.algos.pagerank import pagerank_transposed
+from falkordb_tpu_torch.algos.pagerank import (
+    ell_pagerank_step, pagerank_transposed,
+)
 from falkordb_tpu_torch.algos.sssp import sssp_run
 from falkordb_tpu_torch.algos.wcc import wcc_run
 from falkordb_tpu_torch.index.vector_index import (
@@ -77,7 +82,8 @@ def test_import_and_query_leave_jax_out():
             "          'MATCH (a:A) CALL algo.SSSP({sourceNode: a}) '\n"
             "          'YIELD node, distance',\n"
             "          'CALL algo.labelPropagation(null) YIELD node',\n"
-            "          'MATCH (a:A) CALL algo.BFS(a, null, null) YIELD nodes'):\n"
+            "          'MATCH (a:A) CALL algo.BFS(a, null, null) YIELD nodes',\n"
+            "          'CALL algo.harmonicCentrality(null) YIELD node, score'):\n"
             "    assert g.query(q + ' RETURN 1').result_set, q\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'falkordb_tpu')]\n"
@@ -167,13 +173,22 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
     vector_scores(X, torch.ones(3), "euclidean", starts,
                   torch.tensor([0, 2], dtype=torch.int64), 2)
     vector_scores(X, torch.ones(3), "cosine")
+    bfs_multi(at.transpose_host(), [0, 1])
+    bfs_multi_stepped(at.transpose_host(), [2])
+    packed_levels(torch.zeros((3, 1), dtype=torch.int32),
+                  torch.full((2, 5), 127, dtype=torch.int8), 0)
+    parts = [(torch.tensor([1], dtype=torch.int32),
+              torch.tensor([[0], [3]], dtype=torch.int32))]
+    ell_pagerank_step(parts, torch.ones(3), torch.ones(3), torch.zeros(3),
+                      0.85)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == {
         "expand": 0, "group_partials": 0, "topk": 0, "bfs_levels": 0,
         "pagerank": 0, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
         "bc_pull_deps": 0, "bfs_parents": 0, "packed_chunk_reach": 0,
         "packed_sparse_reach": 0, "packed_epilogue": 0, "packed_seed": 0,
         "packed_counts": 0, "kmeans_assign": 0, "kmeans_update": 0,
-        "vector_scores": 0}
+        "vector_scores": 0, "multi_bfs": 0, "packed_levels": 0,
+        "ell_pagerank": 0}
     assert cuda._lib is None  # nothing was built or loaded
 
 
@@ -186,3 +201,25 @@ def test_wrappers_refuse_other_devices():
     at = CSR.from_coo_numpy([0, 1], [1, 2], None, shape=(3, 3), dedup=False)
     with pytest.raises(ValueError, match="several devices"):
         segment_sum_pull(at, torch.ones(3, device="meta"), "bc_pull_deps")
+    meta = CSR(*(torch.zeros(k, dtype=torch.int32, device="meta")
+                 for k in (4, 8, 8)), None,
+               torch.zeros((), dtype=torch.int32, device="meta"), 3, 3)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        multi_bfs_level(meta, multi_bfs_state(meta, 2), seeds=[0, 1])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        packed_levels(torch.zeros((3, 1), dtype=torch.int32, device="meta"),
+                      torch.zeros((2, 5), dtype=torch.int8, device="meta"), 0)
+    m3 = torch.ones(3, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ell_pagerank_step([], m3, m3, m3, 0.85)
+
+
+@pytest.mark.parametrize("kernel", ["gated", "stepped", "packed"])
+def test_bench_port_without_a_card_exits_nonzero(kernel, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: bench_port.py measures there")
+    import bench_port
+
+    assert bench_port.main(["--kernel", kernel, "--scale", "4"]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
