@@ -33,6 +33,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    plus_times and min_plus, reduce_rows, reduce_scalar) and
    ewise_mult_mask against every other edge (K22), each also against a
    host oracle (float64 scipy sums; min-plus, any-pair and np.isin exactly).
+   The mesh kernels: K23 over one shard of the SF1-class graph's edge table
+   cut into 4 (3.87M edges, the first 65,536 Person ids, KNOWS) for each
+   endpoint; K24 over one shard of RMAT-22 cut into 4 (16.8M edges) in all
+   four forms, beside one scatter_reduce; K25 at the shapes of path g's
+   bitmap drivers (1D over 4 shards and 2D over (2, 2) at n = 2 **
+   --mesh-scale); K26 at n = 4,194,304, the dangling sum beside torch.dot.
 4. Main paths, each with the launch counts set to 0 just before it and
    read just after:
    a. The README demo, then an LDBC SNB SF1-class graph (the generator
@@ -42,8 +48,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
       the generated tables and against the same database run with
       device="cpu" (row for row; float scores node by node at the kernels'
       tolerances), and the host-only procedures once each on a small graph.
-      Each query runs twice on the card for its p50 (cut from 3, for the
-      run's time), once on the CPU database and once under the profiler.
+      Each query runs once on the card for its time (cut from 3, for the
+      run's time: path g runs beside it), once on the CPU database and once
+      under the profiler for the card's busy share.
    b. bench_port.py's batched BFS: RMAT-22 (n = 4,194,304, 67,108,864
       edges; scale is the only cut from bench_port.py's RMAT-24, made to
       fit the run's time limit), 2048 lanes as int16 words, max 24 levels,
@@ -91,6 +98,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
       reduce_rows, reduce_scalar, ewise_mult_mask) once each at RMAT-22
       through falkordb_tpu_torch.sparse, each output equal to the kernel's
       output of phase 3 (K19-K22).
+   g. (run after d., while a.'s databases are loaded) The device mesh, 4
+      shards on the one card
+      (FALKOR_MESH_DEVICES=cuda:0*4): algo.pageRank, WCC, SSSP and BFS
+      (with and without max_depth; the mesh keeps levels < max_depth, the
+      reference's own rule) over Person / KNOWS, then the read mix of a.
+      with FALKOR_DIST_QUERY=force, then auto, each against its oracle and
+      path a.'s single-card rows; then every parallel/dist.py driver, the
+      1D host-driven ones at RMAT-22 (--rmat-scale) and the fused, bitmap
+      and 2D ones at RMAT-20 (--mesh-scale; cut for the run's time), BFS
+      levels against scipy, SSSP and WCC against K6 on one card exactly,
+      PageRank within rtol 1e-4 of float64 on the card.
    Every kernel of a path must have launched during that path.
 
 The line before the last is a JSON object {"kernels": [...]} and the last
@@ -144,6 +162,8 @@ from falkordb_tpu_torch.index.vector_index import (
     vector_scores, vector_scores_plain,
 )
 from falkordb_tpu_torch.native import cuda
+from falkordb_tpu_torch.parallel import dist as pdist, qdist, router
+from falkordb_tpu_torch.parallel import shard_ops as K
 from falkordb_tpu_torch.runtime.ops import (
     group_partials, group_partials_plain, topk_smallest, topk_smallest_plain,
 )
@@ -257,6 +277,7 @@ class Query:
     check: object  # check(rows) holds the rows against the oracle
     same: object = None  # same(rows, cpu_rows); None: the rows are equal
     env: dict | None = None  # environment variables for this query only
+    local_params: dict | None = None  # params of the single-card twin (g)
 
 
 def ldbc_queries(t):
@@ -361,19 +382,27 @@ def _same_map(rtol, atol):
 
 
 def pagerank64(src, dst, n, damping=0.85, tol=1e-4, max_iters=100):
-    """PageRank of the same formula and stopping rule in float64 (the
-    oracle of algo.pageRank)."""
-    outdeg = np.bincount(src, minlength=n).astype(np.float64)
-    inv_out = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1), 0.0)
-    r = np.full(n, 1.0 / n)
-    for it in range(max_iters):
-        acc = np.bincount(dst, weights=(r * inv_out)[src], minlength=n)
-        r_new = (1 - damping) / n + damping * (acc + r[outdeg == 0].sum() / n)
-        err = np.abs(r_new - r).sum()
-        r = r_new
-        if err <= tol:
+    """PageRank of algo.pageRank's and the mesh drivers' formula in float64
+    on the card over the edge lists src -> dst (numpy): stops after the step
+    whose L1 change is <= tol, or after max_iters steps (tol None: a fixed
+    count).  The oracle of algo.pageRank, pagerank_ell and path g (on the
+    CPU where torch has no card, as in the tests).  Returns (rank on the
+    host, steps)."""
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    s, d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(torch.int64)
+            for a in (src, dst))
+    outdeg = torch.bincount(s, minlength=n).to(torch.float64)
+    inv_out = torch.where(outdeg > 0, 1.0 / outdeg.clamp(min=1), 0.0)
+    dang = outdeg == 0
+    r = torch.full((n,), 1.0 / n, dtype=torch.float64, device=s.device)
+    for it in range(1, max_iters + 1):
+        acc = torch.zeros_like(r).index_add_(0, d, (r * inv_out)[s])
+        new = (1 - damping) / n + damping * (acc + r[dang].sum() / n)
+        done = tol is not None and float((new - r).abs().sum()) <= tol
+        r = new
+        if done:
             break
-    return r
+    return r.cpu().numpy(), it
 
 
 def betweenness64(a, b, n, sources):
@@ -432,7 +461,7 @@ def algo_queries(t):
                       shape=(P, P))
     qs = []
 
-    want_pr = pagerank64(a, b, P)
+    want_pr, _ = pagerank64(a, b, P)
 
     def check_pagerank(rows):
         got = dict(rows)
@@ -688,7 +717,15 @@ TOLERANCE = {  # what each kernel is held to against its plain version
                         "sums rtol 1e-4 atol 1e-6 (other orders; vxm's "
                         "atomics in any order), the same against float64 "
                         "scipy",
-    "ewise_mask": "exact, and equal to np.isin of the int64 keys"}
+    "ewise_mask": "exact, and equal to np.isin of the int64 keys",
+    "shard_expand": "exact (every frame field, the counts)",
+    "shard_reduce": "or, minplus, min exact; sum rtol 1e-4 atol 1e-12 "
+                    "(float32 sums of up to ~160,000 terms in other orders "
+                    "than index_add_'s atomics), two runs bit-identical",
+    "mesh_bits": "exact",
+    "mesh_update": "exact; the PageRank update rtol 1e-4 atol 1e-12 and its "
+                   "L1 change and the dangling sum rtol 1e-5 (float32 sums "
+                   "in other orders)"}
 
 
 def _row(name, shape, ms, plain_ms, library_ms, nbytes, err, flops=0,
@@ -1529,7 +1566,7 @@ def bfs_family_path(prep, sprep, pprep, at_sorted, perm, edges,
     torch.cuda.synchronize()
     ell_ms = (time.perf_counter() - t0) * 1e3
     r5, steps5, _l1 = pagerank_transposed(at_sorted)
-    want = torch.from_numpy(pagerank64(*edges, n)[perm.cpu().numpy()])
+    want = torch.from_numpy(pagerank64(*edges, n)[0][perm.cpu().numpy()])
     torch.testing.assert_close(r_ell, r5, rtol=1e-4, atol=0)
     torch.testing.assert_close(r_ell.cpu().double(), want, rtol=1e-4, atol=0)
     out["pagerank_ell"] = {
@@ -2213,6 +2250,510 @@ def small_vector_index(rng):
           f"card_rows=cpu_rows oracle=ok", flush=True)
 
 
+# -- the device mesh: K23-K26, and path g ---------------------------------------
+
+MESH_SHARDS = 4  # path g: 4 shards on the one card
+MESH_2D = (2, 2)
+MESH_ENV = {"FALKOR_MESH_DEVICES": f"cuda:0*{MESH_SHARDS}"}
+MESH_KERNELS = ("shard_expand", "shard_reduce", "mesh_bits", "mesh_update")
+LIB_REDUCE = {"or": "amax", "minplus": "amin", "min": "amin"}
+
+
+def _hold_mesh(got, plain, exact, what):
+    """As _hold, with a float tolerance fit for values of ~1/n."""
+    torch.cuda.synchronize()
+    assert got.dtype == plain.dtype and got.shape == plain.shape, what
+    if got.dtype == torch.uint32:  # compared as the same bits in int32
+        got, plain = got.view(torch.int32), plain.view(torch.int32)
+    if exact:
+        assert torch.equal(got, plain), what
+    else:
+        torch.testing.assert_close(got, plain, rtol=SUM_RTOL, atol=1e-12,
+                                   msg=what)
+
+
+def check_shard_expand(store, dev):
+    """K23 over the SF1-class graph's edge table cut into 4 shards (shard
+    0, as qdist.edge_table cuts it), the first 65,536 Person ids as the
+    frontier and the KNOWS type, once for each endpoint, with the frame
+    sized to hold every hit.  Exact."""
+    mesh = pdist.make_mesh([dev] * MESH_SHARDS)
+    tbl = qdist.edge_table(store, mesh)[0]
+    lid = store.schema.label_id("Person")
+    persons = np.nonzero(store.label_masks[lid][:store.node_max])[0]
+    uniq = torch.from_numpy(persons[:65_536].astype(np.int32)).to(dev)
+    tlut = torch.from_numpy(qdist._type_lut(
+        store, [store.schema.reltype_id("KNOWS")])).to(dev)
+    es, ed, et, alive, eid = tbl
+    per = es.numel()
+    # the alive edges whose type the LUT admits: their key endpoints are read
+    admitted = int((alive & (et >= 0) & tlut[
+        et.to(torch.int64).clamp(0, tlut.numel() - 1)]).sum())
+    rows = []
+    for endpoint in (0, 1, 2):
+        hits = max(int(f[4].item()) for f in qdist.shard_expand(
+            *tbl, uniq, tlut, cap=2048, endpoint=endpoint))
+        cap = 2048
+        while cap < hits:
+            cap *= 2
+
+        def run(ep=endpoint, c=cap):
+            return qdist.shard_expand(*tbl, uniq, tlut, cap=c, endpoint=ep)
+
+        def plain(ep=endpoint, c=cap):
+            return qdist.shard_expand_plain(*tbl, uniq, tlut, cap=c,
+                                            endpoint=ep)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        for fg, fp in zip(got, want):
+            for g, p in zip(fg, fp):
+                assert g.dtype == p.dtype and torch.equal(g, p), endpoint
+        # what the function needs: type and alive of every edge, the key
+        # endpoint(s) of admitted edges, the other endpoint (endpoint 2 read
+        # both) and id of each hit edge, the frontier, LUT and frames once
+        hit_edges = int(torch.unique(torch.cat(
+            [f[2][f[3]] for f in got])).numel())
+        nbytes = (per * 5 + admitted * 4 * (2 if endpoint == 2 else 1)
+                  + (0 if endpoint == 2 else hits * 4) + hit_edges * 4
+                  + uniq.numel() * 4 + tlut.numel()
+                  + len(got) * (cap * 13 + 4))
+        rows.append(_row("shard_expand",
+                         f"SF1 edge table shard 0 of {MESH_SHARDS} per={per} "
+                         f"admitted={admitted} frontier=65,536 Persons KNOWS "
+                         f"endpoint={endpoint} hits={hits} "
+                         f"hit_edges={hit_edges} cap={cap}", cuda_ms(run),
+                         cuda_ms(plain), None, nbytes, 0.0))
+    return rows
+
+
+def check_shard_reduce(edges, n, dev):
+    """K24 over shard 0 of RMAT-22 cut into 4 (sorted by dst, as the 1D
+    drivers cut it), in all four forms; the library column is one
+    scatter_reduce (index_add_ for the sum) over the same shard's gathered,
+    masked values, the gather left out."""
+    torch.manual_seed(SEED + 22)
+    src, dst = edges
+    ps, pd, _pv, mask = pdist.shard_edges_1d(src, dst, None, MESH_SHARDS)
+    s, d, m = (torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+               for a in (ps, pd, mask))
+    del ps, pd, mask
+    per = s.numel()
+    w = torch.rand(per, device=dev) * 1.5 + 0.5
+    plan = K.segment_plan(d, n)
+    distinct = int(torch.unique(s[m > 0]).numel())
+    outdeg = torch.bincount(torch.from_numpy(src).to(dev), minlength=n)
+    xs = torch.where(outdeg > 0, 1.0 / outdeg.clamp(min=1),
+                     0.0).to(torch.float32)
+    xv = {"or": (torch.rand(n, device=dev) < 0.05).to(torch.int32),
+          "sum": torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev),
+          "minplus": torch.where(torch.rand(n, device=dev) < 0.3,
+                                 torch.rand(n, device=dev) * 10,
+                                 torch.full((n,), float("inf"),
+                                            device=dev)),
+          "min": torch.randperm(n, device=dev).to(torch.int32)}
+    rows = []
+    shape = (f"RMAT-22 shard 0 of {MESH_SHARDS} per={per} segments={n} "
+             f"warp={plan.mid.numel()} block={plan.long.numel()} "
+             f"widest={int((plan.offs[1:] - plan.offs[:-1]).max())}")
+    dl = d.to(torch.int64)
+    for form in ("or", "sum", "minplus", "min"):
+        x = xv[form]
+        ww = w if form in ("sum", "minplus") else None
+        sc = xs if form == "sum" else None
+
+        def run(f=form, x=x, ww=ww, sc=sc):
+            return K.shard_reduce(f, s, d, m, x, n, w=ww, xs=sc, plan=plan)
+
+        def plain(f=form, x=x, ww=ww, sc=sc):
+            return K.shard_reduce_plain(K.FORMS[f], s, d, m, x, n, ww, sc)
+
+        got, want = run(), plain()
+        exact = form != "sum"
+        _hold_mesh(got, want, exact, f"shard_reduce {form}")
+        if not exact:
+            again = run()
+            assert torch.equal(got, again), "shard_reduce sum: not the same bits"
+        idx = s.to(torch.int64)
+        if form == "sum":
+            g = torch.where(m > 0, x[idx] * xs[idx] * w, 0.0)
+
+            def lib(g=g):
+                return torch.zeros(n, device=dev).index_add_(0, dl, g)
+        else:
+            ident = {"or": 0, "minplus": float("inf"),
+                     "min": K.INT32_MAX}[form]
+            masked = {"or": 0, "minplus": float("inf"), "min": K.BIG}[form]
+            v = x[idx] + w if form == "minplus" else x[idx]
+            g = torch.where(m > 0, v, torch.full((), masked, dtype=v.dtype,
+                                                  device=dev))
+
+            def lib(g=g, ident=ident, op=LIB_REDUCE[form]):
+                return torch.full((n,), ident, dtype=g.dtype,
+                                  device=dev).scatter_reduce_(0, dl, g, op)
+        _hold_mesh(lib(), want, exact,
+                   f"shard_reduce {form} against the library")
+        nbytes = (per * (8 + (4 if ww is not None else 0))
+                  + distinct * 4 * (2 if sc is not None else 1)
+                  + 8 * (n + 1) + 4 * n)
+        rows.append(_row("shard_reduce", f"{shape} form={form}", cuda_ms(run),
+                         cuda_ms(plain), cuda_ms(lib), nbytes,
+                         _max_err(got, want)))
+    return rows
+
+
+def check_mesh_bits(n, dev):
+    """K25 at the shapes path g's bitmap drivers give it over n nodes (n =
+    2 ** --mesh-scale): dist_bfs_fused_bitmap over 4 shards (ncap = n
+    rounded up to 32 * 4, W = ncap / 32 words; the fold ORs 4 blocks of W /
+    4) and dist_bfs_2d_bitmap over (2, 2) (chunk = n / 4 rounded up to 32,
+    W = chunk / 32: unpack of the R W words gathered along 'r', pack of the
+    C chunk partial, fold of C blocks of W, epilogue over one block).
+    Exact."""
+    torch.manual_seed(SEED + 23)
+    R, C = MESH_2D
+    nd = MESH_SHARDS
+    ncap = -(-n // (32 * nd)) * (32 * nd)
+    chunk = -(-n // (R * C))
+    chunk = -(-chunk // 32) * 32  # shard_edges_2d's align=32
+    W1, W2 = ncap // 32, chunk // 32
+
+    def bits(k, p):
+        return (torch.rand(k, device=dev) < p).to(torch.int32)
+
+    def levels(k):
+        return torch.where(torch.rand(k, device=dev) < 0.3,
+                           torch.randint(0, 5, (k,), device=dev),
+                           -1).to(torch.int32)
+
+    rows = []
+    for layout, nbits, unpacked, nblk, fold_words, ep_words in (
+            (f"1d shards={nd}", ncap, W1, nd, W1, W1),
+            (f"2d {R}x{C} chunk={chunk}", C * chunk, R * W2, C, C * W2, W2)):
+        part = bits(nbits, 0.1)
+        words = K.pack_bits(bits(32 * unpacked, 0.1))
+        blocks = K.pack_bits(bits(32 * fold_words, 0.02))
+        reach = K.pack_bits(bits(32 * ep_words, 0.1))
+        lv = levels(32 * ep_words)
+        cases = [
+            ("pack", lambda p=part: K.pack_bits(p),
+             lambda p=part: K.pack_bits_plain(p), 4 * nbits + nbits // 8),
+            ("unpack", lambda w=words: K.unpack_bits(w),
+             lambda w=words: K.unpack_bits_plain(w),
+             4 * unpacked + 128 * unpacked),
+            ("or_fold", lambda b=blocks, k=nblk: K.or_fold(b, k),
+             lambda b=blocks, k=nblk: K.or_fold_plain(b, k),
+             4 * fold_words + 4 * fold_words // nblk),
+            ("epilogue", lambda r=reach, x=lv: K.bits_epilogue(r, x, 4),
+             lambda r=reach, x=lv: K.bits_epilogue_plain(r, x, 4),
+             8 * ep_words + 256 * ep_words + 4)]
+        for name, run, plain, nbytes in cases:
+            got, want = run(), plain()
+            for g, p in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                _hold(g, p, True, f"mesh_bits {layout} {name}")
+            rows.append(_row("mesh_bits", f"n={n} {layout} {name}: "
+                             f"bits={nbits} unpacked_words={unpacked} "
+                             f"fold={nblk}x{fold_words // nblk} "
+                             f"epilogue_words={ep_words}", cuda_ms(run),
+                             cuda_ms(plain), None, nbytes, 0.0))
+    return rows
+
+
+def check_mesh_update(n, dev):
+    """K26 at n = 4,194,304: the PageRank update with its L1 change (the
+    dangling sum ready), the dangling sum, the dense BFS update, the min
+    update of SSSP (float32, one block) and of the 2D SSSP (two blocks).
+    The library column: torch.dot for the dangling sum, torch.minimum for
+    the one-block min update (without the changed flag), each held to the
+    plain version at the row's tolerance."""
+    torch.manual_seed(SEED + 24)
+    f32 = torch.float32
+    acc = torch.rand(n, device=dev, dtype=f32) / n
+    rank = torch.rand(n, device=dev, dtype=f32) / n
+    dang = (torch.rand(n, device=dev) < 0.3).to(f32)
+    ds = K.dot_sum(rank, dang)
+    reach = torch.randint(0, 3, (n,), device=dev, dtype=torch.int32)
+    levels = torch.where(torch.rand(n, device=dev) < 0.5,
+                         torch.randint(0, 6, (n,), device=dev),
+                         -1).to(torch.int32)
+    old = torch.where(torch.rand(n, device=dev) < 0.5,
+                      torch.rand(n, device=dev) * 8,
+                      torch.full((n,), float("inf"), device=dev))
+    best = torch.rand(n, device=dev, dtype=f32) * 8
+    two = torch.rand(2 * n, device=dev, dtype=f32) * 8
+    cases = [
+        ("pagerank update + L1",
+         lambda: K.pagerank_update(acc, rank, ds, n, 0.85, l1=True),
+         lambda: K.pagerank_update_plain(acc, rank, ds, n, 0.85, l1=True),
+         None, 12 * n + 8, False),
+        ("dangling sum", lambda: K.dot_sum(rank, dang),
+         lambda: (rank * dang).sum().reshape(1),
+         lambda: torch.dot(rank, dang), 8 * n + 4, False),
+        ("bfs update", lambda: K.bfs_update(reach, levels, 6),
+         lambda: K.bfs_update_plain(reach, levels, 6), None, 16 * n + 4,
+         True),
+        ("min update, 1 block", lambda: K.min_update(old, best),
+         lambda: K.min_update_plain(old, best),
+         lambda: torch.minimum(old, best), 12 * n + 4, True),
+        ("min update, 2 blocks", lambda: K.min_update(old, two),
+         lambda: K.min_update_plain(old, two), None, 16 * n + 4, True),
+    ]
+    rows = []
+    for name, run, plain, lib, nbytes, exact in cases:
+        got, want = run(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for g, p in zip(got, want):
+            if not exact and g.numel() == 1:  # a sum in another order
+                torch.testing.assert_close(g, p, rtol=1e-5, atol=0)
+            else:
+                _hold_mesh(g, p, exact, f"mesh_update {name}")
+            err = max(err, _max_err(g, p))
+        if lib is not None:
+            lv = lib().reshape(want[0].shape)
+            if exact:
+                assert torch.equal(lv, want[0]), f"mesh_update {name} library"
+            else:
+                torch.testing.assert_close(lv, want[0], rtol=1e-5, atol=0)
+        rows.append(_row("mesh_update", f"n={n} {name}", cuda_ms(run),
+                         cuda_ms(plain), cuda_ms(lib) if lib else None,
+                         nbytes, err))
+    return rows
+
+
+def _card_csr(rows, cols, vals, n, dev):
+    """A CSR of the edges rows -> cols (vals or None), built on the card
+    (a stable sort by row)."""
+    r = torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+    c = torch.from_numpy(np.asarray(cols, np.int32)).to(dev)
+    order = torch.sort(r, stable=True).indices
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(r, minlength=n), 0, out=indptr[1:])
+    m = r.numel()
+    return CSR(indptr.to(torch.int32), r[order].to(torch.int32), c[order],
+               None if vals is None else torch.from_numpy(vals).to(dev)[order],
+               torch.tensor(m, dtype=torch.int32, device=dev), n, n)
+
+
+class MeshGraph:
+    """An RMAT graph's edges with path g's oracles: scipy's BFS levels from
+    the widest source, the single-card K6 answers (SSSP over uniform(0.5,
+    2) float32 weights, WCC), float64 PageRank on the card (20 steps, and
+    the step count of the tol rule)."""
+
+    def __init__(self, scale, dev):
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import shortest_path
+
+        t0 = time.perf_counter()
+        self.src, self.dst, self.n = bench_port.load_rmat(
+            scale, bench_port.CACHE_DIR)
+        self.scale = scale
+        n = self.n
+        self.source = int(np.argmax(np.bincount(self.src, minlength=n)))
+        self.w = np.random.default_rng(SEED + 21).uniform(
+            0.5, 2.0, len(self.src)).astype(np.float32)
+        # float32 ones: scipy sums duplicate edges, which int8 would wrap
+        A = sp.csr_matrix((np.ones(len(self.src), np.float32),
+                           (self.src, self.dst)), shape=(n, n))
+        hops = shortest_path(A, unweighted=True, indices=self.source)
+        self.levels = np.where(np.isinf(hops), -1, hops).astype(np.int32)
+        del A
+        _, self.pr_tol_steps = pagerank64(self.src, self.dst, n)
+        self.pr20, _ = pagerank64(self.src, self.dst, n, tol=None,
+                                  max_iters=20)
+        at = _card_csr(self.dst, self.src, self.w, n, dev)
+        self.sssp = sssp_run(at, self.source)[0].cpu().numpy()
+        del at
+        sym = _card_csr(np.concatenate([self.src, self.dst]),
+                        np.concatenate([self.dst, self.src]), None, n, dev)
+        self.wcc = wcc_run(sym)[0].cpu().numpy()
+        del sym
+        torch.cuda.empty_cache()
+        self.oracle_s = time.perf_counter() - t0
+
+
+def mesh_drivers(g1, g2, dev):
+    """Path g (iii): every dist.py driver through the card's 4 shards, the
+    1D host-driven ones over g1 (RMAT-22), the fused, bitmap and 2D ones
+    over g2, each against its oracle: BFS levels equal to scipy's (the
+    max_levels rule of each driver), SSSP and WCC equal to K6 on one card,
+    PageRank within rtol 1e-4 of float64 (at the driver's steps under the
+    tol rule, within one of the float64 rule's count; or 20 steps)."""
+    mesh = pdist.make_mesh([dev] * MESH_SHARDS)
+    mesh2 = pdist.make_mesh_2d([dev] * (MESH_2D[0] * MESH_2D[1]),
+                               rows=MESH_2D[0])
+
+    def cut(levels, k):  # the oracle's levels kept by a max_levels rule
+        return np.where(levels <= k, levels, -1)
+
+    def pr_check(want):
+        return lambda got, st: np.testing.assert_allclose(got, want,
+                                                          rtol=1e-4, atol=0)
+
+    def pr_tol_check(got, st):
+        # the float64 oracle at the driver's own step count: float32 and
+        # float64 L1 changes may cross the tol one step apart
+        assert abs(st["steps"] - g1.pr_tol_steps) <= 1, (
+            st["steps"], g1.pr_tol_steps)
+        want, _ = pagerank64(g1.src, g1.dst, g1.n, tol=None,
+                             max_iters=st["steps"])
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+
+    def eq(want):
+        return lambda got, st: np.testing.assert_array_equal(got, want)
+
+    D = pdist
+    g1_drivers = [  # (name, layout, kind, call(g, stats), check)
+        ("dist_bfs", "1d", "bfs", lambda g, st: D.dist_bfs(
+            mesh, g.src, g.dst, None, g.n, g.source, stats=st),
+         eq(g1.levels)),
+        ("dist_bfs max_levels=3", "1d", "bfs", lambda g, st: D.dist_bfs(
+            mesh, g.src, g.dst, None, g.n, g.source, 3, stats=st),
+         eq(cut(g1.levels, 2))),
+        ("dist_pagerank", "1d", "pr", lambda g, st: D.dist_pagerank(
+            mesh, g.src, g.dst, g.n, stats=st), pr_tol_check),
+        ("dist_sssp", "1d", "pr", lambda g, st: D.dist_sssp(
+            mesh, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g1.sssp)),
+        ("dist_wcc", "1d", "pr", lambda g, st: D.dist_wcc(
+            mesh, g.src, g.dst, g.n, stats=st), eq(g1.wcc))]
+    g2_drivers = [
+        ("dist_bfs_fused", "1d", "bfs", lambda g, st: D.dist_bfs_fused(
+            mesh, g.src, g.dst, g.n, g.source, stats=st), eq(g2.levels)),
+        ("dist_bfs_fused max_levels=3", "1d", "bfs",
+         lambda g, st: D.dist_bfs_fused(mesh, g.src, g.dst, g.n, g.source, 3,
+                                        stats=st), eq(cut(g2.levels, 3))),
+        ("dist_bfs_fused_bitmap", "1dbm", "bfs",
+         lambda g, st: D.dist_bfs_fused_bitmap(mesh, g.src, g.dst, g.n,
+                                               g.source, stats=st),
+         eq(g2.levels)),
+        ("dist_pagerank_fused", "1d", "pr",
+         lambda g, st: D.dist_pagerank_fused(mesh, g.src, g.dst, g.n,
+                                             stats=st), pr_check(g2.pr20)),
+        ("dist_sssp_fused", "1d", "pr", lambda g, st: D.dist_sssp_fused(
+            mesh, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g2.sssp)),
+        ("dist_wcc_fused", "1d", "pr", lambda g, st: D.dist_wcc_fused(
+            mesh, g.src, g.dst, g.n, stats=st), eq(g2.wcc)),
+        ("dist_bfs_2d", "2d", "bfs", lambda g, st: D.dist_bfs_2d(
+            mesh2, g.src, g.dst, g.n, g.source, stats=st), eq(g2.levels)),
+        ("dist_bfs_2d_bitmap", "2d", "bfs", lambda g, st: D.dist_bfs_2d_bitmap(
+            mesh2, g.src, g.dst, g.n, g.source, stats=st), eq(g2.levels)),
+        ("dist_pagerank_2d", "2d", "pr", lambda g, st: D.dist_pagerank_2d(
+            mesh2, g.src, g.dst, g.n, stats=st), pr_check(g2.pr20)),
+        ("dist_sssp_2d", "2d", "pr", lambda g, st: D.dist_sssp_2d(
+            mesh2, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g2.sssp))]
+    runs = []
+    for g, drivers in ((g1, g1_drivers), (g2, g2_drivers)):
+        for name, layout, kind, fn, check in drivers:
+            st = {}
+            t0 = time.perf_counter()
+            out = fn(g, st)
+            if isinstance(out, torch.Tensor):
+                out = out.cpu().numpy()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(out, st)
+            shape = MESH_2D if layout == "2d" else (MESH_SHARDS,)
+            r = {"driver": name, "rmat_scale": g.scale, "n": g.n,
+                 "edges": len(g.src), "s": secs, "shard_s": st["shard_s"],
+                 "loop_s": secs - st["shard_s"], "steps": st["steps"],
+                 "comm_bytes_per_iter": pdist.comm_bytes_per_iter(
+                     kind, layout, g.n, shape)}
+            if name == "dist_pagerank":
+                r["float64_oracle_steps"] = g.pr_tol_steps
+            runs.append(r)
+            print(f"mesh driver: {json.dumps(r)} oracle=ok", flush=True)
+    return runs
+
+
+def mesh_queries(g_dev, queries, env, single):
+    """Each query once under `env` (the mesh route), checked against its
+    oracle and against the single card's rows: path a's (`single`, name ->
+    (rows, ms)), or for a query path a did not run, the query with its
+    local_params under FALKOR_DIST=0.  Returns {name: stats}."""
+    out = {}
+    for qq in queries:
+        with _environ({**(qq.env or {}), **env}):
+            t0 = time.perf_counter()
+            rows = g_dev.query(qq.cypher, qq.params).result_set
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        qq.check(rows)
+        if qq.name in single:
+            local, local_ms = single[qq.name]
+        else:
+            with _environ({"FALKOR_DIST": "0", "FALKOR_DIST_QUERY": "0"}):
+                t0 = time.perf_counter()
+                local = g_dev.query(qq.cypher, {**qq.params,
+                                                **(qq.local_params or {})}
+                                    ).result_set
+                local_ms = (time.perf_counter() - t0) * 1e3
+        if qq.same is None:
+            assert rows == local, (qq.name, rows[:5], local[:5])
+        else:
+            qq.same(rows, local)
+        out[qq.name] = {"ms": ms, "single_card_ms": local_ms,
+                        "rows": len(rows)}
+        print(f"mesh query {qq.name} {json.dumps(env)}: "
+              f"{json.dumps(out[qq.name])} oracle=ok single_card="
+              f"{'equal' if qq.same is None else 'close'}", flush=True)
+    return out
+
+
+def mesh_algo_queries(t):
+    """Path g (i): algo.pageRank, WCC, SSSP and BFS (the native route's
+    query, and one with max_depth 3, which the mesh answers with levels <
+    3: the reference's mesh rule, held to the single card's max_depth 2)
+    over Person / KNOWS."""
+    from scipy.sparse.csgraph import shortest_path
+    import scipy.sparse as sp
+
+    qs = [q for q in algo_queries(t) if q.name in (
+        "algo_pagerank", "algo_wcc", "algo_sssp", "algo_bfs_native")]
+    P = len(t["person_id"])
+    pids = t["person_id"]
+    D = sp.csr_matrix((np.ones(len(t["knows_a"])), (t["knows_a"],
+                                                     t["knows_b"])),
+                      shape=(P, P))
+    hops = shortest_path(D, unweighted=True, directed=True, indices=0)
+    near = np.nonzero(hops <= 2)[0]
+    near = near[np.lexsort((near, hops[near]))]
+    q = ("MATCH (p:Person {id: $id}) CALL algo.BFS(p, $k, 'KNOWS') "
+         "YIELD nodes RETURN [x IN nodes | x.id]")
+    qs.append(Query("algo_bfs_max_depth", q, {"id": int(pids[0]), "k": 3},
+                    _equals([[[int(pids[i]) for i in near]]]),
+                    local_params={"k": 2}))
+    return qs
+
+
+def mesh_path(db, t, g1, g2, dev, single):
+    """Path g: the mesh route with 4 shards on the one card
+    (FALKOR_MESH_DEVICES=cuda:0*4): (i) the algorithm mix, (ii) the LDBC
+    read mix with FALKOR_DIST_QUERY=force, then auto, each against path
+    a's single-card rows (`single`), (iii) the dist.py drivers."""
+    g_dev = db.select_graph("ldbc")
+    out = {}
+    with _environ(MESH_ENV):
+        router._cached_mesh = None
+        t0 = time.perf_counter()
+        out["algo"] = mesh_queries(g_dev, mesh_algo_queries(t), {}, single)
+        assert router._cached_mesh is not None and \
+            router._cached_mesh.devices.size == MESH_SHARDS
+        print(f"mesh algo mix: s={time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        for mode in ("force", "auto"):
+            out[f"read_{mode}"] = mesh_queries(
+                g_dev, ldbc_queries(t), {"FALKOR_DIST_QUERY": mode}, single)
+        print(f"mesh read mix: s={time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        out["drivers"] = mesh_drivers(g1, g2, dev)
+        print(f"mesh drivers: s={time.perf_counter() - t0:.1f}", flush=True)
+    router._cached_mesh = None
+    return out
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 
@@ -2245,20 +2786,19 @@ def _environ(env):
                 os.environ[k] = v
 
 
-def run_queries(g_dev, g_cpu, queries, reps=2):
-    """Each query `reps` times on the card (p50 on the host clock), checked
-    against the oracle and against the CPU database, then once more under
-    the profiler for the card's busy time.  Returns {name: stats}."""
+def run_queries(g_dev, g_cpu, queries, rows_out=None):
+    """Each query once on the card (ms on the host clock), checked against
+    the oracle and against the CPU database, then once more under the
+    profiler for the card's busy time.  Returns {name: stats}; rows_out
+    gets {name: (card rows, ms)}."""
     out = {}
     for qq in queries:
         with _environ(qq.env):
-            times = []
             before = {k: v.launches for k, v in cuda.KERNELS.items()}
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                rows = g_dev.query(qq.cypher, qq.params).result_set
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            rows = g_dev.query(qq.cypher, qq.params).result_set
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
             launched = {k: v.launches - before[k]
                         for k, v in cuda.KERNELS.items()
                         if v.launches > before[k]}
@@ -2270,10 +2810,10 @@ def run_queries(g_dev, g_cpu, queries, reps=2):
                 qq.same(rows, cpu_rows)
             trace = bench_port.device_times(
                 lambda: g_dev.query(qq.cypher, qq.params))
-        p50 = statistics.median(times)
-        st = {"p50_ms": p50, "rows": len(rows),
-              "launches_over_reps": launched,
-              **trace_stats(trace, p50, by_kernel=False)}
+        if rows_out is not None:
+            rows_out[qq.name] = (rows, ms)
+        st = {"ms": ms, "rows": len(rows), "launches": launched,
+              **trace_stats(trace, ms, by_kernel=False)}
         out[qq.name] = st
         print(f"query {qq.name}: {json.dumps(st)} oracle=ok "
               f"cpu={'equal' if qq.same is None else 'close'}", flush=True)
@@ -2310,6 +2850,9 @@ def main(argv=None):
     ap.add_argument("--rmat-scale", type=int, default=22,
                     help="RMAT scale of the batched BFS path (bench_port.py's "
                          "full size is 24)")
+    ap.add_argument("--mesh-scale", type=int, default=20,
+                    help="RMAT scale of path g's fused, bitmap and 2D mesh "
+                         "drivers (cut from 22 for the run's time)")
     ap.add_argument("--vectors", type=int, default=SIFT.n,
                     help="base vectors of the sift-128-euclidean index "
                          "(1000000); glove-100-angular is cut in proportion")
@@ -2415,6 +2958,12 @@ def main(argv=None):
           f"gen_s={time.perf_counter() - t0:.1f}", flush=True)
     results.update(check_vector_kernels(sift_X, dev,
                                         np.random.default_rng(SEED + 5)))
+    t0 = time.perf_counter()
+    results["shard_expand"] = check_shard_expand(store, dev)
+    results["shard_reduce"] = check_shard_reduce(rmat_edges, prep.n, dev)
+    results["mesh_bits"] = check_mesh_bits(1 << args.mesh_scale, dev)
+    results["mesh_update"] = check_mesh_update(prep.n, dev)
+    print(f"mesh kernels: s={time.perf_counter() - t0:.1f}", flush=True)
 
     # phase 4: the main paths, each with its launches counted from just
     # before it to just after it
@@ -2424,11 +2973,13 @@ def main(argv=None):
     motogp(db_cpu)
     checkpoint_roundtrip()
     print("motogp: rows=ok checkpoint_roundtrip=ok", flush=True)
+    single = {}  # path a's card rows, which path g is held to
     query_stats = run_queries(db.select_graph("ldbc"),
-                              db_cpu.select_graph("ldbc"), queries)
+                              db_cpu.select_graph("ldbc"), queries,
+                              rows_out=single)
     query_stats.update(run_queries(db.select_graph("ldbc"),
                                    db_cpu.select_graph("ldbc"),
-                                   algo_queries(t)))
+                                   algo_queries(t), rows_out=single))
     small = small_algorithms(db, db_cpu, np.random.default_rng(SEED + 2))
     launches = {}
     path_launches("LDBC read and algorithm mixes", LDBC_KERNELS, launches)
@@ -2437,7 +2988,19 @@ def main(argv=None):
     harmonic_stats = harmonic_path(db, db_cpu, t, small,
                                    np.random.default_rng(SEED + 11))
     path_launches("harmonic centrality", HARMONIC_KERNELS, launches)
-    del db, db_cpu, store
+
+    t0 = time.perf_counter()
+    g1 = MeshGraph(args.rmat_scale, dev)
+    g2 = MeshGraph(args.mesh_scale, dev)
+    print(f"mesh graphs: RMAT-{g1.scale} oracle_s={g1.oracle_s:.1f} "
+          f"RMAT-{g2.scale} oracle_s={g2.oracle_s:.1f} "
+          f"s={time.perf_counter() - t0:.1f}", flush=True)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    mesh_stats = mesh_path(db, t, g1, g2, dev, single)
+    path_launches("device mesh", MESH_KERNELS, launches)
+    print(f"mesh path: s={time.perf_counter() - t0:.1f}", flush=True)
+    del db, db_cpu, store, g1, g2, single
 
     cuda.reset_launches()
     bfs_stats, gated_counts = bfs_path(prep, dev,
@@ -2479,11 +3042,13 @@ def main(argv=None):
     # update, scores over one query's probed lists (euclidean), the
     # multi-source BFS to the fixpoint, the level unpack at 2048 int8 lanes,
     # one ELL PageRank step, plus-times mxv over the ELL form, spmm at
-    # k = 64, the edge-masked mxv, ewise_mult_mask; max_abs_err over every
-    # shape
+    # k = 64, the edge-masked mxv, ewise_mult_mask, the shard scan of both
+    # orientations, the PageRank form of the shard reduce, the bitmap level
+    # epilogue, the PageRank update; max_abs_err over every shape
     main_row = {"group_partials": 1, "pagerank": 1, "kmeans_assign": 1,
                 "vector_scores": 1, "multi_bfs": 1, "ell_mxv": 1,
-                "ell_spmm": 1}
+                "ell_spmm": 1, "shard_expand": 2, "shard_reduce": 1,
+                "mesh_bits": 3}
     kernels = []
     for name, rows in results.items():
         k = cuda.KERNELS[name]
@@ -2501,7 +3066,8 @@ def main(argv=None):
                    "vectors": args.vectors, "queries": query_stats,
                    "bfs": bfs_stats, "vector_index": vec_stats,
                    "harmonic": harmonic_stats, "bfs_family": family_stats,
-                   "semiring": semiring_stats, "launches": launches}, f,
+                   "semiring": semiring_stats, "mesh": mesh_stats,
+                   "launches": launches}, f,
                   indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

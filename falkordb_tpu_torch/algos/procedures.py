@@ -5,8 +5,10 @@ Each builds a compacted adjacency snapshot on the graph's device
 algorithms in falkordb_tpu_torch.algos.*: PageRank (kernel K5), WCC and
 SSSP (K6), betweenness (K7), BFS with parents (K8) and harmonic centrality
 (K16) on the card; label propagation, MSF, maxFlow and the path
-enumerations on the host, as in falkordb_tpu.  Names, yields, row order
-and configuration keys are falkordb_tpu's."""
+enumerations on the host, as in falkordb_tpu.  With a mesh of two or more
+devices (parallel/router.py), algo.pageRank, WCC, SSSP and bfs take the
+edge-sharded drivers of parallel/dist.py (K24-K26) instead, as falkordb_tpu
+does.  Names, yields, row order and configuration keys are falkordb_tpu's."""
 
 from __future__ import annotations
 
@@ -23,10 +25,14 @@ def _config(cfg):
     return cfg
 
 
-# falkordb_tpu's _maybe_mesh routes a snapshot with edges through its device
-# mesh when more than one device is visible (parallel/router.py).  The port
-# has no mesh route until ROADMAP.md module 9 ports parallel/router.py and
-# parallel/dist.py: one card is one device, so every procedure runs here.
+def _maybe_mesh(comp, device):
+    """Route through the device mesh when the store's mesh has two or more
+    devices and the compacted snapshot has edges (parallel/router.py)."""
+    if comp.src is None or len(comp.src) == 0:
+        return None
+    from falkordb_tpu_torch.parallel.router import maybe_mesh
+
+    return maybe_mesh(device)
 
 
 def _native_bfs_levels(comp, csrc):
@@ -68,7 +74,15 @@ def algo_bfs(rt, source, max_depth=None, reltype=None):
     if comp is None:
         return
     csrc = comp.remap.get(src, -1)
-    if csrc >= 0 and (nat := _native_bfs_levels(comp, csrc)) is not None:
+    mesh = _maybe_mesh(comp, g.device)
+    if mesh is not None and csrc >= 0:
+        from falkordb_tpu_torch.parallel.dist import dist_bfs
+
+        levels = dist_bfs(
+            mesh, comp.src, comp.dst, None, len(comp.ids), csrc,
+            max_levels=int(max_depth) if max_depth else None).cpu().numpy()
+        levels = np.where(levels < 0, 2**30, levels)
+    elif csrc >= 0 and (nat := _native_bfs_levels(comp, csrc)) is not None:
         # single-source latency path, as in falkordb_tpu: the native
         # direction-optimizing host BFS (native/bfsnative.cpp); the kernel
         # path (K8) runs when FALKOR_NO_NATIVE_BFS is set or it is missing
@@ -100,7 +114,14 @@ def algo_pagerank(rt, label=None, relationship=None):
                              directed=True)
     if comp is None:
         return
-    scores = pagerank(comp.csr).cpu().numpy()
+    mesh = _maybe_mesh(comp, g.device)
+    if mesh is not None:
+        from falkordb_tpu_torch.parallel.dist import dist_pagerank
+
+        scores = dist_pagerank(mesh, comp.src, comp.dst,
+                               len(comp.ids)).cpu().numpy()
+    else:
+        scores = pagerank(comp.csr).cpu().numpy()
     order = np.argsort(-scores, kind="stable")
     for ci in order:
         yield {"node": rt.ctx.node_value(int(comp.ids[ci])),
@@ -117,7 +138,14 @@ def algo_wcc(rt, cfg=None):
                              cfg.get("relationshipTypes"), directed=False)
     if comp is None:
         return
-    labels = wcc(comp.csr).cpu().numpy()
+    mesh = _maybe_mesh(comp, g.device)
+    if mesh is not None:
+        from falkordb_tpu_torch.parallel.dist import dist_wcc
+
+        labels = dist_wcc(mesh, comp.src, comp.dst,
+                          len(comp.ids)).cpu().numpy()
+    else:
+        labels = wcc(comp.csr).cpu().numpy()
     for ci in range(len(comp.ids)):
         yield {"node": rt.ctx.node_value(int(comp.ids[ci])),
                "componentId": int(labels[ci])}
@@ -145,7 +173,16 @@ def algo_sssp(rt, cfg=None):
     if comp is None:
         return
     csrc = comp.remap.get(src, -1)
-    dist = sssp(comp.csr, csrc).cpu().numpy()
+    mesh = _maybe_mesh(comp, g.device)
+    if mesh is not None and csrc >= 0:
+        from falkordb_tpu_torch.parallel.dist import dist_sssp
+
+        w = (comp.weights if comp.weights is not None
+             else np.ones(len(comp.src), np.float32))
+        dist = dist_sssp(mesh, comp.src, comp.dst, w, len(comp.ids),
+                         csrc).cpu().numpy()
+    else:
+        dist = sssp(comp.csr, csrc).cpu().numpy()
     for ci in range(len(comp.ids)):
         if np.isfinite(dist[ci]):
             yield {"node": rt.ctx.node_value(int(comp.ids[ci])),

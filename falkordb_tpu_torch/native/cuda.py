@@ -96,6 +96,14 @@ KERNELS = {
                "falkordb_tpu/sparse/semiring.py:113"),
         Kernel("ewise_mask", "falkordb_tpu_torch/csrc/ewise_mask.cu",
                "falkordb_tpu/sparse/ops.py:306"),
+        Kernel("shard_expand", "falkordb_tpu_torch/csrc/shard_expand.cu",
+               "falkordb_tpu/parallel/qdist.py:116"),
+        Kernel("shard_reduce", "falkordb_tpu_torch/csrc/shard_reduce.cu",
+               "falkordb_tpu/parallel/dist.py:73"),
+        Kernel("mesh_bits", "falkordb_tpu_torch/csrc/mesh_bits.cu",
+               "falkordb_tpu/parallel/dist.py:664"),
+        Kernel("mesh_update", "falkordb_tpu_torch/csrc/mesh_update.cu",
+               "falkordb_tpu/parallel/dist.py:96"),
     )
 }
 
@@ -153,6 +161,23 @@ _SIGNATURES = {
                          _P, _I64, _P],
     "fk_semiring_scalar": [_I64, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "fk_ewise_mask": [_P, _P, _I64, _P, _P, _I64, _P, _P, _INT, _P, _P],
+    "fk_shard_expand_count": [_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64,
+                              _INT, _INT, _P, _P],
+    "fk_shard_expand_write": [_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64,
+                              _INT, _INT, _P, _P, _I64, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P],
+    "fk_shard_offsets": [_P, _I64, _I64, _P, _P],
+    "fk_shard_reduce": [_INT, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _P,
+                        _I64, _P, _I64, _P, _P],
+    "fk_mesh_pack": [_P, _I64, _P, _P],
+    "fk_mesh_unpack": [_P, _I64, _P, _P],
+    "fk_mesh_or_fold": [_P, _I64, _I64, _P, _P],
+    "fk_mesh_bits_epilogue": [_P, _P, _I64, _INT, _P, _P, _P, _P],
+    "fk_mesh_bfs_update": [_P, _P, _I64, _INT, _P, _P, _P, _P],
+    "fk_mesh_min_update": [_INT, _P, _P, _I64, _I64, _P, _P, _P],
+    "fk_mesh_dot": [_P, _P, _I64, _P, _P, _P],
+    "fk_mesh_pagerank_update": [_P, _P, _P, _P, _I64, _I64, _F32, _F32, _P,
+                                _P, _P, _P],
 }
 
 _lock = threading.Lock()

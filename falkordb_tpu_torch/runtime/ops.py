@@ -790,7 +790,7 @@ class Traverse(Op):
 
     def _run_dist(self, rt, lhs, srcs, valid, mesh, hit):
         """Mesh-routed expansion: the edge-shard membership scan runs
-        under shard_map across devices (parallel/qdist.py); row join and
+        at every shard of the mesh (K23, parallel/qdist.py); row join and
         label post-filter stay host-side.  Emits the same frame multiset
         as the CSR path."""
         from falkordb_tpu_torch.parallel import qdist

@@ -31,6 +31,11 @@ from falkordb_tpu_torch.index.vector_index import (
     VectorIndex, kmeans_assign, kmeans_update, vector_scores,
 )
 from falkordb_tpu_torch.native import cuda
+from falkordb_tpu_torch.parallel.qdist import shard_expand
+from falkordb_tpu_torch.parallel.shard_ops import (
+    bfs_update, bits_epilogue, dot_sum, min_update, pack_bits,
+    pagerank_update, shard_reduce,
+)
 from falkordb_tpu_torch.runtime.ops import group_partials, topk_smallest
 from falkordb_tpu_torch import sparse as S
 from falkordb_tpu_torch.sparse.csr import CSR
@@ -86,6 +91,16 @@ def test_import_and_query_leave_jax_out():
             "          'CALL algo.labelPropagation(null) YIELD node',\n"
             "          'MATCH (a:A) CALL algo.BFS(a, null, null) YIELD nodes',\n"
             "          'CALL algo.harmonicCentrality(null) YIELD node, score'):\n"
+            "    assert g.query(q + ' RETURN 1').result_set, q\n"
+            "import os\n"
+            "import falkordb_tpu_torch.parallel.mesh\n"
+            "import falkordb_tpu_torch.parallel.dist\n"
+            "import falkordb_tpu_torch.parallel.router\n"
+            "import falkordb_tpu_torch.parallel.qdist\n"
+            "os.environ['FALKOR_MESH_DEVICES'] = 'cpu*2'\n"
+            "os.environ['FALKOR_DIST_QUERY'] = 'force'\n"
+            "for q in ('CALL algo.pageRank(null, null) YIELD node, score',\n"
+            "          'MATCH (a:A)-[:R]-(b) RETURN b.v'):\n"
             "    assert g.query(q + ' RETURN 1').result_set, q\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'falkordb_tpu')]\n"
@@ -198,6 +213,15 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
     form = sops._ell_form(aw, True)
     sops.ell_mxv(S.PLUS_TIMES_F32, form, x, 3, 3)
     sops.ell_spmm(S.PLUS_TIMES_F32, form, torch.ones(3, 2), 3, 3)
+    i3 = torch.tensor([0, 1, 2], dtype=torch.int32)
+    shard_expand(i3, i3, i3, i3 >= 0, i3, i3, torch.ones(3, dtype=torch.bool),
+                 cap=4, endpoint=2)
+    shard_reduce("sum", i3, i3, i3, x, 3, w=x)
+    bits = pack_bits(torch.ones(32, dtype=torch.int32))
+    bits_epilogue(bits, torch.full((32,), -1, dtype=torch.int32), 0)
+    bfs_update(i3, i3, 1)
+    min_update(x, x)
+    pagerank_update(x, x, dot_sum(x, x), 3, 0.85, l1=True)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == {
         "expand": 0, "group_partials": 0, "topk": 0, "bfs_levels": 0,
         "pagerank": 0, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
@@ -206,7 +230,8 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
         "packed_counts": 0, "kmeans_assign": 0, "kmeans_update": 0,
         "vector_scores": 0, "multi_bfs": 0, "packed_levels": 0,
         "ell_pagerank": 0, "ell_mxv": 0, "ell_spmm": 0,
-        "semiring_segment": 0, "ewise_mask": 0}
+        "semiring_segment": 0, "ewise_mask": 0, "shard_expand": 0,
+        "shard_reduce": 0, "mesh_bits": 0, "mesh_update": 0}
     assert cuda._lib is None  # nothing was built or loaded
 
 
@@ -238,6 +263,15 @@ def test_wrappers_refuse_other_devices():
         S.ewise_mult_mask(meta, meta)
     with pytest.raises(ValueError, match="several devices"):
         S.vxm(S.PLUS_TIMES_F32, m3, at)
+    i3 = torch.zeros(3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        shard_expand(i3, i3, i3, i3 >= 0, i3, i3, i3 >= 0, cap=4, endpoint=0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        shard_reduce("or", i3, i3, i3, i3, 3)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        pack_bits(torch.zeros(32, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        min_update(m3, torch.ones(3))
 
 
 @pytest.mark.parametrize("kernel", ["gated", "stepped", "packed"])
