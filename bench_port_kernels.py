@@ -17,6 +17,14 @@ dedup=True) as bench_kernels.py builds them and copied to the card:
   spmm_plus_times_k8    B (n, k) uniform, seed 3                   (K20)
   spmm_plus_times_k64
 
+bench_kernels.py's two bench-local jitted rows, through
+falkordb_tpu_torch.probes over the raw edges (duplicates kept):
+
+  ell_spmv_plus_times     the plus-times SpMV over build_blocked_ell of
+                          the transpose, x as above          (K18's rows)
+  packed_rowgather_or16   the 16-deep OR of (n+1, 128) int16 row gathers,
+                          idx (16, 2^21) seed 5, tab seed 6  (K9's body)
+
 and, for the library's other kernels (not in bench_kernels.py):
 
   mxv_plus_times_masked   the edge-centric form (edge_mask = valid)  (K21)
@@ -26,14 +34,13 @@ and, for the library's other kernels (not in bench_kernels.py):
 
 Byte models (bench_kernels.py's, with cap the padded capacity): mxv
 structural 12 B/edge + 4n, weighted 16 B/edge + 4n, spmm (12 + 4k) B/edge
-+ 4nk; the edge-centric mxv 17 B/edge + 4n (the mask byte), vxm 16 B/edge
++ 4nk, ell_spmv 8 B/padded edge + 4n, rowgather (4 + 256) B an index;
+the edge-centric mxv 17 B/edge + 4n (the mask byte), vxm 16 B/edge
 + 4n, reduce_rows 4 B/edge + 8n, reduce_scalar 4 B/edge, ewise 9 B/edge of
 A + 4 B/edge of B + 4n.  The roof is the H100 SXM's 3.35 TB/s.
 
 Timing: one warm-up call (it builds the ELL form), then the best of
 KBENCH_REPS calls on the host clock, each ending in torch.cuda.synchronize().
-bench_kernels.py's two bench-local jitted rows (ell_spmv, rowgather) are
-not library functions and are not here (ROADMAP §G).
 
 Prints bench_kernels.py's JSON lines: kbench_config (with the card's name
 and power limit from nvidia-smi), one kbench_<name> line a row and scale,
@@ -52,8 +59,11 @@ import numpy as np
 import torch
 
 import bench_port
+from falkordb_tpu_torch import probes as P
 from falkordb_tpu_torch import sparse as S
+from falkordb_tpu_torch.algos.bfs import ell_reach_parts
 from falkordb_tpu_torch.sparse.csr import CSR
+from falkordb_tpu_torch.sparse.ell import build_blocked_ell
 
 ROOF = 3.35e12  # H100 SXM device memory rate, bytes/s (data sheet)
 KS = (8, 64)
@@ -121,6 +131,48 @@ def runs(A: CSR, Aw: CSR, Ah: CSR, x, xi, Bs):
     return out
 
 
+def ell_transpose(src, dst, n: int, dev):
+    """bench_kernels.py's transpose of the raw edges (duplicates kept): a
+    stable sort by dst, so a row's sources stay in edge order, then
+    build_blocked_ell at its default widths, each bucket transposed for
+    K18 (ell_reach_parts), built on `dev`.  Returns (parts, padded edges,
+    the transpose's indptr (n+1,) int64 and cols int32)."""
+    s = torch.from_numpy(np.asarray(src)).to(dev)
+    d = torch.from_numpy(np.asarray(dst)).to(dev)
+    order = torch.sort(d, stable=True).indices
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(d, minlength=n), 0, out=indptr[1:])
+    cols = s[order].to(torch.int32)
+    del s, d, order
+    ell = build_blocked_ell(indptr, cols, n, device=dev)
+    return (ell_reach_parts(ell, dev, by_range=False), ell.padded_edges,
+            indptr, cols)
+
+
+def rowgather_operands(n: int, dev):
+    """bench_kernels.py's rowgather inputs: tab (n+1, 128) int16 of seed 6,
+    idx (16, 2^21) int32 in [0, n) of seed 5."""
+    idx = np.random.default_rng(5).integers(0, n, (16, 1 << 21),
+                                            dtype=np.int32)
+    tab = np.random.default_rng(6).integers(0, 1 << 15, (n + 1, 128)).astype(
+        np.int16)
+    return torch.from_numpy(tab).to(dev), torch.from_numpy(idx).to(dev)
+
+
+def gather_runs(parts, padded: int, x, tab, idx):
+    """bench_kernels.py's two bench-local rows, [(name, model bytes, fn)]
+    with its byte models: 8 B a padded edge + 4n, and 4 B an index + one
+    gathered row."""
+    n = x.shape[0]
+    row_bytes = tab.shape[1] * tab.element_size()
+    return [
+        ("ell_spmv_plus_times", 8 * padded + 4 * n,
+         lambda: P.ell_spmv(parts, x)),
+        ("packed_rowgather_or16", (4 + row_bytes) * idx.numel(),
+         lambda: P.row_gather_or(tab, idx)),
+    ]
+
+
 def best_ms(fn, reps: int) -> float:
     """A warm-up call, then the best of `reps` on the host clock with a
     synchronize inside the timed span."""
@@ -173,16 +225,23 @@ def main() -> int:
         x, xi, Bs = operands(n, dev)
         print(f"# scale {scale}: n={n} m={m} cap={A.cap} build_s="
               f"{time.perf_counter() - t0:.1f}", file=sys.stderr, flush=True)
-        for name, nbytes, fn in runs(A, Aw, Ah, x, xi, Bs):
+        cap = A.cap
+        todo = runs(A, Aw, Ah, x, xi, Bs)
+        src, dst, _ = bench_port.load_rmat(scale, bench_port.CACHE_DIR)
+        parts, padded, _, _ = ell_transpose(src, dst, n, dev)
+        del src, dst
+        tab, idx = rowgather_operands(n, dev)
+        todo += gather_runs(parts, padded, x, tab, idx)
+        for name, nbytes, fn in todo:
             ms = best_ms(fn, reps)
             gbps = nbytes / (ms * 1e-3) / 1e9
             eff = gbps / (ROOF / 1e9)
             emit({"metric": f"kbench_{name}", "scale": scale, "edges": m,
-                  "cap": A.cap, "ms": ms, "model_bytes": nbytes,
+                  "cap": cap, "ms": ms, "model_bytes": nbytes,
                   "achieved_gbps": gbps, "efficiency_vs_roof": eff})
             if eff < worst[0]:
                 worst = (eff, f"{name}@scale{scale}")
-        del A, Aw, Ah, x, xi, Bs
+        del A, Aw, Ah, x, xi, Bs, todo, parts, tab, idx
         torch.cuda.empty_cache()
     emit({"metric": "kbench_worst_offender", "kernel": worst[1],
           "efficiency_vs_roof": worst[0]})

@@ -39,6 +39,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    four forms, beside one scatter_reduce; K25 at the shapes of path g's
    bitmap drivers (1D over 4 shards and 2D over (2, 2) at n = 2 **
    --mesh-scale); K26 at n = 4,194,304, the dangling sum beside torch.dot.
+   The gather probes at every shape of bench_port_gather.py (the reference
+   probes' shapes, scripts/prof_pallas_gather*.py, and C and D at tables
+   past the L2), built by its builders, each also against the reference's
+   numpy oracle: K27's x * 2 beside x * 2 and its column OR of 512 MiB
+   (seeded one-bit words, so the OR is a random word a column), K28 beside
+   tab[idx] (2^19 and 2^25 words), K29 at n = 2^20, 2^24 and 2^30 bits, K30
+   at gather2d's reps 8 and 32 and gather2's nine forms (beside
+   torch.gather at reps 1); and bench_kernels.py's two bench-local rows
+   over the same RMAT edges (duplicates kept): ell_spmv (K18's rows entry)
+   beside the CSR SpMV and a float64 bincount oracle, rowgather_or (K9's
+   body) over (n+1, 128) int16 rows, 16 x 2^21 indices.
 4. Main paths, each with the launch counts set to 0 just before it and
    read just after:
    a. The README demo, then an LDBC SNB SF1-class graph (the generator
@@ -109,6 +120,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
       and 2D ones at RMAT-20 (--mesh-scale; cut for the run's time), BFS
       levels against scipy, SSSP and WCC against K6 on one card exactly,
       PageRank within rtol 1e-4 of float64 on the card.
+   h. (run after f.) The gather probes: bench_port_gather.py's probes,
+      every PROBE and VAR line of the reference scripts' main() and the two
+      tables past L2, each held to its plain version on the same card
+      tensors and to its numpy oracle, then
+      bench_port_kernels.py's ell_spmv_plus_times and packed_rowgather_or16
+      once, each output equal to the kernel's of phase 3 (K27-K30, K18's
+      rows, K9's body).
    Every kernel of a path must have launched during that path.
 
 The line before the last is a JSON object {"kernels": [...]} and the last
@@ -133,6 +151,7 @@ import torch
 import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
 import bench_port
+import bench_port_gather
 import bench_port_kernels
 from falkordb_tpu_torch.algos.betweenness import (
     segment_sum_pull, segment_sum_pull_plain,
@@ -161,6 +180,7 @@ from falkordb_tpu_torch.index.vector_index import (
     kmeans_assign, kmeans_assign_plain, kmeans_update, kmeans_update_plain,
     vector_scores, vector_scores_plain,
 )
+from falkordb_tpu_torch import probes as PR
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.parallel import dist as pdist, qdist, router
 from falkordb_tpu_torch.parallel import shard_ops as K
@@ -725,7 +745,14 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "mesh_bits": "exact",
     "mesh_update": "exact; the PageRank update rtol 1e-4 atol 1e-12 and its "
                    "L1 change and the dangling sum rtol 1e-5 (float32 sums "
-                   "in other orders)"}
+                   "in other orders)",
+    "probe_stream": "exact", "probe_take": "exact", "probe_bittest": "exact",
+    "probe_lane_gather": "exact",
+    "ell_spmv": "rtol 1e-5 atol 1e-9 (K18's: the kernel sums a row in "
+                "column order up to 32 wide, else in a fixed warp or block "
+                "tree; the plain version in torch's order); float64 "
+                "bincount oracle rtol 1e-4 atol 1e-6",
+    "rowgather_or": "exact"}
 
 
 def _row(name, shape, ms, plain_ms, library_ms, nbytes, err, flops=0,
@@ -1809,6 +1836,139 @@ def semiring_path(sg: SemiringGraph, outs):
                        "shape": list(y.shape), "dtype": str(y.dtype)}
     print(f"semiring rmat{sg.n.bit_length() - 1}: {json.dumps(stats)}",
           flush=True)
+    return stats
+
+
+# -- the gather probes: K27-K30, and bench_kernels.py's two rows -------------
+
+GATHER_KERNELS = ("probe_stream", "probe_take", "probe_bittest",
+                  "probe_lane_gather", "ell_spmv", "rowgather_or")
+
+
+@dataclasses.dataclass
+class GatherBench:
+    """bench_kernels.py's inputs of its two bench-local rows at the RMAT
+    scale: the raw edges' transpose ELL (parts for K18's rows), x uniform
+    seed 2, the rowgather table and indices (seeds 6, 5), the transpose CSR
+    (the library SpMV) and the float64 oracle of the SpMV."""
+    parts: list
+    padded: int
+    x: torch.Tensor
+    tab: torch.Tensor
+    idx: torch.Tensor
+    lib_csr: torch.Tensor
+    y64: np.ndarray
+
+
+def gather_bench(edges, n, dev):
+    src, dst = edges
+    parts, padded, indptr, cols = bench_port_kernels.ell_transpose(
+        src, dst, n, dev)
+    x, _, _ = bench_port_kernels.operands(n, dev, ks=())
+    lib_csr = torch.sparse_csr_tensor(
+        indptr, cols.to(torch.int64),
+        torch.ones(cols.numel(), dtype=torch.float32, device=dev),
+        size=(n, n))
+    y64 = np.bincount(dst, weights=x.cpu().numpy().astype(np.float64)[src],
+                      minlength=n)
+    tab, idx = bench_port_kernels.rowgather_operands(n, dev)
+    return GatherBench(parts, padded, x, tab, idx, lib_csr, y64)
+
+
+def probe_library(c):
+    """The one PyTorch call of a probe's function, where there is one:
+    x * 2, tab[idx], torch.gather (a lane gather at reps 1)."""
+    if c.fn is PR.double:
+        return lambda: c.args[0] * 2
+    if c.fn is PR.take:
+        return lambda: c.args[0][c.args[1]]
+    if c.fn is PR.take_along_or and c.args[3] == 1:
+        src, ix, axis = c.args[0], c.args[1].long(), c.args[2]
+        return lambda: torch.gather(src, axis, ix)
+    return None
+
+
+def check_gather(gb: GatherBench, dev):
+    """K27-K30 at every shape of bench_port_gather.py's probes (the
+    reference probes' shapes and the two tables past L2; its builders make
+    the inputs and the numpy oracles), ell_spmv and rowgather_or at
+    bench_kernels.py's RMAT shapes, each against its plain version on the
+    card (integers bit for bit) and against a host oracle (numpy; the SpMV a
+    float64 bincount).  K27's column OR runs over seeded one-bit words, not
+    the reference's ones, whose OR is 1 in every column.  Bounds: the
+    indices and the output once, the table once; the SpMV each entry once,
+    x with the sentinel, y, each bucket's node ids.  Returns ({kernel:
+    rows}, {bench row name: the kernel's output})."""
+    rows = {k: [] for k in GATHER_KERNELS}
+
+    def row(kernel, shape, kern, plain, library, nbytes, exact=True,
+            oracle=None):
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype and got.shape == ref.shape, shape
+        if exact:
+            assert torch.equal(got, ref), f"{kernel} {shape}"
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-9,
+                                       msg=f"{kernel} {shape}")
+        if oracle is not None:
+            oracle(got.cpu().numpy())
+        rows[kernel].append(_row(
+            kernel, shape, cuda_ms(kern), cuda_ms(plain),
+            None if library is None else cuda_ms(library), nbytes,
+            _max_err(got, ref)))
+        return got
+
+    # K27-K30: prof_pallas_gather*.py's probes, one row a probe
+    for _, name, build in bench_port_gather.PROBES:
+        c = (bench_port_gather.stream_case(dev, 512, seed=SEED + 14)
+             if name == "B_stream" else build(dev))
+        row(c.kernel, f"{name} {c.shape()}", c.run, c.run_plain,
+            probe_library(c), c.model_bytes,
+            oracle=lambda g, c=c: np.testing.assert_array_equal(g, c.want))
+        del c
+    # bench_kernels.py's rows at the RMAT scale
+    n = gb.x.shape[0]
+    outs = {}
+    entries = gb.lib_csr.values().numel()
+    bucket_rows = sum(ids.numel() for ids, _ in gb.parts)
+    outs["ell_spmv_plus_times"] = row(
+        "ell_spmv", f"RMAT-{n.bit_length() - 1} transpose ELL, "
+        f"{len(gb.parts)} buckets, {entries} entries, {gb.padded} padded "
+        f"edges",
+        lambda: PR.ell_spmv(gb.parts, gb.x),
+        lambda: PR.ell_spmv_plain(gb.parts, gb.x), lambda: gb.lib_csr @ gb.x,
+        4 * entries + 4 * (n + 1) + 4 * n + 4 * bucket_rows, exact=False,
+        oracle=lambda g: np.testing.assert_allclose(g, gb.y64, rtol=SUM_RTOL,
+                                                    atol=1e-6))
+    depth, grows = gb.idx.shape
+    outs["packed_rowgather_or16"] = row(
+        "rowgather_or", f"tab ({n + 1}, 128) int16, idx ({depth}, {grows})",
+        lambda: PR.row_gather_or(gb.tab, gb.idx),
+        lambda: PR.row_gather_or_plain(gb.tab, gb.idx), None,
+        gb.idx.numel() * 4 + gb.tab.numel() * 2 + grows * 256)
+    return rows, outs
+
+
+def gather_path(gb: GatherBench, outs, dev, card):
+    """bench_port_gather.py's probes, every PROBE / VAR line of the
+    reference scripts' main() and the two past L2, each held to its plain
+    version and its numpy oracle; then bench_port_kernels.py's two rows once, each output equal to
+    the kernel's of phase 3."""
+    results = bench_port_gather.run(dev, card)
+    bad = [r.name for r in results if not r.correct]
+    assert not bad, f"gather probes wrong or failed: {bad}"
+    stats = {r.name: {"ms": r.ms, "model_bytes": r.model_bytes}
+             for r in results}
+    for name, nbytes, fn in bench_port_kernels.gather_runs(
+            gb.parts, gb.padded, gb.x, gb.tab, gb.idx):
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        assert torch.equal(y, outs[name]), f"gather path {name}"
+        stats[name] = {"host_ms": ms, "model_bytes": nbytes}
+    print(f"gather probes: {json.dumps(stats)}", flush=True)
     return stats
 
 
@@ -2952,6 +3112,13 @@ def main(argv=None):
     print(f"semiring kernels: graph_s={t_graph:.1f} "
           f"s={time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
+    gb = gather_bench(rmat_edges, prep.n, dev)
+    t_inputs = time.perf_counter() - t0
+    gather_rows, gather_outs = check_gather(gb, dev)
+    results.update(gather_rows)
+    print(f"gather kernels: inputs_s={t_inputs:.1f} "
+          f"s={time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
     sift_X, sift_draw = mixture(sift.n, sift.d,
                                 np.random.default_rng(SEED + 4))
     print(f"vectors: {sift.name} n={sift.n} d={sift.d} "
@@ -3022,6 +3189,14 @@ def main(argv=None):
     del sg, semiring_outs
 
     cuda.reset_launches()
+    t0 = time.perf_counter()
+    gather_stats = gather_path(gb, gather_outs, dev,
+                               smi.stdout.strip().splitlines()[0])
+    path_launches("gather probes", GATHER_KERNELS, launches)
+    print(f"gather path: s={time.perf_counter() - t0:.1f}", flush=True)
+    del gb, gather_outs
+
+    cuda.reset_launches()
     vec_stats = {sift.name: ann_path(sift, sift_X, sift_draw, dev,
                                      np.random.default_rng(SEED + 6),
                                      writes=True)}
@@ -3044,11 +3219,13 @@ def main(argv=None):
     # one ELL PageRank step, plus-times mxv over the ELL form, spmm at
     # k = 64, the edge-masked mxv, ewise_mult_mask, the shard scan of both
     # orientations, the PageRank form of the shard reduce, the bitmap level
-    # epilogue, the PageRank update; max_abs_err over every shape
+    # epilogue, the PageRank update, the 512 MiB column OR, the gather
+    # probes at the reference's first shapes, bench_kernels.py's two rows;
+    # max_abs_err over every shape
     main_row = {"group_partials": 1, "pagerank": 1, "kmeans_assign": 1,
                 "vector_scores": 1, "multi_bfs": 1, "ell_mxv": 1,
                 "ell_spmm": 1, "shard_expand": 2, "shard_reduce": 1,
-                "mesh_bits": 3}
+                "mesh_bits": 3, "probe_stream": 1}
     kernels = []
     for name, rows in results.items():
         k = cuda.KERNELS[name]
@@ -3067,6 +3244,7 @@ def main(argv=None):
                    "bfs": bfs_stats, "vector_index": vec_stats,
                    "harmonic": harmonic_stats, "bfs_family": family_stats,
                    "semiring": semiring_stats, "mesh": mesh_stats,
+                   "gather": gather_stats,
                    "launches": launches}, f,
                   indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

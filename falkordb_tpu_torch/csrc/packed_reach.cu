@@ -29,6 +29,9 @@
 // warps OR their results in with atomics.  Either way reach[dst(r)] ends
 // equal to the plain version's, bit for bit.  All offsets are int64: (n+1)
 // * R passes 2^31 at RMAT-24.
+//
+// fk_row_gather_or runs the same body for bench_kernels.py's rowgather
+// (a 16-deep OR of 256-byte table rows into an output of its own length).
 #include "packed.cuh"
 
 namespace {
@@ -40,7 +43,7 @@ __global__ void __launch_bounds__(256) gather_or_kernel(
     const int32_t* __restrict__ colsT, int64_t stride, int32_t vpr,
     int32_t width, int64_t rows, int32_t spr, int32_t seg,
     const U* __restrict__ frontier, int64_t last, int64_t upr, U* reach,
-    int64_t row_offset, const int32_t* __restrict__ ids) {
+    int64_t row_offset, const int32_t* __restrict__ ids, int64_t dlast) {
   const int lane = threadIdx.x & 31;
   const int64_t tasks = rows * spr;
   const int64_t nwarps = fk::grid_threads() >> 5;
@@ -49,7 +52,7 @@ __global__ void __launch_bounds__(256) gather_or_kernel(
     const int32_t c0 = (int32_t)(task - r * spr) * seg;
     const int32_t c1 = min(c0 + seg, width);
     const int64_t d = ids ? (int64_t)ids[r] : row_offset + r;
-    if (d < 0 || d > last) continue;  // an id outside the array: dropped
+    if (d < 0 || d > dlast) continue;  // an id outside the array: dropped
     const int32_t* rcols = colsT + r * vpr;
     U* out = reach + d * upr;
     for (int64_t ub = 0; ub < upr; ub += 32) {
@@ -111,7 +114,19 @@ int run(const int32_t* colsT, int64_t stride, int64_t vpr, int64_t width,
   }
   gather_or_kernel<U><<<fk::grid_for(rows * spr * 32, 256), 256, 0, s>>>(
       colsT, stride, (int32_t)vpr, (int32_t)width, rows, (int32_t)spr,
-      (int32_t)seg, (const U*)frontier, n, upr, out, row_offset, ids);
+      (int32_t)seg, (const U*)frontier, n, upr, out, row_offset, ids, n);
+  return (int)cudaGetLastError();
+}
+
+// bench_kernels.py's rowgather on K9's body: out has its own `rows` rows,
+// which may be more or fewer than the table's n + 1, so a row is dropped
+// only past rows - 1 (never, here), not past the sentinel n.
+template <typename U>
+int run_rows(const int32_t* idx, int64_t depth, int64_t rows, const void* tab,
+             int64_t n, int64_t row_bytes, void* out, cudaStream_t s) {
+  gather_or_kernel<U><<<fk::grid_for(rows * 32, 256), 256, 0, s>>>(
+      idx, rows, 1, (int32_t)depth, rows, 1, (int32_t)depth, (const U*)tab, n,
+      row_bytes / (int64_t)sizeof(U), (U*)out, 0, nullptr, rows - 1);
   return (int)cudaGetLastError();
 }
 
@@ -142,5 +157,27 @@ FK_EXPORT int fk_packed_reach(const void* colsT, int64_t stride, int64_t vpr,
     default:
       return run<unsigned char>(c, stride, vpr, width, rows, frontier, n,
                                 row_bytes, reach, row_offset, d, spr, seg, s);
+  }
+}
+
+// out[r] = OR over j < depth of tab[clip(idx[j, r], 0, n)], bytewise:
+// idx (depth, rows) int32 (K9's narrow colsT, vpr 1, one segment a row),
+// tab (n+1) and out (rows) rows of row_bytes.  Replaces the bench-local
+// jitted rowgather of bench_kernels.py:158 (depth 16, 256-byte rows).
+FK_EXPORT int fk_row_gather_or(const void* idx, int64_t depth, int64_t rows,
+                               const void* tab, int64_t n, int64_t row_bytes,
+                               void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (rows <= 0 || depth <= 0) return (int)cudaGetLastError();
+  const int32_t* c = (const int32_t*)idx;
+  switch (fk::unit_bytes(row_bytes, {tab, out})) {
+    case 8:
+      return run_rows<unsigned long long>(c, depth, rows, tab, n, row_bytes, out, s);
+    case 4:
+      return run_rows<unsigned int>(c, depth, rows, tab, n, row_bytes, out, s);
+    case 2:
+      return run_rows<unsigned short>(c, depth, rows, tab, n, row_bytes, out, s);
+    default:
+      return run_rows<unsigned char>(c, depth, rows, tab, n, row_bytes, out, s);
   }
 }

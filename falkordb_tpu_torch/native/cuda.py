@@ -104,6 +104,19 @@ KERNELS = {
                "falkordb_tpu/parallel/dist.py:664"),
         Kernel("mesh_update", "falkordb_tpu_torch/csrc/mesh_update.cu",
                "falkordb_tpu/parallel/dist.py:96"),
+        Kernel("probe_stream", "falkordb_tpu_torch/csrc/probe_stream.cu",
+               "scripts/prof_pallas_gather.py:82"),
+        Kernel("probe_take", "falkordb_tpu_torch/csrc/probe_gather.cu",
+               "scripts/prof_pallas_gather.py:110"),
+        Kernel("probe_bittest", "falkordb_tpu_torch/csrc/probe_gather.cu",
+               "scripts/prof_pallas_gather.py:142"),
+        Kernel("probe_lane_gather",
+               "falkordb_tpu_torch/csrc/probe_lane_gather.cu",
+               "scripts/prof_pallas_gather.py:208"),
+        Kernel("ell_spmv", "falkordb_tpu_torch/csrc/ell_pagerank.cu",
+               "bench_kernels.py:136"),
+        Kernel("rowgather_or", "falkordb_tpu_torch/csrc/packed_reach.cu",
+               "bench_kernels.py:158"),
     )
 }
 
@@ -178,6 +191,13 @@ _SIGNATURES = {
     "fk_mesh_dot": [_P, _P, _I64, _P, _P, _P],
     "fk_mesh_pagerank_update": [_P, _P, _P, _P, _I64, _I64, _F32, _F32, _P,
                                 _P, _P, _P],
+    "fk_row_gather_or": [_P, _I64, _I64, _P, _I64, _I64, _P, _P],
+    "fk_probe_double": [_P, _I64, _P, _P],
+    "fk_probe_or_rows": [_P, _I64, _I64, _P, _P],
+    "fk_probe_take": [_P, _I64, _P, _I64, _P, _P],
+    "fk_probe_bittest": [_P, _I64, _P, _I64, _I64, _P, _P],
+    "fk_probe_lane_gather": [_P, _I64, _I64, _P, _I64, _I64, _INT, _INT, _P,
+                             _P],
 }
 
 _lock = threading.Lock()
@@ -287,15 +307,17 @@ def on_cuda(*tensors) -> bool:
 
 
 def check_input(kernel: str, name: str, t: torch.Tensor | None, dtype,
-                n: int | None = None) -> None:
-    """Raise unless `t` is None or a contiguous 1-d tensor of `dtype` (with
-    n elements when n is given): the kernels take nothing else."""
+                n: int | None = None, dim: int | None = 1) -> None:
+    """Raise unless `t` is None or a contiguous `dim`-d tensor (any shape for
+    dim None) of `dtype` (with n elements when n is given): the kernels take
+    nothing else."""
     if t is None:
         return
-    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or (
-            n is not None and t.numel() != n):
+    if t.dtype != dtype or (dim is not None and t.dim() != dim) or \
+            not t.is_contiguous() or (n is not None and t.numel() != n):
         want = f"{n} " if n is not None else ""
-        raise ValueError(f"{kernel}: {name} must be a contiguous 1-d tensor "
+        dims = "" if dim is None else f"{dim}-d "
+        raise ValueError(f"{kernel}: {name} must be a contiguous {dims}tensor "
                          f"of {want}{dtype}, got {t.dtype} {tuple(t.shape)}")
 
 

@@ -32,6 +32,7 @@ from falkordb_tpu_torch.index.vector_index import (
 )
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.parallel.qdist import shard_expand
+from falkordb_tpu_torch import probes
 from falkordb_tpu_torch.parallel.shard_ops import (
     bfs_update, bits_epilogue, dot_sum, min_update, pack_bits,
     pagerank_update, shard_reduce,
@@ -48,7 +49,8 @@ PKG = os.path.dirname(os.path.abspath(falkordb_tpu_torch.__file__))
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "bench_port.py"),
-           os.path.join(REPO, "bench_port_kernels.py")]
+           os.path.join(REPO, "bench_port_kernels.py"),
+           os.path.join(REPO, "bench_port_gather.py")]
     for root, _dirs, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return out
@@ -222,6 +224,14 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
     bfs_update(i3, i3, 1)
     min_update(x, x)
     pagerank_update(x, x, dot_sum(x, x), 3, 0.85, l1=True)
+    w = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    probes.double(w)
+    probes.or_rows(w)
+    probes.take(i3, w)
+    probes.bittest(i3, w)
+    probes.take_along_or(w, w, 0, reps=2)
+    probes.ell_spmv(parts, torch.ones(3))
+    probes.row_gather_or(w.to(torch.int16), w)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == {
         "expand": 0, "group_partials": 0, "topk": 0, "bfs_levels": 0,
         "pagerank": 0, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
@@ -231,7 +241,9 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
         "vector_scores": 0, "multi_bfs": 0, "packed_levels": 0,
         "ell_pagerank": 0, "ell_mxv": 0, "ell_spmm": 0,
         "semiring_segment": 0, "ewise_mask": 0, "shard_expand": 0,
-        "shard_reduce": 0, "mesh_bits": 0, "mesh_update": 0}
+        "shard_reduce": 0, "mesh_bits": 0, "mesh_update": 0,
+        "probe_stream": 0, "probe_take": 0, "probe_bittest": 0,
+        "probe_lane_gather": 0, "ell_spmv": 0, "rowgather_or": 0}
     assert cuda._lib is None  # nothing was built or loaded
 
 
@@ -272,6 +284,16 @@ def test_wrappers_refuse_other_devices():
         pack_bits(torch.zeros(32, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="several devices"):
         min_update(m3, torch.ones(3))
+    w = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    for call in (lambda: probes.double(w), lambda: probes.or_rows(w),
+                 lambda: probes.take(i3, w), lambda: probes.bittest(i3, w),
+                 lambda: probes.take_along_or(w, w, 1),
+                 lambda: probes.ell_spmv([(i3, w)], m3),
+                 lambda: probes.row_gather_or(w, w)):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()
+    with pytest.raises(ValueError, match="several devices"):
+        probes.take(torch.zeros(3, dtype=torch.int32), w)
 
 
 @pytest.mark.parametrize("kernel", ["gated", "stepped", "packed"])
@@ -292,5 +314,16 @@ def test_bench_port_kernels_without_a_card_exits_nonzero(capsys):
     import bench_port_kernels
 
     assert bench_port_kernels.main() == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_bench_port_gather_without_a_card_exits_nonzero(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: bench_port_gather.py "
+                    "measures there")
+    import bench_port_gather
+
+    assert bench_port_gather.main() == 1
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
