@@ -736,7 +736,8 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "semiring_segment": "min (atomics on the order-preserving image) exact; "
                         "sums rtol 1e-4 atol 1e-6 (other orders; vxm's "
                         "atomics in any order), the same against float64 "
-                        "scipy",
+                        "scipy; the sorted and scalar forms the same bits "
+                        "on a second call",
     "ewise_mask": "exact, and equal to np.isin of the int64 keys",
     "shard_expand": "exact (every frame field, the counts)",
     "shard_reduce": "or, minplus, min exact; sum rtol 1e-4 atol 1e-12 "
@@ -858,6 +859,12 @@ def check_topk(dev, rng):
             cuda_ms(lambda: topk_smallest_plain(c, k)),
             cuda_ms(lambda: torch.topk(c, k, largest=False)),
             8 * n + 8 * k, 0.0))
+    # untimed: distinct keys, and keys one ulp apart (every radix digit)
+    for c_np in (rng.standard_normal(n),
+                 1.0 + rng.integers(0, 8, n) * np.finfo(np.float64).eps):
+        c = torch.from_numpy(c_np).to(dev)
+        for k in (10, 4096):
+            assert torch.equal(topk_smallest(c, k), topk_smallest_plain(c, k))
     return rows
 
 
@@ -1719,9 +1726,11 @@ def check_semiring(sg: SemiringGraph, dev):
     S_sample = S[sample].astype(np.float64)
 
     def row(kernel, what, kern, plain, library, nbytes, exact, oracle,
-            run=None, oracle_rows=None):
+            run=None, oracle_rows=None, twice=False):
         got, ref = kern(), plain()
         _hold(got, ref, exact, f"{kernel} {what}")
+        if twice:  # a fixed combine order: the same bits on a second call
+            assert torch.equal(kern(), got), f"{kernel} {what}: two calls"
         _hold_oracle(got, oracle, exact, f"{kernel} {what} oracle",
                      oracle_rows)
         rows[kernel].append(_row(
@@ -1762,7 +1771,7 @@ def check_semiring(sg: SemiringGraph, dev):
         lambda: sops.segment_rows(PT, Aw, x, valid),
         lambda: sops.segment_rows_plain(PT, Aw, x, valid),
         lambda: lib_csr @ x, csr_bytes + nnz + 8 * n, False, S @ x64,
-        "mxv_plus_times_masked")
+        "mxv_plus_times_masked", twice=True)
     ST = S.T.tocsr()
     row("semiring_segment", "vxm plus_times_f32 (atomics)",
         lambda: sops.segment_cols(PT, x, Aw),
@@ -1779,7 +1788,8 @@ def check_semiring(sg: SemiringGraph, dev):
         lambda: sops.segment_rows(PT, Aw, B8, valid),
         lambda: sops.segment_rows_plain(PT, Aw, B8, valid),
         lambda: lib_csr @ B8, csr_bytes + nnz + 64 * n, False,
-        S_sample @ B8.cpu().numpy().astype(np.float64), None, sample)
+        S_sample @ B8.cpu().numpy().astype(np.float64), None, sample,
+        twice=True)
     offsets = Aw.indptr.to(torch.int64)
     row("semiring_segment", "reduce_rows plus",
         lambda: sops.segment_rows(PT, Aw),
@@ -1787,12 +1797,29 @@ def check_semiring(sg: SemiringGraph, dev):
         lambda: torch.segment_reduce(Aw.vals[:nnz], "sum", offsets=offsets),
         4 * (n + 1) + 4 * nnz + 4 * n, False,
         np.asarray(S.astype(np.float64).sum(axis=1)).ravel(),
-        "reduce_rows_plus")
+        "reduce_rows_plus", twice=True)
     row("semiring_segment", "reduce_scalar plus (fixed tree)",
         lambda: sops.segment_scalar(PT, Aw),
         lambda: sops.segment_scalar_plain(PT, Aw),
         lambda: torch.sum(Aw.vals[:nnz]), 4 * nnz, False,
-        np.float64(S.data.astype(np.float64).sum()), "reduce_scalar_plus")
+        np.float64(S.data.astype(np.float64).sum()), "reduce_scalar_plus",
+        twice=True)
+    # the same two K21 forms through the dynamic spec (the semiring codes
+    # read at run time), beside the compile-time spec's rows above
+    sops._FIXED_SPECS = False
+    try:
+        row("semiring_segment", "mxv plus_times_f32, edge_mask = valid, "
+            "dynamic spec", lambda: sops.segment_rows(PT, Aw, x, valid),
+            lambda: sops.segment_rows_plain(PT, Aw, x, valid),
+            lambda: lib_csr @ x, csr_bytes + nnz + 8 * n, False, S @ x64,
+            twice=True)
+        row("semiring_segment", "reduce_scalar plus (fixed tree), dynamic "
+            "spec", lambda: sops.segment_scalar(PT, Aw),
+            lambda: sops.segment_scalar_plain(PT, Aw),
+            lambda: torch.sum(Aw.vals[:nnz]), 4 * nnz, False,
+            np.float64(S.data.astype(np.float64).sum()), twice=True)
+    finally:
+        sops._FIXED_SPECS = True
     # K22 against every other edge
     nh = int(Ah.nnz)
     ka = sops._keys(Aw.rows[:nnz], Aw.cols[:nnz])

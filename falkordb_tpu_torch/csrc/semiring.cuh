@@ -20,6 +20,13 @@
 // float32, which gives the float32 result bit for bit (53 >= 2 * 24 + 2).
 // min and max propagate NaN, as jnp.minimum / jnp.maximum and XLA's segment
 // reduces do (CUDA's fminf / fmaxf do not).
+//
+// The per-entry helpers (multiply, contrib, edge_on, keep_out) take the
+// application as a spec: `Sem` reads every code at run time (the dynamic
+// spec); `Fixed<...>` names the codes of one semiring application as
+// compile-time constants, so the same helper bodies fold their type
+// switches away and a kernel instantiated with it keeps several gathers in
+// flight.  The rules (identity, NaN, masks, casts) are written once, here.
 #pragma once
 
 #include <cmath>
@@ -37,6 +44,7 @@ enum : int {
 enum : int { A_PLUS = 0, A_MIN = 1, A_MAX = 2, A_OR = 3, A_ANY = 4 };
 
 struct Sem {
+  static constexpr bool fixed = false;
   int mul, add, pcode, vcode, xcode, scode, ocode, mcode, ecode, complement;
   const void* vals;   // edge values (vcode; T_NONE: every value is 1)
   const void* x;      // the gathered operand (xcode)
@@ -63,6 +71,38 @@ inline Sem make_sem(int64_t code, const void* vals, const void* x,
   s.emask = emask;
   return s;
 }
+
+// A compile-time spec: the codes of one application (bits 0-35 of the
+// 64-bit code but the output mask's type), with the operands and the
+// output mask's type and complement read from a Sem at run time.
+// `ignore` marks code bits the application never reads (a pair multiply
+// reads no value), which a code need not match.
+template <int MUL, int ADD, int PCODE, int VCODE, int XCODE, int SCODE, int OCODE,
+          int ECODE>
+struct Fixed {
+  static constexpr bool fixed = true;
+  static constexpr int mul = MUL, add = ADD, pcode = PCODE, vcode = VCODE,
+                       xcode = XCODE, scode = SCODE, ocode = OCODE, ecode = ECODE;
+  static constexpr int64_t code =
+      (int64_t)MUL | ((int64_t)ADD << 4) | ((int64_t)PCODE << 8) |
+      ((int64_t)VCODE << 12) | ((int64_t)XCODE << 16) | ((int64_t)SCODE << 20) |
+      ((int64_t)OCODE << 24) | ((int64_t)ECODE << 32);
+  static constexpr int64_t ignore = MUL == M_PAIR ? (int64_t)15 << 12 : 0;
+  int mcode, complement;
+  const void* vals;
+  const void* x;
+  const void* omask;
+  const void* emask;
+  // Does a packed code describe this application?  The output mask's type
+  // (bits 28-31) and the complement (bit 36) stay run-time fields.
+  static bool matches(int64_t c) {
+    const int64_t fields = ((int64_t)1 << 36) - 1 - ((int64_t)15 << 28) - ignore;
+    return (c & fields) == code;
+  }
+  explicit Fixed(const Sem& s)
+      : mcode(s.mcode), complement(s.complement), vals(s.vals), x(s.x),
+        omask(s.omask), emask(s.emask) {}
+};
 
 // -- loads ------------------------------------------------------------------
 
@@ -153,7 +193,8 @@ __device__ __forceinline__ double fmax_nan(double a, double b) {
 }
 
 // The multiply of edge `ve` with x[xi], in the promoted type.
-__device__ __forceinline__ Num multiply(const Sem& s, int64_t ve, int64_t xi) {
+template <class S>
+__device__ __forceinline__ Num multiply(const S& s, int64_t ve, int64_t xi) {
   if (s.mul == M_PAIR) return num_i(ld_nz(s.x, s.xcode, xi) ? 1 : 0);
   if (s.mul == M_AND) {
     return num_i((ld_nz(s.vals, s.vcode, ve) && ld_nz(s.x, s.xcode, xi)) ? 1 : 0);
@@ -195,8 +236,8 @@ __device__ __forceinline__ Num multiply(const Sem& s, int64_t ve, int64_t xi) {
 
 // One edge's contribution in the accumulator type: the multiply, cast to
 // the semiring's dtype, then to OT.
-template <class OT>
-__device__ __forceinline__ OT contrib(const Sem& s, int64_t ve, int64_t xi) {
+template <class OT, class S>
+__device__ __forceinline__ OT contrib(const S& s, int64_t ve, int64_t xi) {
   return out_of<OT>(cast_to(multiply(s, ve, xi), s.scode));
 }
 
@@ -246,6 +287,16 @@ template <>
 __device__ __forceinline__ long long add_wrap<long long>(long long a, long long b) {
   return (long long)((unsigned long long)a + (unsigned long long)b);
 }
+// Float sums round each addition: never merged with the product into a
+// fused multiply-add, so a compile-time spec gives the dynamic spec's bits.
+template <>
+__device__ __forceinline__ float add_wrap<float>(float a, float b) {
+  return __fadd_rn(a, b);
+}
+template <>
+__device__ __forceinline__ double add_wrap<double>(double a, double b) {
+  return __dadd_rn(a, b);
+}
 
 template <class T>
 __device__ __forceinline__ bool is_nan(T v) { return v != v; }
@@ -260,14 +311,16 @@ __device__ __forceinline__ OT combine(int add, OT a, OT b) {
 
 // -- masks --------------------------------------------------------------------
 
-__device__ __forceinline__ bool keep_out(const Sem& s, int64_t r) {
+template <class S>
+__device__ __forceinline__ bool keep_out(const S& s, int64_t r) {
   if (s.omask == nullptr) return true;
   const bool nz = ld_nz(s.omask, s.mcode, r);
   return s.complement ? !nz : nz;
 }
 
-__device__ __forceinline__ bool edge_on(const Sem& s, int64_t e) {
-  return s.emask == nullptr || ld_nz(s.emask, s.ecode, e);
+template <class S>
+__device__ __forceinline__ bool edge_on(const S& s, int64_t e) {
+  return s.ecode == T_NONE || s.emask == nullptr || ld_nz(s.emask, s.ecode, e);
 }
 
 // -- order-preserving images for float min / max atomics ---------------------

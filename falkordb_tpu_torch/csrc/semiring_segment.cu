@@ -12,20 +12,37 @@
 // read once, x (B) gathered once a distinct index at the least, the output
 // written once.
 //
-// Design, three entry points on the caller's stream, no synchronisation:
+// Design, three entry points on the caller's stream, no synchronisation.
+// One kernel body a form serves every semiring: the helpers of
+// semiring.cuh take the application as a spec, fixed at compile time for
+// the float32 plus_times, min_plus and max_times (and their reduces of the
+// values alone) and plus_pair_i32, each with and without a bool edge mask,
+// and read from the 64-bit code (fk::Sem) for the rest.  The host picks the
+// instantiation from the code; both are this kernel.
 // - rows (sorted): a row's entries are indptr[r] .. indptr[r+1] clamped at
-//   nnz.  A warp reduces a row, its lanes tiling (columns of B) x (entries)
-//   and combining in a fixed shuffle tree; rows longer than `long_min` are
-//   cut on the host into tasks (row, lo, hi) of at most `seg` entries, a
-//   block a task in a fixed shared-memory tree, and a last kernel combines
-//   each long row's task partials in order.  Deterministic.
+//   nnz.  For k = 1 (mxv, masked mxv, reduce_rows) the host cuts the rows
+//   of at most `long_min` entries into tiles of whole rows once a snapshot
+//   (sparse/ops.py `_row_plan`), each at most kTileCap rows + entries; a
+//   block loads a tile's row ends and its entries' contributions into
+//   shared memory (coalesced, eight gathers in flight a thread: no lane
+//   idles on a short row, and empty rows cost one item), then each thread
+//   walks an equal share of the tile's merge path (Merrill and Garland's
+//   SpMV) and the rows crossing shares combine through a segmented scan.
+//   For k > 1 (spmm) a warp a row, its lanes tiling (columns of B) x
+//   (entries), two gathers in flight a lane, in a fixed shuffle tree.
+//   Rows longer than `long_min` are cut on the host into tasks (row, lo,
+//   hi) of at most `seg` entries, a block a task in a fixed shared-memory
+//   tree, and a last kernel combines each long row's task partials in
+//   order.  Deterministic: a float sum has the same bits every run.
 // - cols (unsorted): a thread an entry, combined into the output with
 //   atomics: integer add / min / max; float add by atomicAdd (float sums then
 //   come in any order); float min / max through the order-preserving image
 //   of semiring.cuh, decoded by a last pass that also applies the output
 //   mask.  Segment ids outside [0, n_out) are dropped, as XLA's are.
-// - scalar: every entry to one value, a block reduce in a fixed tree over a
-//   fixed grid, then one block over the partials (as K5 does), so a float
+// - scalar: every entry to one value over a fixed grid, four accumulators a
+//   thread (with float32 values, 16-byte loads of four values and a 4-byte
+//   load of their edge mask, two such loads in flight), a block reduce in a
+//   fixed tree, then one block over the partials (as K5 does), so a float
 //   sum has the same bits every run.
 #include <type_traits>
 
@@ -35,6 +52,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kScalarBlocks = 1024;  // the fixed grid of the scalar reduce
+constexpr int kTileCap = 4097;       // rows + entries of a row tile, at most
+constexpr int kInFlight = 8;         // a tile's gathers in flight a thread
 
 __host__ __device__ inline int k_tile(int64_t k, int limit) {
   int kt = 1;
@@ -52,19 +71,52 @@ __device__ __forceinline__ int64_t x_index(const int32_t* gidx, int64_t e,
   return gidx ? (int64_t)gidx[e] * k + j : j;
 }
 
-template <class OT>
-__device__ __forceinline__ void put(const fk::Sem& s, OT* y, int64_t r, int64_t k,
+template <class OT, class S>
+__device__ __forceinline__ void put(const S& s, OT* y, int64_t r, int64_t k,
                                     int64_t j, OT acc) {
   y[r * k + j] = fk::keep_out(s, r) ? acc : fk::ident<OT>(s.add);
 }
 
 // -- rows ---------------------------------------------------------------------
 
-template <class OT>
+// Entry e's contribution to column j, or the identity where the edge mask
+// is off (the identity leaves the accumulator as it is).  The mask, the
+// column and the value are loaded together, not one after the other: e is
+// a valid entry, so its gather is in bounds whatever the mask says.
+template <class OT, class S>
+__device__ __forceinline__ OT entry(const S& s, const int32_t* gidx, int64_t e, int64_t k,
+                                    int64_t j, OT id) {
+  const bool on = fk::edge_on(s, e);
+  const OT c = fk::contrib<OT>(s, e, x_index(gidx, e, k, j));
+  return on ? c : id;
+}
+
+// Lanes tiling (columns) x (entries) fold lo .. hi of one row: two entries
+// in flight a lane, two accumulators combined in a fixed order.
+template <class OT, class S>
+__device__ __forceinline__ OT fold_row(const S& s, const int32_t* gidx, int64_t lo,
+                                       int64_t hi, int64_t k, int64_t j, int ty, int et,
+                                       OT id) {
+  OT a0 = id, a1 = id;
+  int64_t e = lo + ty;
+  for (; e + et < hi; e += 2 * et) {
+    const OT c0 = entry<OT>(s, gidx, e, k, j, id);
+    const OT c1 = entry<OT>(s, gidx, e + et, k, j, id);
+    a0 = fk::combine<OT>(s.add, a0, c0);
+    a1 = fk::combine<OT>(s.add, a1, c1);
+  }
+  if (e < hi) a0 = fk::combine<OT>(s.add, a0, entry<OT>(s, gidx, e, k, j, id));
+  return fk::combine<OT>(s.add, a0, a1);
+}
+
+// k > 1: a warp a row, kt lanes across the columns of X, et = 32 / kt
+// along the row, combined in a fixed shuffle tree; rows longer than
+// long_min are left to the tasks.
+template <class S, class OT>
 __global__ void __launch_bounds__(kThreads) rows_warp_kernel(
-    const int32_t* __restrict__ indptr, int64_t n_rows,
-    const int32_t* __restrict__ nnz_p, const int32_t* __restrict__ gidx,
-    int64_t k, int64_t long_min, fk::Sem s, OT* __restrict__ y) {
+    const int32_t* __restrict__ indptr, int64_t n_rows, const int32_t* __restrict__ nnz_p,
+    const int32_t* __restrict__ gidx, int64_t k, int64_t long_min, S s,
+    OT* __restrict__ y) {
   const int64_t nnz = *nnz_p;
   const int lane = threadIdx.x & 31;
   const int kt = k_tile(k, 32), et = 32 / kt;
@@ -76,14 +128,7 @@ __global__ void __launch_bounds__(kThreads) rows_warp_kernel(
     if (hi - lo > long_min) continue;  // a long row: the task kernels
     for (int64_t j0 = 0; j0 < k; j0 += kt) {
       const int64_t j = j0 + tx;
-      OT acc = id;
-      if (j < k) {
-        for (int64_t e = lo + ty; e < hi; e += et) {
-          if (fk::edge_on(s, e)) {
-            acc = fk::combine<OT>(s.add, acc, fk::contrib<OT>(s, e, x_index(gidx, e, k, j)));
-          }
-        }
-      }
+      OT acc = j < k ? fold_row<OT>(s, gidx, lo, hi, k, j, ty, et, id) : id;
       for (int h = et >> 1; h > 0; h >>= 1) {
         const OT o = __shfl_down_sync(0xffffffffu, acc, h * kt);
         if (ty < h) acc = fk::combine<OT>(s.add, acc, o);
@@ -93,12 +138,124 @@ __global__ void __launch_bounds__(kThreads) rows_warp_kernel(
   }
 }
 
-// tasks: (n_tasks, 3) int64 (row, lo, hi); partial (n_tasks, k).
+// Inclusive segmented scan over the block's threads, in thread order:
+// (head, v) pairs combine as (h1 | h2, h2 ? v2 : v1 (+) v2).  Returns the
+// thread's v; fixed shuffle and shared-memory trees.
 template <class OT>
+__device__ OT segmented_scan(int add, bool head, OT v) {
+  __shared__ OT wv[kThreads / 32];
+  __shared__ int wh[kThreads / 32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int h = head;
+  for (int o = 1; o < 32; o <<= 1) {
+    const OT pv = __shfl_up_sync(0xffffffffu, v, o);
+    const int ph = __shfl_up_sync(0xffffffffu, h, o);
+    if (lane >= o) {
+      if (!h) v = fk::combine<OT>(add, pv, v);
+      h |= ph;
+    }
+  }
+  if (lane == 31) {
+    wv[wid] = v;
+    wh[wid] = h;
+  }
+  __syncthreads();
+  if (!h && wid > 0) {  // the earlier warps' run that this warp continues
+    OT pv = wv[0];
+    for (int w = 1; w < wid; ++w) pv = wh[w] ? wv[w] : fk::combine<OT>(add, pv, wv[w]);
+    v = fk::combine<OT>(add, pv, v);
+  }
+  __syncthreads();
+  return v;
+}
+
+// k = 1, every row up to long_min: a block a tile of whole rows [r0, r1)
+// (the host's cut, at most kTileCap rows + entries).  The block loads the
+// rows' ends and its entries' contributions into shared memory, kInFlight
+// gathers in flight a thread; then each thread walks an equal share of
+// the tile's merge path (row ends and entries), writes the rows that end
+// in its share, and the rows that cross shares take the earlier shares'
+// partials from a segmented scan, so every row has one fixed combine order.
+template <class S, class OT>
+__global__ void __launch_bounds__(kThreads) rows_tile_kernel(
+    const int32_t* __restrict__ indptr, const int32_t* __restrict__ nnz_p,
+    const int32_t* __restrict__ gidx, const int32_t* __restrict__ tiles, int64_t n_tiles,
+    S s, OT* __restrict__ y) {
+  constexpr int kSlot = sizeof(OT) > 4 ? (int)sizeof(OT) : 4;
+  __shared__ __align__(16) unsigned char buf[kTileCap * kSlot];
+  __shared__ OT scan[kThreads];
+  const int64_t nnz = *nnz_p;
+  const OT id = fk::ident<OT>(s.add);
+  const int t = threadIdx.x;
+  for (int64_t b = blockIdx.x; b < n_tiles; b += gridDim.x) {
+    const int64_t r0 = tiles[2 * b], r1 = tiles[2 * b + 1];
+    const int R = (int)(r1 - r0);
+    const int64_t e0 = clamp_nnz(indptr[r0], nnz);
+    const int L = (int)(clamp_nnz(indptr[r1], nnz) - e0);
+    int32_t* rend = (int32_t*)buf;  // row i of the tile ends at entry rend[i]
+    OT* val = (OT*)(buf + ((R * 4 + kSlot - 1) / kSlot) * kSlot);
+    for (int i = t; i < R; i += kThreads) {
+      rend[i] = (int32_t)(clamp_nnz(indptr[r0 + i + 1], nnz) - e0);
+    }
+    int i = t;
+    for (; i + (kInFlight - 1) * kThreads < L; i += kInFlight * kThreads) {
+      OT c[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        c[u] = entry<OT>(s, gidx, e0 + i + u * kThreads, 1, 0, id);
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) val[i + u * kThreads] = c[u];
+    }
+    for (; i < L; i += kThreads) val[i] = entry<OT>(s, gidx, e0 + i, 1, 0, id);
+    __syncthreads();
+    // this thread's share of the R + L items, and where it starts: x rows
+    // ended and y entries taken before diagonal d0
+    const int items = R + L, per = (items + kThreads - 1) / kThreads;
+    const int d0 = t * per < items ? t * per : items;
+    const int d1 = d0 + per < items ? d0 + per : items;
+    int lo = d0 - L > 0 ? d0 - L : 0, hi = d0 < R ? d0 : R;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (rend[mid] <= d0 - mid - 1) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    int x = lo, yy = d0 - lo;
+    OT acc = id, first_val = id;
+    int first_row = -1;
+    for (int d = d0; d < d1; ++d) {
+      if (yy < rend[x]) {
+        acc = fk::combine<OT>(s.add, acc, val[yy]);
+        ++yy;
+      } else {  // row x ends
+        if (first_row < 0) {
+          first_row = x;
+          first_val = acc;
+        } else {
+          put<OT>(s, y, r0 + x, 1, 0, acc);
+        }
+        acc = id;
+        ++x;
+      }
+    }
+    scan[t] = segmented_scan<OT>(s.add, first_row >= 0 || t == 0 || d0 == d1, acc);
+    __syncthreads();
+    if (first_row >= 0) {
+      put<OT>(s, y, r0 + first_row, 1, 0,
+              t > 0 ? fk::combine<OT>(s.add, scan[t - 1], first_val) : first_val);
+    }
+    __syncthreads();
+  }
+}
+
+// tasks: (n_tasks, 3) int64 (row, lo, hi); partial (n_tasks, k).
+template <class S, class OT>
 __global__ void __launch_bounds__(kThreads) rows_task_kernel(
     const long long* __restrict__ tasks, int64_t n_tasks,
-    const int32_t* __restrict__ gidx, int64_t k, fk::Sem s,
-    OT* __restrict__ partial) {
+    const int32_t* __restrict__ gidx, int64_t k, S s, OT* __restrict__ partial) {
   __shared__ OT buf[kThreads];
   const int kt = k_tile(k, kThreads), et = kThreads / kt;
   const int tx = threadIdx.x % kt, ty = threadIdx.x / kt;
@@ -107,15 +264,7 @@ __global__ void __launch_bounds__(kThreads) rows_task_kernel(
     const int64_t lo = tasks[q * 3 + 1], hi = tasks[q * 3 + 2];
     for (int64_t j0 = 0; j0 < k; j0 += kt) {
       const int64_t j = j0 + tx;
-      OT acc = id;
-      if (j < k) {
-        for (int64_t e = lo + ty; e < hi; e += et) {
-          if (fk::edge_on(s, e)) {
-            acc = fk::combine<OT>(s.add, acc, fk::contrib<OT>(s, e, x_index(gidx, e, k, j)));
-          }
-        }
-      }
-      buf[threadIdx.x] = acc;
+      buf[threadIdx.x] = j < k ? fold_row<OT>(s, gidx, lo, hi, k, j, ty, et, id) : id;
       __syncthreads();
       for (int h = et >> 1; h > 0; h >>= 1) {
         if (ty < h) {
@@ -146,21 +295,40 @@ __global__ void rows_combine_kernel(const long long* __restrict__ tasks,
   }
 }
 
-template <class OT>
+// The host's cut of the rows (sparse/ops.py `_row_plan`): for k = 1 the
+// tiles of whole rows up to long_min entries, (n_tiles, 2) int32 [r0, r1);
+// the rows longer than long_min, the tasks (row, lo, hi) grouped by row.
+struct RowPlan {
+  const int32_t* tiles;
+  int64_t n_tiles;
+  int64_t long_min;
+  const long long* tasks;
+  int64_t n_tasks;
+  const long long* off;
+  int64_t n_long;
+};
+
+template <class S, class OT>
 int run_rows(const int32_t* indptr, int64_t n_rows, const int32_t* nnz_p,
-             const int32_t* gidx, int64_t k, int64_t long_min, const long long* tasks,
-             int64_t n_tasks, const long long* off, int64_t n_long, fk::Sem s,
+             const int32_t* gidx, int64_t k, const RowPlan& plan, const fk::Sem& sem,
              void* y, void* partial, cudaStream_t st) {
+  const S s(sem);
   OT* out = (OT*)y;
-  if (n_rows > 0) {
-    rows_warp_kernel<OT><<<fk::grid_for(n_rows * 32, kThreads), kThreads, 0, st>>>(
-        indptr, n_rows, nnz_p, gidx, k, long_min, s, out);
+  if (k == 1) {
+    if (plan.n_tiles > 0) {
+      rows_tile_kernel<S, OT><<<fk::grid_for(plan.n_tiles, 1, 132 * 64), kThreads, 0,
+                                st>>>(indptr, nnz_p, gidx, plan.tiles, plan.n_tiles, s,
+                                      out);
+    }
+  } else if (n_rows > 0) {
+    rows_warp_kernel<S, OT><<<fk::grid_for(n_rows * 32, kThreads), kThreads, 0, st>>>(
+        indptr, n_rows, nnz_p, gidx, k, plan.long_min, s, out);
   }
-  if (n_tasks > 0) {
-    rows_task_kernel<OT><<<fk::grid_for(n_tasks, 1), kThreads, 0, st>>>(
-        tasks, n_tasks, gidx, k, s, (OT*)partial);
-    rows_combine_kernel<OT><<<fk::grid_for(n_long * k, kThreads), kThreads, 0, st>>>(
-        tasks, off, n_long, k, s, (const OT*)partial, out);
+  if (plan.n_tasks > 0) {
+    rows_task_kernel<S, OT><<<fk::grid_for(plan.n_tasks, 1), kThreads, 0, st>>>(
+        plan.tasks, plan.n_tasks, gidx, k, s, (OT*)partial);
+    rows_combine_kernel<OT><<<fk::grid_for(plan.n_long * k, kThreads), kThreads, 0, st>>>(
+        plan.tasks, plan.off, plan.n_long, k, sem, (const OT*)partial, out);
   }
   return (int)cudaGetLastError();
 }
@@ -308,23 +476,101 @@ __device__ AT block_reduce(int add, AT v) {
   return buf[0];
 }
 
+// Entry e's value in the accumulator, or the identity past nnz or where
+// the edge mask is off.
+template <class AT, class S>
+__device__ __forceinline__ AT value_at(const S& s, int64_t e, int64_t nnz, AT id) {
+  return e < nnz && fk::edge_on(s, e) ? fk::contrib<AT>(s, e, 0) : id;
+}
+
+// Vectorised loads for a compile-time spec whose values are float32: four
+// entries' values in one 16-byte load (and their edge mask in one 4-byte
+// load), read through the same helpers from registers.
+template <class S, class = void>
+struct Vec4 {
+  static constexpr bool ok = false;
+};
+template <class S>
+struct Vec4<S, std::enable_if_t<S::fixed>> {
+  static constexpr bool ok =
+      S::vcode == fk::T_F32 && (S::ecode == fk::T_NONE || S::ecode == fk::T_BOOL);
+};
+
+template <class AT, class S>
+__device__ __forceinline__ void fold4(const S& s, int64_t e, AT id, AT* acc) {
+  if constexpr (Vec4<S>::ok) {
+    const float4 v = *(const float4*)((const float*)s.vals + e);
+    float vr[4] = {v.x, v.y, v.z, v.w};
+    S r = s;
+    r.vals = vr;
+    uint8_t mr[4];
+    if (s.ecode != fk::T_NONE && s.emask != nullptr) {
+      const uchar4 m = *(const uchar4*)((const uint8_t*)s.emask + e);
+      mr[0] = m.x;
+      mr[1] = m.y;
+      mr[2] = m.z;
+      mr[3] = m.w;
+      r.emask = mr;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc[u] = fk::combine<AT>(s.add, acc[u],
+                               fk::edge_on(r, u) ? fk::contrib<AT>(r, u, 0) : id);
+    }
+  }
+}
+
 // Each entry's contribution cast to the semiring's dtype, then to AT (the
 // accumulator: int64 for an integer sum, as jnp.sum promotes), combined
 // over the whole capacity: entries past nnz or masked out add the identity,
 // as the reference's neutralised entries do (for 'or' that is the clamp).
-template <class AT>
+// Four accumulators a thread over a fixed grid, so the combine order does
+// not depend on the card; with `vec` (a float32 spec, 16-byte aligned
+// values) each thread takes two runs of four entries a step.
+template <class S, class AT>
 __global__ void __launch_bounds__(kThreads) scalar_partial_kernel(
-    int64_t n_edges, const int32_t* __restrict__ nnz_p, fk::Sem s,
+    int64_t n_edges, const int32_t* __restrict__ nnz_p, S s, bool vec,
     AT* __restrict__ partial) {
-  const int64_t nnz = nnz_p != nullptr ? (int64_t)*nnz_p : n_edges;
+  int64_t nnz = nnz_p != nullptr ? (int64_t)*nnz_p : n_edges;
+  if (nnz > n_edges) nnz = n_edges;
   const AT id = fk::ident<AT>(s.add);
-  AT acc = fk::start<AT>(s.add);
-  for (int64_t e = fk::global_thread(); e < n_edges; e += fk::grid_threads()) {
-    acc = fk::combine<AT>(s.add, acc,
-                          e < nnz && fk::edge_on(s, e) ? fk::contrib<AT>(s, e, 0) : id);
+  const AT st = fk::start<AT>(s.add);
+  AT acc[4] = {st, st, st, st};
+  const int64_t tid = fk::global_thread(), nt = fk::grid_threads();
+  int64_t done = 0;  // entries below this went through the vector loop
+  if constexpr (Vec4<S>::ok) {
+    if (vec) {
+      const int64_t full = nnz / 4;  // runs of four entries all below nnz
+      int64_t g = tid;
+      for (; g + nt < full; g += 2 * nt) {
+        fold4<AT>(s, 4 * g, id, acc);
+        fold4<AT>(s, 4 * (g + nt), id, acc);
+      }
+      if (g < full) fold4<AT>(s, 4 * g, id, acc);
+      done = 4 * full;
+    }
   }
-  acc = block_reduce<AT>(s.add, acc);
-  if (threadIdx.x == 0) partial[blockIdx.x] = acc;
+  int64_t e = done + tid;
+  for (; e + 3 * nt < n_edges; e += 4 * nt) {
+    const AT c0 = value_at<AT>(s, e, nnz, id), c1 = value_at<AT>(s, e + nt, nnz, id);
+    const AT c2 = value_at<AT>(s, e + 2 * nt, nnz, id);
+    const AT c3 = value_at<AT>(s, e + 3 * nt, nnz, id);
+    acc[0] = fk::combine<AT>(s.add, acc[0], c0);
+    acc[1] = fk::combine<AT>(s.add, acc[1], c1);
+    acc[2] = fk::combine<AT>(s.add, acc[2], c2);
+    acc[3] = fk::combine<AT>(s.add, acc[3], c3);
+  }
+  if (e < n_edges) acc[0] = fk::combine<AT>(s.add, acc[0], value_at<AT>(s, e, nnz, id));
+  if (e + nt < n_edges) {
+    acc[1] = fk::combine<AT>(s.add, acc[1], value_at<AT>(s, e + nt, nnz, id));
+  }
+  if (e + 2 * nt < n_edges) {
+    acc[2] = fk::combine<AT>(s.add, acc[2], value_at<AT>(s, e + 2 * nt, nnz, id));
+  }
+  AT a = fk::combine<AT>(s.add, fk::combine<AT>(s.add, acc[0], acc[1]),
+                         fk::combine<AT>(s.add, acc[2], acc[3]));
+  a = block_reduce<AT>(s.add, a);
+  if (threadIdx.x == 0) partial[blockIdx.x] = a;
 }
 
 template <class AT>
@@ -338,16 +584,114 @@ __global__ void __launch_bounds__(kThreads) scalar_finish_kernel(
   if (threadIdx.x == 0) out[0] = acc;
 }
 
-template <class AT>
-int run_scalar(int64_t n_edges, const int32_t* nnz_p, fk::Sem s, void* out,
+template <class S, class AT>
+int run_scalar(int64_t n_edges, const int32_t* nnz_p, const fk::Sem& sem, void* out,
                void* partial, int64_t n_partial, cudaStream_t st) {
   if (n_partial < kScalarBlocks) return (int)cudaErrorInvalidValue;
-  scalar_partial_kernel<AT><<<kScalarBlocks, kThreads, 0, st>>>(n_edges, nnz_p, s,
-                                                                (AT*)partial);
-  scalar_finish_kernel<AT><<<1, kThreads, 0, st>>>((const AT*)partial, kScalarBlocks, s,
+  const S s(sem);
+  const bool vec = ((uintptr_t)sem.vals & 15) == 0 && ((uintptr_t)sem.emask & 3) == 0;
+  scalar_partial_kernel<S, AT><<<kScalarBlocks, kThreads, 0, st>>>(n_edges, nnz_p, s, vec,
+                                                                   (AT*)partial);
+  scalar_finish_kernel<AT><<<1, kThreads, 0, st>>>((const AT*)partial, kScalarBlocks, sem,
                                                    (AT*)out);
   return (int)cudaGetLastError();
 }
+
+template <int C> struct OType;
+template <> struct OType<fk::T_I32> { using type = int32_t; };
+template <> struct OType<fk::T_I64> { using type = long long; };
+template <> struct OType<fk::T_F32> { using type = float; };
+template <> struct OType<fk::T_F64> { using type = double; };
+
+// The compile-time specs: the float32 semirings plus_times, min_plus and
+// max_times, their reduces of the values alone (reduce_rows,
+// reduce_scalar), and plus_pair_i32, each without and with a bool edge
+// mask.  Every other code runs the dynamic spec, fk::Sem: the same bodies.
+template <int MUL, int ADD, int E>
+using F32Spec = fk::Fixed<MUL, ADD, fk::T_F32, fk::T_F32, fk::T_F32, fk::T_F32,
+                          fk::T_F32, E>;
+template <int ADD, int E>
+using F32Value = fk::Fixed<fk::M_VALUE, ADD, fk::T_F32, fk::T_F32, fk::T_NONE,
+                           fk::T_F32, fk::T_F32, E>;
+template <int E>
+using PlusPairI32 = fk::Fixed<fk::M_PAIR, fk::A_PLUS, fk::T_BOOL, fk::T_NONE, fk::T_I32,
+                              fk::T_I32, fk::T_I32, E>;
+
+template <class... Specs> struct SpecList {};
+
+template <int E>
+using RowSpecs1 = SpecList<F32Spec<fk::M_TIMES, fk::A_PLUS, E>,
+                           F32Spec<fk::M_PLUS, fk::A_MIN, E>,
+                           F32Spec<fk::M_TIMES, fk::A_MAX, E>, F32Value<fk::A_PLUS, E>,
+                           F32Value<fk::A_MIN, E>, F32Value<fk::A_MAX, E>,
+                           PlusPairI32<E>>;
+template <int E>
+using ScalarSpecs1 = SpecList<F32Value<fk::A_PLUS, E>, F32Value<fk::A_MIN, E>,
+                              F32Value<fk::A_MAX, E>>;
+
+template <class A, class B> struct Cat;
+template <class... X, class... Y>
+struct Cat<SpecList<X...>, SpecList<Y...>> {
+  using type = SpecList<X..., Y...>;
+};
+using RowSpecs = Cat<RowSpecs1<fk::T_NONE>, RowSpecs1<fk::T_BOOL>>::type;
+using ScalarSpecs = Cat<ScalarSpecs1<fk::T_NONE>, ScalarSpecs1<fk::T_BOOL>>::type;
+
+// Call c.run<S, OT>() with the first spec of the list that matches the
+// code, else with the dynamic spec and the output type of `ocode`.
+template <class Call>
+int run_dynamic(int ocode, const Call& c) {
+  switch (ocode) {
+    case fk::T_I32: return c.template run<fk::Sem, int32_t>();
+    case fk::T_I64: return c.template run<fk::Sem, long long>();
+    case fk::T_F32: return c.template run<fk::Sem, float>();
+    case fk::T_F64: return c.template run<fk::Sem, double>();
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class Call>
+int dispatch(int64_t, int ocode, const Call& c, SpecList<>) {
+  return run_dynamic(ocode, c);
+}
+
+template <class Call, class S, class... Rest>
+int dispatch(int64_t code, int ocode, const Call& c, SpecList<S, Rest...>) {
+  if (S::matches(code)) return c.template run<S, typename OType<S::ocode>::type>();
+  return dispatch(code, ocode, c, SpecList<Rest...>{});
+}
+
+
+struct RowsCall {
+  const int32_t* indptr;
+  int64_t n_rows;
+  const int32_t* nnz;
+  const int32_t* gidx;
+  int64_t k;
+  RowPlan plan;
+  fk::Sem sem;
+  void* y;
+  void* partial;
+  cudaStream_t st;
+  template <class S, class OT>
+  int run() const {
+    return run_rows<S, OT>(indptr, n_rows, nnz, gidx, k, plan, sem, y, partial, st);
+  }
+};
+
+struct ScalarCall {
+  int64_t n_edges;
+  const int32_t* nnz;
+  fk::Sem sem;
+  void* out;
+  void* partial;
+  int64_t n_partial;
+  cudaStream_t st;
+  template <class S, class AT>
+  int run() const {
+    return run_scalar<S, AT>(n_edges, nnz, sem, out, partial, n_partial, st);
+  }
+};
 
 #define FK_BY_OCODE(ocode, fn, ...)                                   \
   switch (ocode) {                                                    \
@@ -362,21 +706,29 @@ int run_scalar(int64_t n_edges, const int32_t* nnz_p, fk::Sem s, void* out,
 
 // Sorted form: y (n_rows, k) of ocode; row r reduces entries indptr[r] ..
 // indptr[r+1] (clamped at *nnz_p) with x at gidx[e] * k + j (gidx null:
-// the entry's value alone).  Rows longer than long_min are the host's tasks
-// (n_tasks, 3) int64 (row, lo, hi), grouped by row through off (n_long + 1)
-// int64; partial holds n_tasks * k accumulator elements.
+// the entry's value alone).  Bit 37 of the code asks for the dynamic spec
+// whatever the codes (so that the two instantiations can be compared).
+// The host's plan: for k = 1, tiles (n_tiles, 2) int32 [r0, r1) of whole
+// rows, each with at most 4097 rows + entries, covering every row up to
+// long_min entries; for k > 1 a warp a row up to long_min.  Rows longer
+// than long_min are the tasks (n_tasks, 3) int64 (row, lo, hi), grouped by
+// row through off (n_long + 1) int64; partial holds n_tasks * k
+// accumulator elements.
 FK_EXPORT int fk_semiring_rows(const void* indptr, int64_t n_rows, const void* nnz,
                                const void* gidx, const void* vals, const void* emask,
                                const void* x, int64_t k, void* y, const void* omask,
-                               int64_t code, int64_t long_min, const void* tasks,
-                               int64_t n_tasks, const void* off, int64_t n_long,
-                               void* partial, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                               int64_t code, const void* tiles, int64_t n_tiles,
+                               int64_t long_min, const void* tasks, int64_t n_tasks,
+                               const void* off, int64_t n_long, void* partial,
+                               void* stream) {
   if (k <= 0) return (int)cudaErrorInvalidValue;
   const fk::Sem s = fk::make_sem(code, vals, x, omask, emask);
-  FK_BY_OCODE(s.ocode, run_rows, (const int32_t*)indptr, n_rows, (const int32_t*)nnz,
-              (const int32_t*)gidx, k, long_min, (const long long*)tasks, n_tasks,
-              (const long long*)off, n_long, s, y, partial, st)
+  const RowPlan plan{(const int32_t*)tiles, n_tiles, long_min, (const long long*)tasks,
+                     n_tasks, (const long long*)off, n_long};
+  const RowsCall c{(const int32_t*)indptr, n_rows, (const int32_t*)nnz,
+                   (const int32_t*)gidx, k, plan, s, y, partial, (cudaStream_t)stream};
+  if ((code >> 37) & 1) return run_dynamic(s.ocode, c);  // the dynamic spec asked for
+  return dispatch(code, s.ocode, c, RowSpecs{});
 }
 
 // Unsorted form: y (n_out, k) of ocode; entry e < min(n_edges, *nnz) (nnz
@@ -400,8 +752,9 @@ FK_EXPORT int fk_semiring_cols(int64_t n_edges, const void* nnz, const void* gid
 FK_EXPORT int fk_semiring_scalar(int64_t n_edges, const void* nnz, const void* vals,
                                  const void* emask, void* out, void* partial,
                                  int64_t n_partial, int64_t code, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   const fk::Sem s = fk::make_sem(code, vals, nullptr, nullptr, emask);
-  FK_BY_OCODE(s.ocode, run_scalar, n_edges, (const int32_t*)nnz, s, out, partial,
-              n_partial, st)
+  const ScalarCall c{n_edges, (const int32_t*)nnz, s, out, partial, n_partial,
+                     (cudaStream_t)stream};
+  if ((code >> 37) & 1) return run_dynamic(s.ocode, c);
+  return dispatch(code, s.ocode, c, ScalarSpecs{});
 }

@@ -138,7 +138,7 @@ _SIGNATURES = {
     "fk_expand": [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P,
                   _P, _P, _P],
     "fk_group_partials": [_P, _P, _P, _I64, _I64, _INT, _P, _P, _P],
-    "fk_topk": [_P, _I64, _INT, _INT, _P, _P, _P, _P, _P, _P],
+    "fk_topk": [_P, _I64, _INT, _P, _I64, _P, _P],
     "fk_bfs_levels": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _OUT_I64, _P],
     "fk_pagerank": [_P, _P, _P, _I64, _F32, _F32, _I64, _F32, _F32, _P, _P,
                     _P, _P, _P, _P, _I64, _P, _OUT_I64,
@@ -169,7 +169,7 @@ _SIGNATURES = {
     "fk_semiring_ell": [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _P, _P, _I64,
                         _I64, _I64, _I64, _P, _I64, _P],
     "fk_semiring_rows": [_P, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
-                         _I64, _P, _I64, _P, _I64, _P, _P],
+                         _P, _I64, _I64, _P, _I64, _P, _I64, _P, _P],
     "fk_semiring_cols": [_I64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64,
                          _P, _I64, _P],
     "fk_semiring_scalar": [_I64, _P, _P, _P, _P, _P, _I64, _I64, _P],

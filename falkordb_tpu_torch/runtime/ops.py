@@ -2290,23 +2290,22 @@ def topk_smallest(c, k: int):
     if not _cuda.on_cuda(c):
         return topk_smallest_plain(c, k)
     _cuda.check_input("topk_smallest", "c", c, torch.float64, n)
-    # a tile holds >= 4k candidates, so each pass keeps at most a quarter
-    tile = 2048
-    while tile < 4 * k:
-        tile *= 2
-    dev = c.device
-    m = -(-n // tile) * k  # survivors of the first pass, the most any holds
-    key_a = torch.empty(m, dtype=torch.int64, device=dev)
-    key_b = torch.empty(m, dtype=torch.int64, device=dev)
-    idx_a = torch.empty(m, dtype=torch.int32, device=dev)
-    idx_b = torch.empty(m, dtype=torch.int32, device=dev)
-    out = torch.empty(k, dtype=torch.int64, device=dev)
+    scratch = torch.empty(topk_scratch_bytes(n, k), dtype=torch.uint8,
+                          device=c.device)
+    out = torch.empty(k, dtype=torch.int64, device=c.device)
     p = _cuda.ptr
-    rc = _cuda.lib().fk_topk(p(c), n, k, tile, p(key_a), p(idx_a), p(key_b),
-                             p(idx_b), p(out), _cuda.stream_ptr(c))
+    rc = _cuda.lib().fk_topk(p(c), n, k, p(scratch), scratch.numel(), p(out),
+                             _cuda.stream_ptr(c))
     _cuda.check(rc, "topk")
     _cuda.count_launch("topk")
     return out
+
+
+def topk_scratch_bytes(n: int, k: int) -> int:
+    """Bytes of K3's scratch (csrc/topk.cu): the select's state and six
+    2048-bin histograms, two int64 counts and offsets per 4096 keys, and
+    the k survivors' (key, index) pairs."""
+    return 256 + 6 * 2048 * 4 + 32 * -(-n // 4096) + 16 * k
 
 
 def topk_smallest_plain(c, k: int):

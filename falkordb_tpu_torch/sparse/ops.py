@@ -90,7 +90,9 @@ _ELL_TEMP_BYTES = 192 << 20  # per-bucket gather temp cap of the plain path
 # thresholds of their own): ELL rows up to _NARROW wide a thread (a column
 # of B); mxv rows up to _WARP a warp; wider rows in segments of _ELL_SEG
 # (mxv) or _ELL_SEG_K (spmm) columns, a block each.  CSR rows longer than
-# _LONG_ROW are cut into tasks of _LONG_SEG (mxv) or _LONG_SEG_K entries.
+# _LONG_ROW are cut into tasks of _LONG_SEG (mxv) or _LONG_SEG_K entries;
+# shorter ones go in tiles of whole rows (`_row_plan`, mxv) or take a warp
+# each (spmm).
 _NARROW = 32
 _WARP = 2048
 _ELL_SEG = 4096
@@ -98,6 +100,13 @@ _ELL_SEG_K = 1024
 _LONG_ROW = 2048
 _LONG_SEG = 4096
 _LONG_SEG_K = 1024
+_TILE_ITEMS = 2048  # K21 at k = 1: a tile's rows start within 2048 items
+_TILE_CAP = 4097  # csrc/semiring_segment.cu kTileCap
+# K21's rows and scalar forms run the float32 and plus_pair_i32 semirings
+# through their compile-time specs; False sets code bit 37, which asks for
+# the dynamic spec (the card tests compare the two)
+_FIXED_SPECS = True
+_DYNAMIC_SPEC = 1 << 37
 
 
 def _ell_form(A: CSR, need_vals: bool):
@@ -373,14 +382,18 @@ def _sem_code(kernel: str, sr: Semiring, mul: Optional[str], vals, vdtype,
     return code
 
 
-def _check_csr(kernel: str, A: CSR, vals=True) -> None:
-    _cuda.check_input(kernel, "indptr", A.indptr, torch.int32, A.n_rows + 1)
-    _cuda.check_input(kernel, "rows", A.rows, torch.int32)
-    _cuda.check_input(kernel, "cols", A.cols, torch.int32, A.cap)
+def _check_nnz_vals(kernel: str, A: CSR, vals=True) -> None:
     if A.nnz.dtype != torch.int32 or A.nnz.numel() != 1:
         raise ValueError(f"{kernel}: nnz must be an int32 scalar")
     if vals and A.vals is not None:
         _cuda.check_input(kernel, "vals", A.vals, A.vals.dtype, A.cap)
+
+
+def _check_csr(kernel: str, A: CSR, vals=True) -> None:
+    _cuda.check_input(kernel, "indptr", A.indptr, torch.int32, A.n_rows + 1)
+    _cuda.check_input(kernel, "rows", A.rows, torch.int32)
+    _cuda.check_input(kernel, "cols", A.cols, torch.int32, A.cap)
+    _check_nnz_vals(kernel, A, vals)
 
 
 def _dense(t):
@@ -420,6 +433,36 @@ def _long_tasks(A: CSR, seg: int):
         hit = (host_tensor(tasks, A.device), host_tensor(off, A.device),
                len(rows))
         A.__dict__[key] = hit
+    return hit
+
+
+def _row_plan(A: CSR):
+    """How csrc/semiring_segment.cu cuts A's rows for k = 1, cached on the
+    snapshot: (n_tiles, 2) int32 [r0, r1) tiles of whole rows, in order,
+    covering every row of at most _LONG_ROW entries (indptr clamped at
+    nnz) and no longer one.  A row belongs to the tile of its first
+    merge-path item (a row is its entries plus its end) counted in steps of
+    _TILE_ITEMS, so a tile holds at most _TILE_ITEMS + _LONG_ROW items,
+    which the kernel's shared memory holds (_TILE_CAP); long rows cut the
+    tiles."""
+    hit = A.__dict__.get("_row_plan")
+    if hit is None:
+        if _TILE_ITEMS + _LONG_ROW > _TILE_CAP:
+            raise ValueError("_TILE_ITEMS + _LONG_ROW exceeds the kernel's "
+                             f"tile of {_TILE_CAP} items")
+        ip = np.minimum(A.host_view()[0].astype(np.int64), int(A.nnz))
+        deg = ip[1:] - ip[:-1]
+        long = deg > _LONG_ROW
+        items = np.where(long, 0, deg + 1)
+        tile = (np.cumsum(items) - items) // _TILE_ITEMS
+        rows = np.nonzero(~long)[0]
+        cut = np.ones(len(rows), dtype=bool)
+        cut[1:] = (tile[rows[1:]] != tile[rows[:-1]]) | (rows[1:] != rows[:-1] + 1)
+        first = np.nonzero(cut)[0]
+        r1 = np.append(rows[first[1:] - 1], rows[-1:]) + 1
+        hit = host_tensor(np.stack([rows[first], r1], axis=1).astype(np.int32),
+                          A.device)
+        A.__dict__["_row_plan"] = hit
     return hit
 
 
@@ -464,7 +507,10 @@ def segment_rows(sr: Semiring, A: CSR, X=None, edge_mask=None, mask=None,
     code = _sem_code(kernel, sr, None if X is None else sr.mul, A.vals,
                      vdtype, None if X is None else X.dtype, sr.dtype,
                      mask=mask, complement=complement, emask=edge_mask)
+    if not _FIXED_SPECS:
+        code |= _DYNAMIC_SPEC
     tasks, off, n_long = _long_tasks(A, _LONG_SEG if k == 1 else _LONG_SEG_K)
+    tiles = _row_plan(A) if k == 1 else None
     dev = A.device
     y = torch.empty((A.n_rows, k) if X is not None and X.dim() > 1
                     else (A.n_rows,), dtype=sr.dtype, device=dev)
@@ -473,9 +519,10 @@ def segment_rows(sr: Semiring, A: CSR, X=None, edge_mask=None, mask=None,
     p = _cuda.ptr
     _cuda.check(_cuda.lib().fk_semiring_rows(
         p(A.indptr), A.n_rows, p(A.nnz), None if X is None else p(A.cols),
-        p(A.vals), p(edge_mask), p(X), k, p(y), p(mask), code, _LONG_ROW,
-        p(tasks), tasks.shape[0], p(off), n_long, p(partial),
-        _cuda.stream_ptr(y)), kernel)
+        p(A.vals), p(edge_mask), p(X), k, p(y), p(mask), code, p(tiles),
+        0 if tiles is None else tiles.shape[0], _LONG_ROW, p(tasks),
+        tasks.shape[0], p(off), n_long, p(partial), _cuda.stream_ptr(y)),
+        kernel)
     _cuda.count_launch(kernel)
     return y
 
@@ -578,12 +625,14 @@ def segment_scalar(sr: Semiring, A: CSR, edge_mask=None):
         return segment_scalar_plain(sr, A, edge_mask)
     kernel = "semiring_segment"
     edge_mask = _dense(edge_mask)
-    _check_csr(kernel, A)
+    _check_nnz_vals(kernel, A)  # all the scalar form reads of A
     _check_vec(kernel, "edge_mask", edge_mask, A.cap)
     out_dtype = _scalar_dtype(sr)
     vdtype = torch.int32 if A.vals is None else A.vals.dtype
     code = _sem_code(kernel, sr, None, A.vals, vdtype, None, out_dtype,
                      emask=edge_mask)
+    if not _FIXED_SPECS:
+        code |= _DYNAMIC_SPEC
     dev = A.device
     out = torch.empty((), dtype=out_dtype, device=dev)
     partial = torch.empty(_SCALAR_BLOCKS, dtype=out_dtype, device=dev)

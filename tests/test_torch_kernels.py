@@ -167,6 +167,36 @@ def test_topk_matches_jax(rng, monkeypatch, kind, k):
     np.testing.assert_array_equal(t, np.lexsort(sig[::-1])[:k])
 
 
+@pytest.mark.parametrize("kind", ["ties_null_asc", "ties_null_desc",
+                                  "signed_zeros"])
+def test_topk_k4096_matches_jax(rng, monkeypatch, kind):
+    """k = 4096 over n = 20,011 keys: heavy ties (12 values), nulls folded
+    in as +inf (ASC) or -inf (DESC), -0.0 beside +0.0.  The reference's
+    lax.top_k orders -0.0 below +0.0 (a total order), where the stable
+    lexsort it stands in for, and the port, hold them equal; so the
+    signed-zero case is held to the lexsort and to the reference on the
+    same keys with -0.0 read as +0.0."""
+    monkeypatch.setenv("FALKOR_DEVICE_AGG_MIN", "16")
+    n, k = 20_011, 4096
+    nullr = np.zeros(n)
+    v = rng.integers(-6, 6, n).astype(np.float64)
+    if kind == "signed_zeros":  # the 4096 smallest are zeros of both signs
+        v = np.abs(v)
+        v[rng.random(n) < 0.3] = -0.0
+        v[rng.random(n) < 0.3] = 0.0
+    else:
+        nullr[rng.random(n) < 0.25] = 1.0 if kind == "ties_null_asc" else -1.0
+        v[nullr != 0] = 0.0
+    sig = [nullr, v]
+    ns = SimpleNamespace(limit=k, dev_rows=0)
+    t = Sort._device_topk(ns, sig, n, "cpu")
+    assert t.dtype == np.int64 and len(t) == k
+    np.testing.assert_array_equal(t, np.lexsort(sig[::-1])[:k])
+    canon = [nullr, v + 0.0]  # -0.0 + 0.0 is +0.0
+    np.testing.assert_array_equal(
+        t, np.asarray(JaxSort._device_topk(ns, canon, n)))
+
+
 def test_topk_declines_like_jax(rng, monkeypatch):
     monkeypatch.setenv("FALKOR_DEVICE_AGG_MIN", "16")
     sig = [np.zeros(100), rng.normal(size=100)]

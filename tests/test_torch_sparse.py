@@ -597,3 +597,76 @@ def test_long_row_tasks_cover_each_long_row_once(seg, monkeypatch):
         assert ((spans[:, 2] - spans[:, 1]) <= seg).all()
         assert ((spans[:, 2] - spans[:, 1]) > 0).all()
     assert tops._long_tasks(A, seg)[0] is tops._long_tasks(A, seg)[0]
+
+
+def row_lengths_pair(seed=21):
+    """A JAX CSR (and its carry) whose rows take every path of K21's row
+    plan: empty, 1, 31, 32 and 33 entries, medium rows, one row past
+    _LONG_ROW, the rest Poisson(6)."""
+    rng = np.random.default_rng(seed)
+    n, m = 120, tops._LONG_ROW + 400
+    deg = rng.poisson(6, n)
+    deg[:9] = [0, 1, 31, 32, 33, 0, 64, 200, tops._LONG_ROW + 5]
+    r = np.repeat(np.arange(n), deg)
+    c = np.concatenate([rng.choice(m, d, replace=False) for d in deg])
+    v = rng.uniform(0.5, 2.0, len(r)).astype(np.float32)
+    jA = J.CSR.from_coo_numpy(r, c, v, shape=(n, m))
+    return jA, carry(jA)
+
+
+@pytest.mark.parametrize("name", ["plus_times_f32", "min_plus_f32",
+                                  "plus_pair_i32"])
+def test_row_lengths_with_masks_match_jax(name):
+    """The sorted segment form (and the scalar reduce) over rows of every
+    length K21's plan tells apart, with edge masks and output masks, as the
+    JAX package computes them."""
+    jA, tA = row_lengths_pair()
+    rng = np.random.default_rng(22)
+    jsr, tsr = J.get_semiring(name), T.get_semiring(name)
+    ex = exact_for(tsr)
+    em = rng.random(tA.cap) < 0.7
+    jem, tem = jnp.asarray(em), _t(em)
+    x = operand(name, rng, tA.n_cols)
+    B = operand(name, rng, tA.n_cols, 3)
+    mask = (rng.random(tA.n_rows) < 0.5).astype(np.int32)
+    for complement in (False, True):
+        assert_same(T.masked_mxv(tsr, tA, _t(x), _t(mask), complement,
+                                 edge_mask=tem),
+                    J.masked_mxv(jsr, jA, jnp.asarray(x), jnp.asarray(mask),
+                                 complement, edge_mask=jem), ex, name)
+    assert_same(T.spmm(tsr, tA, _t(B), edge_mask=tem),
+                J.spmm(jsr, jA, jnp.asarray(B), edge_mask=jem), ex, name)
+    assert_same(T.reduce_rows(tsr, tA, edge_mask=tem),
+                J.reduce_rows(jsr, jA, edge_mask=jem), ex, name)
+    assert_same(T.reduce_scalar(tsr, tA, edge_mask=tem),
+                J.reduce_scalar(jsr, jA, edge_mask=jem), ex, name)
+
+
+@pytest.mark.parametrize("mean", [1, 6, 14, 70])
+def test_row_plan_tiles_cover_each_short_row_once(mean):
+    """K21's row tiles for k = 1: whole rows in order, every row of at most
+    _LONG_ROW entries in exactly one tile and no longer row in any, each
+    tile within the kernel's _TILE_CAP items (rows + entries), the rows of
+    a tile starting within one step of _TILE_ITEMS items."""
+    rng = np.random.default_rng(mean)
+    deg = rng.poisson(mean, 3000)
+    deg[:6] = [0, tops._LONG_ROW, tops._LONG_ROW + 1, 3 * tops._LONG_ROW, 0,
+               tops._LONG_ROW]
+    src = np.repeat(np.arange(3000), deg)
+    dst = rng.integers(0, 5000, len(src))
+    A = T.CSR.from_coo_numpy(src, dst, None, shape=(3000, 5000),
+                             dedup=False, cap=len(src) + 9)
+    tiles = _np(tops._row_plan(A))
+    assert tiles.dtype == np.int32 and tiles.shape[1] == 2
+    short = deg <= tops._LONG_ROW
+    covered = np.concatenate([np.arange(a, b) for a, b in tiles])
+    np.testing.assert_array_equal(covered, np.nonzero(short)[0])
+    ip = np.concatenate([[0], np.cumsum(deg)])
+    items = (tiles[:, 1] - tiles[:, 0]) + ip[tiles[:, 1]] - ip[tiles[:, 0]]
+    assert (items <= tops._TILE_CAP).all() and (tiles[:, 1] > tiles[:, 0]).all()
+    before = np.cumsum(np.where(short, deg + 1, 0)) - np.where(short, deg + 1,
+                                                               0)
+    step = before[tiles[:, 0]] // tops._TILE_ITEMS
+    last = before[tiles[:, 1] - 1] // tops._TILE_ITEMS
+    np.testing.assert_array_equal(step, last)
+    assert tops._row_plan(A) is tops._row_plan(A)

@@ -238,3 +238,76 @@ def test_card_public_api_takes_strided_operands(route, dev, monkeypatch):
     ell = cuda.KERNELS["ell_mxv"].launches + cuda.KERNELS["ell_spmm"].launches
     assert (ell > 0) == (route == "ell")
     assert cuda.KERNELS["semiring_segment"].launches > 0
+
+
+def lengths_graph(seed, short_mean):
+    """Rows of every length K21's plan tells apart: empty, 1, 31, 32, 33,
+    rows at and past _LONG_ROW (the tiles' widest row and the tasks); the
+    other rows of Poisson(short_mean) degree, so that a tile holds
+    thousands of rows, tens, or one."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols = 2000, 9000
+    deg = rng.poisson(short_mean, n_rows)
+    special = [0, 1, 31, 32, 33, 0, 7, 8, 9, 15, 16, 17, 63, 64, 65, 128,
+               tops._LONG_ROW, tops._LONG_ROW + 1, 2 * tops._LONG_ROW + 37]
+    deg[:len(special)] = special
+    src = np.repeat(np.arange(n_rows), deg)
+    dst = np.concatenate([rng.choice(n_cols, d, replace=d > n_cols)
+                          for d in deg])
+    val = rng.uniform(0.5, 2.0, len(src)).astype(np.float32)
+    return T.CSR.from_coo_numpy(src, dst, val, shape=(n_rows, n_cols),
+                                dedup=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REGISTERED)
+@pytest.mark.parametrize("short_mean", [1, 14, 70])
+def test_card_rows_and_scalar_fixed_and_dynamic(name, short_mean, dev,
+                                                monkeypatch):
+    """K21's rows and scalar forms under every registered semiring, through
+    the compile-time spec (where the semiring has one) and the dynamic
+    spec: each equal to the plain version (ints exactly), each the same
+    bits on a second call, and the two specs' rows the same bits."""
+    A = lengths_graph(11, short_mean).to(dev)
+    rng = np.random.default_rng(12)
+    sr = T.get_semiring(name)
+    x = card_operand(name, rng, A.n_cols, dev)
+    B = card_operand(name, rng, A.n_cols, dev, 8)
+    em = _t(rng.random(A.cap) < 0.7).to(dev)
+    mask = _t((rng.random(A.n_rows) < 0.5).astype(np.int32)).to(dev)
+    cases = {
+        "mxv_valid": (lambda: tops.segment_rows(sr, A, x, A.valid_mask()),
+                      lambda: tops.segment_rows_plain(sr, A, x,
+                                                      A.valid_mask())),
+        "mxv_edge_mask_out_mask": (
+            lambda: tops.segment_rows(sr, A, x, em, mask, True),
+            lambda: tops.segment_rows_plain(sr, A, x, em, mask, True)),
+        "mxv_out_mask": (lambda: tops.segment_rows(sr, A, x, None, mask),
+                         lambda: tops.segment_rows_plain(sr, A, x, None,
+                                                         mask)),
+        "spmm_k8": (lambda: tops.segment_rows(sr, A, B, em),
+                    lambda: tops.segment_rows_plain(sr, A, B, em)),
+        "reduce_rows": (lambda: tops.segment_rows(sr, A),
+                        lambda: tops.segment_rows_plain(sr, A)),
+        "reduce_rows_edge_mask": (lambda: tops.segment_rows(sr, A, None, em),
+                                  lambda: tops.segment_rows_plain(sr, A, None,
+                                                                  em)),
+        "scalar": (lambda: tops.segment_scalar(sr, A),
+                   lambda: tops.segment_scalar_plain(sr, A)),
+        "scalar_edge_mask": (lambda: tops.segment_scalar(sr, A, em),
+                             lambda: tops.segment_scalar_plain(sr, A, em)),
+    }
+    for what, (kern, plain) in cases.items():
+        runs = {}
+        for fixed in (True, False):
+            monkeypatch.setattr(tops, "_FIXED_SPECS", fixed)
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            assert_card(got, plain(), sr, f"{name} {what} fixed={fixed}")
+            assert torch.equal(got, again), f"{name} {what}: two calls"
+            runs[fixed] = got
+        if what.startswith("scalar"):  # the vector loop sums in its order
+            assert_card(runs[True], runs[False], sr, f"{name} {what} specs")
+        else:
+            assert torch.equal(runs[True], runs[False]), f"{name} {what}"
+    assert cuda.KERNELS["semiring_segment"].launches == 4 * len(cases)
