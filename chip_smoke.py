@@ -726,13 +726,15 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "multi_bfs": "exact (levels, next frontier bits, the alive flag)",
     "packed_levels": "exact",
     "ell_pagerank": "one step: scores rtol 1e-5 atol 1e-9, L1 change rtol "
-                    "1e-4 (float32 sums in other orders)",
+                    "1e-4 (float32 sums in other orders), the same bits on "
+                    "a second call",
     "ell_mxv": "any_pair and min_plus exact; plus_times rtol 1e-4 atol 1e-6 "
                "(float32 sums in other orders), the same against float64 "
                "scipy",
     "ell_spmm": "rtol 1e-4 atol 1e-6 (float32 sums in other orders), the "
                 "same against float64 scipy on the 32 widest and 8,192 "
-                "random rows",
+                "random rows; the same bits on a second call and through "
+                "the dynamic spec",
     "semiring_segment": "min (atomics on the order-preserving image) exact; "
                         "sums rtol 1e-4 atol 1e-6 (other orders; vxm's "
                         "atomics in any order), the same against float64 "
@@ -750,8 +752,9 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "probe_stream": "exact", "probe_take": "exact", "probe_bittest": "exact",
     "probe_lane_gather": "exact",
     "ell_spmv": "rtol 1e-5 atol 1e-9 (K18's: the kernel sums a row in "
-                "column order up to 32 wide, else in a fixed warp or block "
-                "tree; the plain version in torch's order); float64 "
+                "one fixed order, its lanes' columns in order, a fixed "
+                "shuffle tree, its segments in order; the plain version in "
+                "torch's order), the same bits on a second call; float64 "
                 "bincount oracle rtol 1e-4 atol 1e-6",
     "rowgather_or": "exact"}
 
@@ -1255,9 +1258,10 @@ def check_ell_kernels(pprep, at_sorted, dev):
     against the plain step, beside a CSR SpMV over the same transpose.
     Bounds: K10 reads reach and visited, writes frontier, and writes
     visited in rows that gained bits; K17 reads the fresh words and reads
-    and writes the level of each fresh lane; K18 reads the padded edges'
-    columns, the gathered contrib vector once, r, inv_out and the dangling
-    mask, and writes r'."""
+    and writes the level of each fresh lane; K18 reads each edge's column
+    (not the padding after a row's last column), each bucket's node ids,
+    the gathered contrib vector once, r, inv_out and the dangling mask,
+    and writes r'."""
     ell = pprep.ell
     n, k = ell.n, len(pprep.roots)
     W, visited, frontier, lv8 = packed_init(n, pprep.roots, dev, torch.int8)
@@ -1334,15 +1338,20 @@ def check_ell_kernels(pprep, at_sorted, dev):
     torch.cuda.synchronize()
     torch.testing.assert_close(rk, rp, **PR_TOL)
     torch.testing.assert_close(ek[0], ep, rtol=1e-4, atol=0)
+    rk2, ek2 = ell_pagerank_step(parts, r, inv_out, dmask, 0.85)
+    assert torch.equal(rk2, rk) and torch.equal(ek2, ek), "K18: two calls"
+    del rk2, ek2
     pr_row = _row("ell_pagerank", f"sorted ELL n={n} buckets={len(parts)} "
-                  f"padded edges={ell.padded_edges}: one step from r0 "
-                  f"(l1 {float(ek):.6e}, plain {float(ep):.6e})",
+                  f"edges={ell.true_edges} padded edges={ell.padded_edges}: "
+                  f"one step from r0 (l1 {float(ek):.6e}, plain "
+                  f"{float(ep):.6e})",
                   cuda_ms(lambda: ell_pagerank_step(parts, r, inv_out, dmask,
                                                     0.85)),
                   cuda_ms(lambda: ell_pagerank_step_plain(
                       parts, r, inv_out, dmask, 0.85)),
                   cuda_ms(_spmv(at_sorted)),
-                  4 * ell.padded_edges + 4 * (n + 1) + 16 * n,
+                  4 * ell.true_edges + 4 * (n + 1) + 16 * n +
+                  4 * sum(ids.numel() for ids, _ in parts),
                   _max_err(rk, rp))
     return rows, k10, [pr_row]
 
@@ -1755,14 +1764,29 @@ def check_semiring(sg: SemiringGraph, dev):
             lambda: sops.ell_mxv(sr, form, v, n, n),
             lambda: sops.ell_reduce_plain(sr, form, v, n, n), lib,
             4 * ids_n + 4 * nv * nnz + 8 * n, exact, oracle, run)
-    # K20
+    # K20, through the compile-time spec and (k = 8) the dynamic one
     for k, B in Bs.items():
         want = S_sample @ B.cpu().numpy().astype(np.float64)
         row("ell_spmm", f"spmm plus_times_f32 k={k}",
             lambda: sops.ell_spmm(S_.PLUS_TIMES_F32, fv, B, n, n),
             lambda: sops.ell_reduce_plain(S_.PLUS_TIMES_F32, fv, B, n, n),
             lambda: lib_csr @ B, 4 * ids_n + 8 * nnz + 8 * n * k, False,
-            want, f"spmm_plus_times_k{k}", sample)
+            want, f"spmm_plus_times_k{k}", sample, twice=True)
+    sops._FIXED_SPECS = False
+    try:
+        B8 = Bs[8]
+        dyn = sops.ell_spmm(S_.PLUS_TIMES_F32, fv, B8, n, n)
+        torch.cuda.synchronize()
+        assert torch.equal(dyn, outs["spmm_plus_times_k8"]), \
+            "K20: the dynamic spec's bits"
+        row("ell_spmm", "spmm plus_times_f32 k=8, dynamic spec",
+            lambda: sops.ell_spmm(S_.PLUS_TIMES_F32, fv, B8, n, n),
+            lambda: sops.ell_reduce_plain(S_.PLUS_TIMES_F32, fv, B8, n, n),
+            lambda: lib_csr @ B8, 4 * ids_n + 8 * nnz + 64 * n, False,
+            S_sample @ B8.cpu().numpy().astype(np.float64), None, sample)
+        del dyn
+    finally:
+        sops._FIXED_SPECS = True
     # K21: sorted (edge-masked mxv and spmm, reduce_rows), unsorted (vxm),
     # scalar
     PT, MP = S_.PLUS_TIMES_F32, S_.MIN_PLUS_F32
@@ -1968,6 +1992,8 @@ def check_gather(gb: GatherBench, dev):
         4 * entries + 4 * (n + 1) + 4 * n + 4 * bucket_rows, exact=False,
         oracle=lambda g: np.testing.assert_allclose(g, gb.y64, rtol=SUM_RTOL,
                                                     atol=1e-6))
+    assert torch.equal(PR.ell_spmv(gb.parts, gb.x),
+                       outs["ell_spmv_plus_times"]), "ell_spmv: two calls"
     depth, grows = gb.idx.shape
     outs["packed_rowgather_or16"] = row(
         "rowgather_or", f"tab ({n + 1}, 128) int16, idx ({depth}, {grows})",

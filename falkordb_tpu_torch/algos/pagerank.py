@@ -8,13 +8,15 @@ CPU tensors run `pagerank_plain`.
 
 The blocked-ELL variant (pagerank_ell, which no procedure calls) steps over
 the buckets of a transpose ELL: CUDA tensors launch csrc/ell_pagerank.cu
-(kernel K18, one pass per bucket) once a step, and the host reads the
-step's L1 change, as the reference does; CPU tensors run
-`ell_pagerank_step_plain`."""
+(kernel K18: every bucket's row sums in one launch, from `ell_rows_plan`)
+once a step, and the host reads the step's L1 change, as the reference
+does; CPU tensors run `ell_pagerank_step_plain`."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -112,13 +114,103 @@ def pagerank_plain(indptr, rows, cols, nnz, n: int, damping=0.85, tol=1e-4,
 
 # -- the blocked-ELL form (K18) ------------------------------------------------
 
+# K18's row sums (csrc/ell_pagerank.cu holds no shapes of its own): a lane
+# walks at most _ROWS_RUN columns of a segment (more when a row would
+# otherwise have more than _ROWS_MAX_SEGS segments); at most _ROWS_BUCKETS
+# buckets a launch (the kernel's kMaxBuckets, its parameter struct).
+_ROWS_RUN = 256
+_ROWS_MAX_SEGS = 1024
+_ROWS_BUCKETS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsPlan:
+    """K18's cut of a call's buckets: `launches`, one a kernel launch, each
+    (bucket indices, (nb, 8) int64 fields [rows, w, shift, seg, nseg,
+    item0, part0, cnt0] a bucket, warps); `partials` float32 and `counters`
+    int32 words of scratch for the rows of several segments."""
+    launches: tuple
+    partials: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=64)
+def ell_rows_plan(shapes: tuple) -> RowsPlan:
+    """The plan of K18's `rows` kernel for buckets of (rows, w) `shapes`,
+    made from the shapes alone.  A bucket's rows go in tiles of RL = 2**shift
+    consecutive rows (32, or the rows rounded up to a power of two when
+    fewer) and its columns in nseg segments of seg columns (seg a multiple
+    of CL = 32 / RL: _ROWS_RUN columns a lane, at most _ROWS_MAX_SEGS
+    segments a row); a warp takes one (tile, segment), item item0 + tile *
+    nseg + segment, its lane rl + RL * cl row rl of the tile and columns
+    c0 + cl, c0 + cl + CL, ... of the segment.  Buckets go widest first and
+    at most _ROWS_BUCKETS a launch.  Rows of several segments leave a
+    partial a (row, segment) at part0 + (tile * nseg + segment) * RL + rl,
+    and count their tile's finished segments at cnt0 + tile."""
+    order = sorted((b for b, (r, w) in enumerate(shapes) if r > 0 and w > 0),
+                   key=lambda b: -shapes[b][1])
+    launches, part0, cnt0 = [], 0, 0
+    for lo in range(0, len(order), _ROWS_BUCKETS):
+        idx = order[lo:lo + _ROWS_BUCKETS]
+        fields = np.zeros((len(idx), 8), dtype=np.int64)
+        item0 = 0
+        for f, b in zip(fields, idx):
+            rows, w = shapes[b]
+            shift = max(min(rows, 32) - 1, 0).bit_length()
+            cl = 32 >> shift
+            seg = max(_ROWS_RUN * cl, -(-w // (_ROWS_MAX_SEGS * cl)) * cl)
+            seg = min(seg, w)
+            nseg = -(-w // seg)
+            tiles = -(-rows // (1 << shift))
+            f[:] = (rows, w, shift, seg, nseg, item0, part0, cnt0)
+            item0 += tiles * nseg
+            if nseg > 1:
+                part0 += tiles * nseg << shift
+                cnt0 += tiles
+        launches.append((tuple(idx), fields, item0))
+    return RowsPlan(tuple(launches), part0, cnt0)
+
+
+def rows_plan(parts) -> RowsPlan:
+    """`ell_rows_plan` of the (node_ids, colsT (w, rows)) buckets `parts`."""
+    return ell_rows_plan(tuple((int(c.shape[1]), int(c.shape[0]))
+                               for _, c in parts))
+
+
+def ell_rows(kernel: str, parts, plan: RowsPlan, contrib, n: int,
+             buf) -> None:
+    """K18's row sums on the card, `plan` = rows_plan(parts): buf[:n]
+    viewed as float32 gets, at each row's node, the sum of
+    contrib[clip(colsT[j, i], 0, n)] over its columns up to its first
+    sentinel n (contrib (n + 1,) float32 with contrib[n] = 0), every bucket
+    in one launch (a launch per _ROWS_BUCKETS).  buf (n + plan.counters,)
+    int32 comes zeroed: nodes no bucket covers keep 0, and the counters
+    start at 0."""
+    if buf.numel() < n + plan.counters:
+        raise ValueError(f"{kernel}: scratch of {buf.numel()} words, the "
+                         f"plan needs {n + plan.counters}")
+    partial = torch.empty(max(plan.partials, 1), dtype=torch.float32,
+                          device=buf.device)
+    lib, p, s = _cuda.lib(), _cuda.ptr, _cuda.stream_ptr(buf)
+    for idx, fields, items in plan.launches:
+        table = np.empty((len(idx), 10), dtype=np.int64)
+        table[:, 0] = [parts[b][1].data_ptr() for b in idx]
+        table[:, 1] = [parts[b][0].data_ptr() for b in idx]
+        table[:, 2:] = fields
+        _cuda.check(lib.fk_ell_rows(
+            table.ctypes.data, len(idx), items, p(contrib), n, p(buf),
+            p(partial), p(buf[n:]), s), kernel)
+
 
 def ell_pagerank_step(parts, r, inv_out, dangling_mask, damping):
     """K18: one step r' = (1-d)/n + d * (ELL row sums of r * inv_out + the
     dangling mass sum(r * dangling_mask) / n), float32, over the transpose
     ELL's buckets as bfs.ell_reach_parts(ell, dev, by_range=False) gives
-    them: (node_ids (rows,), colsT (w, rows)) int32 each.  Returns (r', the
-    L1 change sum|r' - r| as a (1,) tensor on the device)."""
+    them: (node_ids (rows,), colsT (w, rows)) int32 each.  Each row of colsT
+    holds its columns first and then only the sentinel n (left-aligned, as
+    every ELL builder of the port writes it): the kernel stops at a row's
+    first sentinel.  Returns (r', the L1 change sum|r' - r| as a (1,)
+    tensor on the device)."""
     n = r.shape[0]
     if not _cuda.on_cuda(r, inv_out, dangling_mask,
                          *(t for part in parts for t in part)):
@@ -138,17 +230,18 @@ def ell_pagerank_step(parts, r, inv_out, dangling_mask, damping):
                           colsT.shape[1])
     _r0, d, _tol, base = _scalars(n, damping, 0.0)
     f32 = dict(dtype=torch.float32, device=r.device)
-    contrib, acc = torch.empty(n + 1, **f32), torch.empty(n, **f32)
-    r_new = torch.empty(n, **f32)
+    contrib, r_new = torch.empty(n + 1, **f32), torch.empty(n, **f32)
+    plan = rows_plan(parts)
+    buf = torch.empty(n + plan.counters, dtype=torch.int32,
+                      device=r.device)  # acc, then the rows' counters
     partial, scalars = torch.empty(MAX_BLOCKS, **f32), torch.empty(2, **f32)
     lib, p, s = _cuda.lib(), _cuda.ptr, _cuda.stream_ptr(r)
     _cuda.check(lib.fk_ell_pagerank_prep(
-        p(r), p(inv_out), p(dangling_mask), n, p(contrib), p(acc), p(partial),
-        partial.numel(), p(scalars), s), "ell_pagerank")
-    for ids, colsT in parts:
-        _cuda.check(lib.fk_ell_pagerank_rows(
-            p(colsT), p(ids), colsT.shape[1], colsT.shape[0], p(contrib), n,
-            p(acc), s), "ell_pagerank")
+        p(r), p(inv_out), p(dangling_mask), n, p(contrib), p(buf),
+        buf.numel(), p(partial), partial.numel(), p(scalars), s),
+        "ell_pagerank")
+    ell_rows("ell_pagerank", parts, plan, contrib, n, buf)
+    acc = buf[:n]
     _cuda.check(lib.fk_ell_pagerank_update(
         p(r), p(acc), n, float(d), float(base), p(r_new), p(partial),
         partial.numel(), p(scalars), s), "ell_pagerank")

@@ -350,4 +350,55 @@ __device__ __forceinline__ double of_ord64(long long o) {
   return __longlong_as_double(o >= 0 ? o : (o ^ 0x7fffffffffffffffLL));
 }
 
+// -- compile-time specs and the dispatch over them ----------------------------
+
+template <int C> struct OType;
+template <> struct OType<T_I32> { using type = int32_t; };
+template <> struct OType<T_I64> { using type = long long; };
+template <> struct OType<T_F32> { using type = float; };
+template <> struct OType<T_F64> { using type = double; };
+
+// The float32 semirings (x, values, product and output float32), the
+// reduces of float32 values alone, and plus_pair over int32 x (bool
+// product, int32 semiring) into an OC output; E the edge mask's type.
+template <int MUL, int ADD, int E>
+using F32Spec = Fixed<MUL, ADD, T_F32, T_F32, T_F32, T_F32, T_F32, E>;
+template <int ADD, int E>
+using F32Value = Fixed<M_VALUE, ADD, T_F32, T_F32, T_NONE, T_F32, T_F32, E>;
+template <int OC, int E>
+using PlusPairI32 = Fixed<M_PAIR, A_PLUS, T_BOOL, T_NONE, T_I32, T_I32, OC, E>;
+
+template <class... Specs> struct SpecList {};
+
+template <class A, class B> struct Cat;
+template <class... X, class... Y>
+struct Cat<SpecList<X...>, SpecList<Y...>> {
+  using type = SpecList<X..., Y...>;
+};
+
+// Call c.run<S, OT>() with the dynamic spec and the output type of `ocode`.
+template <class Call>
+int run_dynamic(int ocode, const Call& c) {
+  switch (ocode) {
+    case T_I32: return c.template run<Sem, int32_t>();
+    case T_I64: return c.template run<Sem, long long>();
+    case T_F32: return c.template run<Sem, float>();
+    case T_F64: return c.template run<Sem, double>();
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class Call>
+int dispatch(int64_t, int ocode, const Call& c, SpecList<>) {
+  return run_dynamic(ocode, c);
+}
+
+// Call c.run<S, OT>() with the first spec of the list that matches the
+// code, else with the dynamic spec.
+template <class Call, class S, class... Rest>
+int dispatch(int64_t code, int ocode, const Call& c, SpecList<S, Rest...>) {
+  if (S::matches(code)) return c.template run<S, typename OType<S::ocode>::type>();
+  return dispatch(code, ocode, c, SpecList<Rest...>{});
+}
+
 }  // namespace fk

@@ -597,70 +597,22 @@ int run_scalar(int64_t n_edges, const int32_t* nnz_p, const fk::Sem& sem, void* 
   return (int)cudaGetLastError();
 }
 
-template <int C> struct OType;
-template <> struct OType<fk::T_I32> { using type = int32_t; };
-template <> struct OType<fk::T_I64> { using type = long long; };
-template <> struct OType<fk::T_F32> { using type = float; };
-template <> struct OType<fk::T_F64> { using type = double; };
-
-// The compile-time specs: the float32 semirings plus_times, min_plus and
-// max_times, their reduces of the values alone (reduce_rows,
-// reduce_scalar), and plus_pair_i32, each without and with a bool edge
-// mask.  Every other code runs the dynamic spec, fk::Sem: the same bodies.
-template <int MUL, int ADD, int E>
-using F32Spec = fk::Fixed<MUL, ADD, fk::T_F32, fk::T_F32, fk::T_F32, fk::T_F32,
-                          fk::T_F32, E>;
-template <int ADD, int E>
-using F32Value = fk::Fixed<fk::M_VALUE, ADD, fk::T_F32, fk::T_F32, fk::T_NONE,
-                           fk::T_F32, fk::T_F32, E>;
+// The compile-time specs of K21 (fk::F32Spec etc., semiring.cuh): the
+// float32 semirings plus_times, min_plus and max_times, their reduces of
+// the values alone (reduce_rows, reduce_scalar), and plus_pair_i32, each
+// without and with a bool edge mask.  Every other code runs the dynamic
+// spec, fk::Sem: the same bodies.
 template <int E>
-using PlusPairI32 = fk::Fixed<fk::M_PAIR, fk::A_PLUS, fk::T_BOOL, fk::T_NONE, fk::T_I32,
-                              fk::T_I32, fk::T_I32, E>;
-
-template <class... Specs> struct SpecList {};
-
+using RowSpecs1 =
+    fk::SpecList<fk::F32Spec<fk::M_TIMES, fk::A_PLUS, E>, fk::F32Spec<fk::M_PLUS, fk::A_MIN, E>,
+                 fk::F32Spec<fk::M_TIMES, fk::A_MAX, E>, fk::F32Value<fk::A_PLUS, E>,
+                 fk::F32Value<fk::A_MIN, E>, fk::F32Value<fk::A_MAX, E>,
+                 fk::PlusPairI32<fk::T_I32, E>>;
 template <int E>
-using RowSpecs1 = SpecList<F32Spec<fk::M_TIMES, fk::A_PLUS, E>,
-                           F32Spec<fk::M_PLUS, fk::A_MIN, E>,
-                           F32Spec<fk::M_TIMES, fk::A_MAX, E>, F32Value<fk::A_PLUS, E>,
-                           F32Value<fk::A_MIN, E>, F32Value<fk::A_MAX, E>,
-                           PlusPairI32<E>>;
-template <int E>
-using ScalarSpecs1 = SpecList<F32Value<fk::A_PLUS, E>, F32Value<fk::A_MIN, E>,
-                              F32Value<fk::A_MAX, E>>;
-
-template <class A, class B> struct Cat;
-template <class... X, class... Y>
-struct Cat<SpecList<X...>, SpecList<Y...>> {
-  using type = SpecList<X..., Y...>;
-};
-using RowSpecs = Cat<RowSpecs1<fk::T_NONE>, RowSpecs1<fk::T_BOOL>>::type;
-using ScalarSpecs = Cat<ScalarSpecs1<fk::T_NONE>, ScalarSpecs1<fk::T_BOOL>>::type;
-
-// Call c.run<S, OT>() with the first spec of the list that matches the
-// code, else with the dynamic spec and the output type of `ocode`.
-template <class Call>
-int run_dynamic(int ocode, const Call& c) {
-  switch (ocode) {
-    case fk::T_I32: return c.template run<fk::Sem, int32_t>();
-    case fk::T_I64: return c.template run<fk::Sem, long long>();
-    case fk::T_F32: return c.template run<fk::Sem, float>();
-    case fk::T_F64: return c.template run<fk::Sem, double>();
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <class Call>
-int dispatch(int64_t, int ocode, const Call& c, SpecList<>) {
-  return run_dynamic(ocode, c);
-}
-
-template <class Call, class S, class... Rest>
-int dispatch(int64_t code, int ocode, const Call& c, SpecList<S, Rest...>) {
-  if (S::matches(code)) return c.template run<S, typename OType<S::ocode>::type>();
-  return dispatch(code, ocode, c, SpecList<Rest...>{});
-}
-
+using ScalarSpecs1 = fk::SpecList<fk::F32Value<fk::A_PLUS, E>, fk::F32Value<fk::A_MIN, E>,
+                                  fk::F32Value<fk::A_MAX, E>>;
+using RowSpecs = fk::Cat<RowSpecs1<fk::T_NONE>, RowSpecs1<fk::T_BOOL>>::type;
+using ScalarSpecs = fk::Cat<ScalarSpecs1<fk::T_NONE>, ScalarSpecs1<fk::T_BOOL>>::type;
 
 struct RowsCall {
   const int32_t* indptr;
@@ -727,8 +679,8 @@ FK_EXPORT int fk_semiring_rows(const void* indptr, int64_t n_rows, const void* n
                      n_tasks, (const long long*)off, n_long};
   const RowsCall c{(const int32_t*)indptr, n_rows, (const int32_t*)nnz,
                    (const int32_t*)gidx, k, plan, s, y, partial, (cudaStream_t)stream};
-  if ((code >> 37) & 1) return run_dynamic(s.ocode, c);  // the dynamic spec asked for
-  return dispatch(code, s.ocode, c, RowSpecs{});
+  if ((code >> 37) & 1) return fk::run_dynamic(s.ocode, c);  // the dynamic spec asked for
+  return fk::dispatch(code, s.ocode, c, RowSpecs{});
 }
 
 // Unsorted form: y (n_out, k) of ocode; entry e < min(n_edges, *nnz) (nnz
@@ -755,6 +707,6 @@ FK_EXPORT int fk_semiring_scalar(int64_t n_edges, const void* nnz, const void* v
   const fk::Sem s = fk::make_sem(code, vals, nullptr, nullptr, emask);
   const ScalarCall c{n_edges, (const int32_t*)nnz, s, out, partial, n_partial,
                      (cudaStream_t)stream};
-  if ((code >> 37) & 1) return run_dynamic(s.ocode, c);
-  return dispatch(code, s.ocode, c, ScalarSpecs{});
+  if ((code >> 37) & 1) return fk::run_dynamic(s.ocode, c);
+  return fk::dispatch(code, s.ocode, c, ScalarSpecs{});
 }

@@ -161,13 +161,14 @@ _SIGNATURES = {
     "fk_multi_bfs": [_P, _P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P,
                      _P, _P, _I64, _I64, _I64, _P, _OUT_I64, _OUT_I32, _P],
     "fk_packed_levels": [_P, _I64, _I64, _P, _I64, _I64, _I64, _P],
-    "fk_ell_pagerank_prep": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P],
-    "fk_ell_pagerank_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P],
+    "fk_ell_pagerank_prep": [_P, _P, _P, _I64, _P, _P, _I64, _P, _I64, _P,
+                             _P],
+    "fk_ell_rows": [_P, _I64, _I64, _P, _I64, _P, _P, _P, _P],
     "fk_ell_pagerank_update": [_P, _P, _I64, _F32, _F32, _P, _P, _I64, _P,
                                _P],
     "fk_semiring_fill": [_P, _I64, _I64, _P],
     "fk_semiring_ell": [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _P, _P, _I64,
-                        _I64, _I64, _I64, _P, _I64, _P],
+                        _I64, _I64, _I64, _I64, _I64, _P, _I64, _P],
     "fk_semiring_rows": [_P, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
                          _P, _I64, _I64, _P, _I64, _P, _I64, _P, _P],
     "fk_semiring_cols": [_I64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64,

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from falkordb_tpu_torch.algos.pagerank import ell_rows, rows_plan
 from falkordb_tpu_torch.native import cuda as _cuda
 
 _check = _cuda.check_input
@@ -185,9 +186,12 @@ def ell_spmv(parts, v: torch.Tensor) -> torch.Tensor:
     blocked-ELL transpose with v, float32.  `parts` are the buckets as
     algos.bfs.ell_reach_parts(ell, dev, by_range=False) gives them,
     (node_ids (rows,), colsT (w, rows)) int32; columns are clipped to [0,
-    n] and the sentinel n reads 0; nodes no bucket covers get 0.  A row
-    sums its columns in order up to 32 wide, else in K18's fixed warp or
-    block tree."""
+    n] and the sentinel n reads 0; nodes no bucket covers get 0.  Each row
+    of colsT holds its columns first and then only the sentinel
+    (left-aligned, as every ELL builder of the port writes it): the kernel
+    stops at a row's first sentinel.  K18's row sums: every bucket in one
+    launch, a row's sum in one fixed order (algos/pagerank.py
+    `ell_rows_plan`)."""
     n = v.shape[0]
     if not _cuda.on_cuda(v, *(t for part in parts for t in part)):
         return ell_spmv_plain(parts, v)
@@ -197,14 +201,11 @@ def ell_spmv(parts, v: torch.Tensor) -> torch.Tensor:
         _check("ell_spmv", "node_ids", ids, torch.int32, colsT.shape[1])
     contrib = torch.cat([v, torch.zeros(1, dtype=torch.float32,
                                         device=v.device)])
-    acc = torch.zeros(n, dtype=torch.float32, device=v.device)
-    lib, s = _cuda.lib(), _cuda.stream_ptr(v)
-    for ids, colsT in parts:
-        _cuda.check(lib.fk_ell_pagerank_rows(
-            colsT.data_ptr(), ids.data_ptr(), colsT.shape[1], colsT.shape[0],
-            contrib.data_ptr(), n, acc.data_ptr(), s), "ell_spmv")
+    plan = rows_plan(parts)
+    buf = torch.zeros(n + plan.counters, dtype=torch.int32, device=v.device)
+    ell_rows("ell_spmv", parts, plan, contrib, n, buf)
     _cuda.count_launch("ell_spmv")
-    return acc
+    return buf[:n].view(torch.float32)
 
 
 def ell_spmv_plain(parts, v: torch.Tensor) -> torch.Tensor:

@@ -87,24 +87,28 @@ _ELL_WIDTHS = (4, 6, 8, 10, 12, 16, 20, 26, 32, 42, 54, 70, 90, 128,
 _ELL_TEMP_BYTES = 192 << 20  # per-bucket gather temp cap of the plain path
 
 # Kernel shapes (csrc/semiring_ell.cu and semiring_segment.cu hold no
-# thresholds of their own): ELL rows up to _NARROW wide a thread (a column
-# of B); mxv rows up to _WARP a warp; wider rows in segments of _ELL_SEG
-# (mxv) or _ELL_SEG_K (spmm) columns, a block each.  CSR rows longer than
+# thresholds of their own): mxv's ELL rows up to _NARROW wide a thread, up
+# to _WARP a warp, wider in segments of _ELL_SEG columns, a block each;
+# spmm's ELL rows a group of lanes each (`_ell_spmm_plan`), rows wider than
+# 4 k columns, clamped to [_ELL_SEG_K_MIN, _ELL_SEG_K], in segments of that
+# many (a lane walks a segment's columns in order: with few bytes of B an
+# entry its latency, not the bytes, bounds a segment).  CSR rows longer than
 # _LONG_ROW are cut into tasks of _LONG_SEG (mxv) or _LONG_SEG_K entries;
 # shorter ones go in tiles of whole rows (`_row_plan`, mxv) or take a warp
 # each (spmm).
 _NARROW = 32
 _WARP = 2048
 _ELL_SEG = 4096
-_ELL_SEG_K = 1024
+_ELL_SEG_K = 256
+_ELL_SEG_K_MIN = 64
 _LONG_ROW = 2048
 _LONG_SEG = 4096
 _LONG_SEG_K = 1024
 _TILE_ITEMS = 2048  # K21 at k = 1: a tile's rows start within 2048 items
 _TILE_CAP = 4097  # csrc/semiring_segment.cu kTileCap
-# K21's rows and scalar forms run the float32 and plus_pair_i32 semirings
-# through their compile-time specs; False sets code bit 37, which asks for
-# the dynamic spec (the card tests compare the two)
+# K20, and K21's rows and scalar forms, run the float32 and plus_pair_i32
+# semirings through their compile-time specs; False sets code bit 37, which
+# asks for the dynamic spec (the card tests compare the two)
 _FIXED_SPECS = True
 _DYNAMIC_SPEC = 1 << 37
 
@@ -242,10 +246,26 @@ def ell_reduce_plain(sr: Semiring, form, X, n_rows: int, n_cols: int,
 def _ell_segments(w: int, k: int) -> tuple[int, int]:
     """(segment length, segments) of an ELL row of width w, as
     csrc/semiring_ell.cu cuts it for these thresholds."""
-    if w <= _NARROW or (k == 1 and w <= _WARP):
+    if k > 1:
+        seg = min(max(4 * k, _ELL_SEG_K_MIN), _ELL_SEG_K)
+        return (max(w, 1), 1) if w <= seg else (seg, -(-w // seg))
+    if w <= _WARP:  # a thread (up to _NARROW) or a warp a row
         return max(w, 1), 1
-    seg = _ELL_SEG if k == 1 else _ELL_SEG_K
-    return seg, -(-w // seg)
+    return _ELL_SEG, -(-w // _ELL_SEG)
+
+
+def _ell_spmm_plan(k: int, vec: bool) -> tuple[int, int]:
+    """K20's lanes for B (n_cols, k), k > 1: (glog, V).  Each lane holds V
+    consecutive columns of B (4, one 16-byte load, where `vec`: k a
+    multiple of 4 and B's 4-byte words 16-byte aligned; else 1); a group of
+    2**glog lanes, the least power of two that covers the k / V chunks (at
+    most a warp; more chunks take passes), owns one row or segment."""
+    v = 4 if vec else 1
+    chunks = -(-k // v)
+    glog = 0
+    while (1 << glog) < chunks and glog < 5:
+        glog += 1
+    return glog, v
 
 
 def _ell_launch(kernel: str, sr: Semiring, form, X, n_rows: int, n_cols: int,
@@ -272,6 +292,10 @@ def _ell_launch(kernel: str, sr: Semiring, form, X, n_rows: int, n_cols: int,
     code = _sem_code(kernel, sr, sr.mul, vals0,
                      torch.int32 if vals0 is None else torch.float32,
                      X.dtype, out_dtype, mask=mask, complement=complement)
+    if not _FIXED_SPECS:
+        code |= _DYNAMIC_SPEC
+    glog, v = (_ell_spmm_plan(k, k % 4 == 0 and X.element_size() == 4 and
+                              X.data_ptr() % 16 == 0) if k > 1 else (0, 1))
     dev = X.device
     y = torch.empty((n_rows, k) if X.dim() > 1 else (n_rows,),
                     dtype=out_dtype, device=dev)
@@ -284,7 +308,7 @@ def _ell_launch(kernel: str, sr: Semiring, form, X, n_rows: int, n_cols: int,
                    if nseg > 1 else None)
         _cuda.check(lib.fk_semiring_ell(
             p(ids), p(mat), p(vm), rows, w, n_cols, p(X), k, p(y), p(mask),
-            code, _NARROW, _WARP, seg, p(partial),
+            code, _NARROW, _WARP, seg, glog, v == 4, p(partial),
             0 if partial is None else partial.numel(), s), kernel)
     _cuda.count_launch(kernel)
     return y

@@ -4,7 +4,10 @@ CUDA tensors, at awkward shapes: ragged tails, unaligned bases (the scalar
 paths), indices at a table's last word and past it (clamped), reps = 64,
 axis 1, a 512-wide idx over a 128-wide table, rowgather indices at n and
 past it with more output rows than table rows, every row width's unit,
-and ELL rows wide enough for K18's warp and block classes.
+and ELL rows wide enough for K18's warp and block classes; ell_spmv also
+over tests/test_torch_bfs_card.py's K18 forms (a hub row wider than
+131,072, a 1-wide bucket, node ids out of order, clipped columns before a
+row's sentinel, over 64 buckets).
 
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
@@ -25,6 +28,7 @@ from falkordb_tpu_torch import probes as P
 from falkordb_tpu_torch.algos.bfs import ell_reach_parts
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.sparse.ell import build_blocked_ell
+from test_torch_bfs_card import k18_cases
 
 
 @pytest.fixture(autouse=True)
@@ -176,3 +180,22 @@ def test_card_ell_spmv(dev):
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5, atol=1e-9)
     assert torch.equal(got, P.ell_spmv(parts, x))  # one order every run
     assert cuda.KERNELS["ell_spmv"].launches == 2
+
+
+@pytest.mark.cuda
+def test_card_ell_spmv_k18_forms(dev):
+    calls = 0
+    for name, parts, src, dst, n in k18_cases(dev):
+        x = _t(np.random.default_rng(5).uniform(size=n).astype(np.float32),
+               dev)
+        got, plain = P.ell_spmv(parts, x), P.ell_spmv_plain(parts, x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-9,
+                                   msg=name)
+        xp = np.append(x.cpu().numpy().astype(np.float64), 0.0)
+        want = np.bincount(dst, weights=xp[src], minlength=n)
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5,
+                                   atol=1e-9, err_msg=name)
+        assert torch.equal(got, P.ell_spmv(parts, x)), name
+        calls += 2
+    assert cuda.KERNELS["ell_spmv"].launches == calls

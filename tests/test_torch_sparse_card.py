@@ -5,7 +5,8 @@ enough for every split path (ELL segments, long-row tasks), k = 1, 6, 8,
 64 and 300 (and a B at an offset of 4 bytes into its buffer), output and
 edge masks, NaN, an unsorted B refused, dtypes the kernels do not
 instantiate refused, and strided operands (a transposed B, a strided x or
-mask) taken through the public API.
+mask) taken through the public API; K20 and K21's rows and scalar forms
+under their compile-time and dynamic semiring specs, bit for bit.
 
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
@@ -311,3 +312,46 @@ def test_card_rows_and_scalar_fixed_and_dynamic(name, short_mean, dev,
         else:
             assert torch.equal(runs[True], runs[False]), f"{name} {what}"
     assert cuda.KERNELS["semiring_segment"].launches == 4 * len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REGISTERED)
+def test_card_ell_spmm_fixed_and_dynamic(name, dev, monkeypatch):
+    """K20 at k > 1 under every registered semiring, through the
+    compile-time spec (where the semiring has one) and the dynamic spec:
+    each equal to the plain version, the same bits on a second call, and
+    the two specs the same bits.  hub_graph's hub rows take the segment
+    split at every k; a B at an offset of 4 bytes takes the scalar
+    loads; a transposed B goes through the public API."""
+    A = hub_graph(seed=8).to(dev)
+    rng = np.random.default_rng(9)
+    sr = T.get_semiring(name)
+    form = tops._ell_form(A, tops._need_vals(sr))
+    assert max(w for *_, w in form) > 4 * tops._ELL_SEG_K  # every k splits
+    Bs = {k: card_operand(name, rng, A.n_cols, dev, k)
+          for k in (2, 6, 8, 64, 300)}
+    B8 = card_operand(name, rng, A.n_cols, dev, 8)
+    off = torch.empty(B8.numel() + 1, dtype=B8.dtype, device=dev)[1:]
+    Bs["8 at an offset of 4 bytes"] = off.view(B8.shape)
+    Bs["8 at an offset of 4 bytes"].copy_(B8)
+    for k, B in Bs.items():
+        plain = tops.ell_reduce_plain(sr, form, B, A.n_rows, A.n_cols)
+        runs = {}
+        for fixed in (True, False):
+            monkeypatch.setattr(tops, "_FIXED_SPECS", fixed)
+            got = tops.ell_spmm(sr, form, B, A.n_rows, A.n_cols)
+            again = tops.ell_spmm(sr, form, B, A.n_rows, A.n_cols)
+            torch.cuda.synchronize()
+            assert_card(got, plain, sr, f"{name} k={k} fixed={fixed}")
+            assert torch.equal(got, again), f"{name} k={k}: two calls"
+            runs[fixed] = got
+        assert torch.equal(runs[True], runs[False]), f"{name} k={k} specs"
+    monkeypatch.setattr(tops, "_FIXED_SPECS", True)
+    monkeypatch.setattr(tops, "_ELL_MIN_EDGES", 0)
+    Bt = card_operand(name, rng, A.n_cols, dev, 64).T.contiguous()
+    got = T.spmm(sr, A, Bt.T)
+    torch.cuda.synchronize()
+    assert_card(got, tops.ell_reduce_plain(sr, form, Bt.T.contiguous(),
+                                           A.n_rows, A.n_cols), sr,
+                f"{name} transposed B")
+    assert cuda.KERNELS["ell_spmm"].launches == 4 * len(Bs) + 1
