@@ -2089,17 +2089,21 @@ def picked_d2(X, C64, assign, chunk=1 << 18):
 
 def check_assign_ties(dev):
     """K13 on exact ties across its tiles (128 rows a block, 128 centroids a
-    tile, 8 a thread): integer-valued rows and centroids, so every float32
-    step is exact; one centroid repeated within a thread's 8, across
-    threads and across tiles, and zero rows (empty clusters) in the same
-    places.  K13 must give float64 argmin's first minimum, exactly."""
+    tile; a thread holds centroids 4t..4t+3 and 64+4t..64+4t+3 of a tile,
+    the 16 threads of a row are 8 lanes in each of two warps; columns staged
+    128 at a time, streamed 16 a stage): integer-valued rows and centroids,
+    so every float32 step is exact; one centroid repeated within a thread's
+    8 (3, 67), across lanes (7), across the two warps (35) and across tiles
+    (130, 290), and zero rows (empty clusters) in the same places.  K13 must
+    give float64 argmin's first minimum, exactly."""
     rng = np.random.default_rng(SEED + 10)
     n, nlist = 3000, 300  # partial last row block and centroid tile
-    for d in (6, 24):  # a tail of the 16-column slice; two slices
+    # a tail of the 16-column stage; two stages; two staged slices
+    for d in (6, 24, 130):
         X = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
         C = rng.integers(-4, 5, size=(nlist, d)).astype(np.float32)
-        C[[7, 20, 130, 290]] = C[3]
-        C[[30, 31, 35, 200, 257, 299]] = 0.0
+        C[[67, 7, 35, 130, 290]] = C[3]
+        C[[30, 31, 94, 200, 257, 299]] = 0.0
         X[:200] = C[3]
         X[200:300] = 0.0
         x, c = X.astype(np.float64), C.astype(np.float64)

@@ -68,7 +68,8 @@ def build_packed_ell(ell, chunk_edges: int = 4 << 20,
                      device=None) -> PackedEll:
     """Split a sorted BlockedEll into gate-able row chunks with transposed
     column storage (contiguous per-column slices).  Computes where the
-    buckets lie unless `device` is given; device=None gives numpy colsT."""
+    buckets lie unless `device` is given; device=None (or the JAX package's
+    False) gives numpy colsT, True the card."""
     chunks = []
     padded = 0
     for b in ell.buckets:

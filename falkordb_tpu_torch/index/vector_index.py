@@ -94,22 +94,27 @@ def kmeans_assign(X, C):
     replaces `nearest` in falkordb_tpu's _kmeans): argmin over c of
     x2[i] - 2·X[i]·C[c] + c2[c] in float32, ties to the lowest c.
 
-    X (n, d) and C (nlist, d) contiguous float32 on one device, nlist >= 1.
-    Returns (n,) int64.  CPU tensors run `kmeans_assign_plain`."""
+    X (n, d) and C (nlist, d) contiguous float32 on one device,
+    1 <= nlist < 2^31.  Returns (n,) int64.  CPU tensors run
+    `kmeans_assign_plain`."""
     _check_matrix("kmeans_assign", "X", X)
     _check_matrix("kmeans_assign", "C", C)
     n, d = X.shape
     nlist = C.shape[0]
-    if C.shape[1] != d or nlist < 1:
+    if C.shape[1] != d or not 1 <= nlist < 2 ** 31:
         raise ValueError(f"kmeans_assign: X {tuple(X.shape)} against "
                          f"centroids {tuple(C.shape)}")
     if not _cuda.on_cuda(X, C):
         return kmeans_assign_plain(X, C)
     out = torch.empty(n, dtype=torch.int64, device=X.device)
     if n:
+        lib = _cuda.lib()
+        # the centroids transposed and padded, and their squared norms
+        scratch = torch.empty(lib.fk_kmeans_assign_scratch(nlist, d),
+                              dtype=torch.float32, device=X.device)
         p = _cuda.ptr
-        rc = _cuda.lib().fk_kmeans_assign(p(X), p(C), n, nlist, d, p(out),
-                                          _cuda.stream_ptr(X))
+        rc = lib.fk_kmeans_assign(p(X), p(C), n, nlist, d, p(scratch),
+                                  p(out), _cuda.stream_ptr(X))
         _cuda.check(rc, "kmeans_assign")
         _cuda.count_launch("kmeans_assign")
     return out
@@ -195,12 +200,12 @@ def vector_scores(M, q, metric: str, starts=None, offsets=None, total=None):
     if not _cuda.on_cuda(M, q, starts, offsets):
         return vector_scores_plain(M, q, metric, starts, offsets, total)
     rows = M.shape[0] if starts is None else int(total)
-    out = torch.empty(rows, dtype=torch.float32, device=M.device)
+    out = M.new_empty(rows)  # the host path before the launch is its time
     if rows:
         p = _cuda.ptr
         rc = _cuda.lib().fk_vector_scores(
-            p(M), p(q), d, p(starts), p(offsets), nlists, rows,
-            int(metric == "cosine"), p(out), _cuda.stream_ptr(M))
+            M.data_ptr(), q.data_ptr(), d, p(starts), p(offsets), nlists,
+            rows, metric == "cosine", out.data_ptr(), _cuda.stream_ptr(M))
         _cuda.check(rc, "vector_scores")
         _cuda.count_launch("vector_scores")
     return out

@@ -155,7 +155,8 @@ _SIGNATURES = {
     "fk_packed_seed": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P, _P, _I64,
                        _I64, _INT, _P],
     "fk_packed_counts": [_P, _I64, _I64, _I64, _P, _P, _P, _P],
-    "fk_kmeans_assign": [_P, _P, _I64, _I64, _I64, _P, _P],
+    "fk_kmeans_assign": [_P, _P, _I64, _I64, _I64, _P, _P, _P],
+    "fk_kmeans_assign_scratch": [_I64, _I64],
     "fk_kmeans_update": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
     "fk_vector_scores": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _P, _P],
     "fk_multi_bfs": [_P, _P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P,
@@ -200,6 +201,8 @@ _SIGNATURES = {
     "fk_probe_lane_gather": [_P, _I64, _I64, _P, _I64, _I64, _INT, _INT, _P,
                              _P],
 }
+
+_RESTYPES = {"fk_kmeans_assign_scratch": _I64}  # the rest return an error
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -278,7 +281,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             dll.fk_error_string.argtypes = [ctypes.c_int]
             dll.fk_error_string.restype = ctypes.c_char_p
             _lib = dll
@@ -323,7 +326,12 @@ def check_input(kernel: str, name: str, t: torch.Tensor | None, dtype,
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream of t's device, as the
+    kernels take it.  torch's own raw-stream lookup (what its compiled
+    kernels launch with) builds no Stream object, which
+    torch.cuda.current_stream does: a large share of a small kernel's
+    host path."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

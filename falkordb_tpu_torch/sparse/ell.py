@@ -11,7 +11,8 @@ The builders run in PyTorch on `device` (a CUDA card builds RMAT-24 in
 seconds, where numpy takes minutes) and give the arrays of falkordb_tpu's
 sparse/ell.py bit for bit: the same stable sorts, bincounts and fills.
 `device=None` builds on the host and returns numpy arrays, as the JAX
-package's `device=False` does.
+package's `device=False` does; the builders take that bool too (`False`
+as None, `True` the card).
 """
 
 from __future__ import annotations
@@ -39,9 +40,20 @@ class BlockedEll:
     true_edges: int
 
 
+def placement(device):
+    """A builder's `device` with the JAX package's bool read as the port's
+    value: False as None (host numpy), True as the card."""
+    if device is False:
+        return None
+    if device is True:
+        return torch.device("cuda")
+    return device
+
+
 def work_device(device, *arrays) -> torch.device:
     """Where a builder computes: `device`, else the device of the first
     tensor among `arrays`, else the host."""
+    device = placement(device)
     if device is not None:
         return torch.device(device)
     for a in arrays:
@@ -68,8 +80,9 @@ def ell_device(ell: BlockedEll) -> torch.device:
 
 
 def deliver(t: torch.Tensor, device):
-    """A builder's output: the tensor itself, or numpy when device is None."""
-    return t.cpu().numpy() if device is None else t
+    """A builder's output: the tensor itself, or numpy when device is None
+    (or False)."""
+    return t.cpu().numpy() if placement(device) is None else t
 
 
 def fill_rows(cols: torch.Tensor, starts: torch.Tensor, dsel: torch.Tensor,

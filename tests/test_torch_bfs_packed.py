@@ -124,6 +124,41 @@ def test_build_packed_ell_matches(chunk_edges):
                  tbp.build_packed_ell(te, chunk_edges, device="cpu"))
 
 
+@pytest.mark.parametrize("chunk_edges", [512, 1 << 20])
+def test_builders_take_the_reference_bool_device(chunk_edges):
+    """device=False, as bench.py and the JAX package's tests pass it, builds
+    on the host into numpy, equal to the JAX package's output."""
+    _s, _d, n, indptr, cols, *_ = _case(seed=5)
+    je = jell.build_blocked_ell_sorted(indptr, cols, n, device=False)
+    te = tell.build_blocked_ell_sorted(indptr, cols, n, device=False)
+    _same_ell(je, te)
+    assert all(isinstance(b.cols, np.ndarray) for b in te.buckets)
+    tp = tbp.build_packed_ell(te, chunk_edges, device=False)
+    _same_packed(jbp.build_packed_ell(je, chunk_edges, device=False), tp)
+    assert all(isinstance(c.colsT, np.ndarray) for c in tp.chunks)
+    # tensor buckets too: False still means host numpy
+    tp = tbp.build_packed_ell(
+        tell.build_blocked_ell_sorted(torch.from_numpy(indptr),
+                                      torch.from_numpy(cols), n,
+                                      device="cpu"), chunk_edges,
+        device=False)
+    _same_packed(jbp.build_packed_ell(je, chunk_edges, device=False), tp)
+    assert all(isinstance(c.colsT, np.ndarray) for c in tp.chunks)
+
+
+def test_bool_device_true_means_the_card():
+    """device=True resolves to CUDA, whatever the inputs are (nothing is
+    built: this test needs no card)."""
+    assert tell.work_device(True, np.zeros(3)) == torch.device("cuda")
+    assert tell.work_device(True, torch.zeros(3)) == torch.device("cuda")
+    assert tell.work_device(False, np.zeros(3)) == torch.device("cpu")
+    assert tell.work_device(False, torch.zeros(3)).type == "cpu"
+    assert tell.work_device("cpu") == torch.device("cpu")
+    t = torch.zeros(3)
+    assert tell.deliver(t, True) is t
+    assert isinstance(tell.deliver(t, False), np.ndarray)
+
+
 def test_build_packed_ell_pads_hub_width():
     """A bucket wider than VW and not a multiple of it is padded with the
     sentinel and takes the virtual-row path, as in the reference."""
