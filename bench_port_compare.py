@@ -18,13 +18,20 @@ checkout's .bench_cache/port/ for every tree.  Prints the card's name and
 power limit, then one `compare {...}` line per row (the tree's root, the
 kernel, its shape, ms, plain_ms, library_ms, bound_ms); run trees in
 turns (parent, change, change, parent) to see the spread.  Then one
-`device {...}` line per call of K3 (k = 10, 4096), K21's sorted and scalar
-forms, K20 at k = 8 and 64 and K18's two rows: its device ms by kernel
+`device {...}` line per call of K3 (k = 10, 4096), K19, K21's sorted,
+unsorted and scalar forms, K20 at k = 8 and 64 and K18's two rows: its
+device ms by kernel
 from one torch.profiler trace (bench_port.device_times), which leaves out
-the host's share of `ms`.  Last, one `bucket {...}` line per ELL bucket
-of K18's two rows and of K20 at k = 8 and 64: the bucket's rows, width
-and entries and the device ms by kernel of a call over that bucket alone,
-and one `words {...}` line per K18 row: the column words its kernel reads.
+the host's share of `ms`.  The graph rows start with one `ptxas {...}`
+line per kernel function of csrc/semiring_ell.cu and semiring_segment.cu,
+and their `device` lines also cover K19 (any_pair_bool, plus_times_f32,
+min_plus_f32) and K21's vxm (plus_times_f32, min_plus_f32, and
+plus_times_f32 with an edge mask), and the two library calls they are
+held against (cuSPARSE's SpMV of the CSR and of its transpose).  Last, one `bucket {...}` line per ELL
+bucket of K19 plus_times_f32, of K18's two rows and of K20 at k = 8 and
+64: the bucket's rows, width and entries and the device ms by kernel of a
+call over that bucket alone, and one `words {...}` line per K18 row: the
+column words its kernel reads.
 
 The vector rows are DIR/chip_smoke.py's `check_vector_kernels` on a
 SIFT1M-shaped mixture (1,000,000 x 128, 2,000 lists; `mixture`): K13 on
@@ -104,6 +111,7 @@ def graph_rows(smoke, root, scale, dev):
     import numpy as np
     import torch
 
+    ptxas(smoke, root, ("semiring_ell.cu", "semiring_segment.cu"))
     rows = smoke.check_topk(dev, np.random.default_rng(smoke.SEED + 1))
     src, dst, n = smoke.bench_port.load_rmat(scale, CACHE)
     sg = smoke.semiring_graph((src, dst), n, dev)
@@ -116,14 +124,32 @@ def graph_rows(smoke, root, scale, dev):
     from falkordb_tpu_torch.sparse import ops as sops
     from falkordb_tpu_torch.sparse import semiring
 
-    pt = semiring.PLUS_TIMES_F32
+    pt, mp = semiring.PLUS_TIMES_F32, semiring.MIN_PLUS_F32
     form = sops._ell_form(sg.Aw, True)
+    fs = sops._ell_form(sg.Aw, False)
     keys = torch.from_numpy(np.random.default_rng(smoke.SEED).integers(
         0, 50, smoke.SF1_PERSONS).astype(np.float64)).to(dev)
     valid = sg.Aw.valid_mask()
+    x, xi = sg.x, sg.xi
+    nnz = int(sg.Aw.nnz)
+    lib_csr = torch.sparse_csr_tensor(sg.Aw.indptr, sg.Aw.cols[:nnz],
+                                      sg.Aw.vals[:nnz], size=(n, n))
+    lib_csr_t = lib_csr.to_sparse_coo().t().coalesce().to_sparse_csr()
     for what, fn in (
             ("topk k=10", lambda: topk_smallest(keys, 10)),
             ("topk k=4096", lambda: topk_smallest(keys, 4096)),
+            ("ell_mxv any_pair_bool", lambda: sops.ell_mxv(
+                semiring.ANY_PAIR_BOOL, fs, xi, n, n)),
+            ("ell_mxv plus_times_f32", lambda: sops.ell_mxv(
+                pt, form, x, n, n)),
+            ("ell_mxv min_plus_f32", lambda: sops.ell_mxv(
+                mp, form, x, n, n)),
+            ("vxm plus_times_f32", lambda: sops.segment_cols(pt, x, sg.Aw)),
+            ("vxm min_plus_f32", lambda: sops.segment_cols(mp, x, sg.Aw)),
+            ("vxm plus_times_f32, edge_mask = valid",
+             lambda: sops.segment_cols(pt, x, sg.Aw, valid)),
+            ("library: csr @ x (K19's)", lambda: lib_csr @ x),
+            ("library: csr.T @ x (vxm's)", lambda: lib_csr_t @ x),
             ("mxv, edge mask", lambda: sops.segment_rows(pt, sg.Aw, sg.x,
                                                           valid)),
             ("spmm k=8, edge mask", lambda: sops.segment_rows(
@@ -134,6 +160,8 @@ def graph_rows(smoke, root, scale, dev):
                 pt, form, B, n, n)) for k, B in sg.Bs.items()),
             *k18.calls()):
         device_line(smoke, root, what, fn)
+    buckets(smoke, root, "ell_mxv plus_times_f32", form, n,
+            lambda part: sops.ell_mxv(pt, [part], x, n, n))
     for k, B in sg.Bs.items():
         buckets(smoke, root, f"ell_spmm k={k}", form, n,
                 lambda part, B=B: sops.ell_spmm(pt, [part], B, n, n))
@@ -155,6 +183,38 @@ def buckets(smoke, root, call, parts, n, fn):
             "entries": int((mat != n).sum()), "span_ms": trace.span_ms,
             "problem": trace.problem, "by_kernel": trace.by_kernel}),
             flush=True)
+
+
+def ptxas(smoke, root, sources):
+    """One `ptxas` line per kernel function of the named csrc sources: the
+    registers, shared memory (bytes) and spills of its sm_90a code."""
+    section = None
+    fn = None
+    for line in smoke.cuda.build_log.splitlines():
+        if line.startswith("== "):
+            section = line[3:].strip()
+            continue
+        if section not in sources:
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            print("ptxas " + json.dumps({
+                "root": root, "source": section, "function": fn,
+                "registers": int(m.group(1)),
+                "smem_bytes": int(smem.group(1)) if smem else 0,
+                "line": line.strip()}), flush=True)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and fn:
+            print("ptxas " + json.dumps({
+                "root": root, "source": section, "function": fn,
+                "spill_stores": int(m.group(1)),
+                "spill_loads": int(m.group(2))}), flush=True)
 
 
 class VectorBench:
@@ -256,35 +316,7 @@ class VectorBench:
                     lambda: vi.kmeans_assign(Xd, C))
 
     def ptxas(self):
-        """One `ptxas` line per kernel function of the two sources: the
-        registers, shared memory (bytes) and spills of its sm_90a code."""
-        section = None
-        fn = None
-        for line in self.smoke.cuda.build_log.splitlines():
-            if line.startswith("== "):
-                section = line[3:].strip()
-                continue
-            if section not in self.SOURCES:
-                continue
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                fn = m.group(1)
-                continue
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                smem = re.search(r"(\d+) bytes smem", line)
-                print("ptxas " + json.dumps({
-                    "root": self.root, "source": section, "function": fn,
-                    "registers": int(m.group(1)),
-                    "smem_bytes": int(smem.group(1)) if smem else 0,
-                    "line": line.strip()}), flush=True)
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m and fn:
-                print("ptxas " + json.dumps({
-                    "root": self.root, "source": section, "function": fn,
-                    "spill_stores": int(m.group(1)),
-                    "spill_loads": int(m.group(2))}), flush=True)
+        ptxas(self.smoke, self.root, self.SOURCES)
 
 
 class K18Bench:

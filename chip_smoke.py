@@ -30,7 +30,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    RMAT edges (CSR.from_coo_numpy, dedup; uniform(0.5, 2) float32 values):
    ELL mxv (K19: any_pair, plus_times, min_plus), ELL spmm (K20: k = 8,
    64), the segment forms (K21: edge-masked mxv and spmm k = 8, vxm
-   plus_times and min_plus, reduce_rows, reduce_scalar) and
+   plus_times and min_plus over the column view, the edge-masked vxm,
+   reduce_rows, reduce_scalar) and
    ewise_mult_mask against every other edge (K22), each also against a
    host oracle (float64 scipy sums; min-plus, any-pair and np.isin exactly).
    The mesh kernels: K23 over one shard of the SF1-class graph's edge table
@@ -730,15 +731,17 @@ TOLERANCE = {  # what each kernel is held to against its plain version
                     "a second call",
     "ell_mxv": "any_pair and min_plus exact; plus_times rtol 1e-4 atol 1e-6 "
                "(float32 sums in other orders), the same against float64 "
-               "scipy",
+               "scipy; the same bits on a second call and through the "
+               "dynamic spec",
     "ell_spmm": "rtol 1e-4 atol 1e-6 (float32 sums in other orders), the "
                 "same against float64 scipy on the 32 widest and 8,192 "
                 "random rows; the same bits on a second call and through "
                 "the dynamic spec",
-    "semiring_segment": "min (atomics on the order-preserving image) exact; "
-                        "sums rtol 1e-4 atol 1e-6 (other orders; vxm's "
-                        "atomics in any order), the same against float64 "
-                        "scipy; the sorted and scalar forms the same bits "
+    "semiring_segment": "min (the edge-masked vxm's atomics on the "
+                        "order-preserving image) exact; sums rtol 1e-4 atol "
+                        "1e-6 (other orders; the edge-masked vxm's atomics "
+                        "in any order), the same against float64 scipy; the "
+                        "sorted, column-view and scalar forms the same bits "
                         "on a second call",
     "ewise_mask": "exact, and equal to np.isin of the int64 keys",
     "shard_expand": "exact (every frame field, the counts)",
@@ -1763,7 +1766,23 @@ def check_semiring(sg: SemiringGraph, dev):
         row("ell_mxv", f"mxv {what}",
             lambda: sops.ell_mxv(sr, form, v, n, n),
             lambda: sops.ell_reduce_plain(sr, form, v, n, n), lib,
-            4 * ids_n + 4 * nv * nnz + 8 * n, exact, oracle, run)
+            4 * ids_n + 4 * nv * nnz + 8 * n, exact, oracle, run, twice=True)
+    # K19 through the dynamic spec: the compile-time spec's bits
+    sops._FIXED_SPECS = False
+    try:
+        dyn = sops.ell_mxv(S_.PLUS_TIMES_F32, fv, x, n, n)
+        torch.cuda.synchronize()
+        assert torch.equal(dyn.view(torch.int32),
+                           outs["mxv_plus_times"].view(torch.int32)), \
+            "K19: the dynamic spec's bits"
+        row("ell_mxv", "mxv plus_times_f32, dynamic spec",
+            lambda: sops.ell_mxv(S_.PLUS_TIMES_F32, fv, x, n, n),
+            lambda: sops.ell_reduce_plain(S_.PLUS_TIMES_F32, fv, x, n, n),
+            lambda: lib_csr @ x, 4 * ids_n + 8 * nnz + 8 * n, False,
+            S @ x64, twice=True)
+        del dyn
+    finally:
+        sops._FIXED_SPECS = True
     # K20, through the compile-time spec and (k = 8) the dynamic one
     for k, B in Bs.items():
         want = S_sample @ B.cpu().numpy().astype(np.float64)
@@ -1797,15 +1816,24 @@ def check_semiring(sg: SemiringGraph, dev):
         lambda: lib_csr @ x, csr_bytes + nnz + 8 * n, False, S @ x64,
         "mxv_plus_times_masked", twice=True)
     ST = S.T.tocsr()
-    row("semiring_segment", "vxm plus_times_f32 (atomics)",
+    t0 = time.perf_counter()
+    view_s = sops.column_view(Aw).build_s
+    row("semiring_segment", "vxm plus_times_f32 (column view)",
         lambda: sops.segment_cols(PT, x, Aw),
         lambda: sops.segment_cols_plain(PT, x, Aw),
-        lambda: lib_csr_t @ x, 12 * nnz + 8 * n, False, ST @ x64,
-        "vxm_plus_times")
-    row("semiring_segment", "vxm min_plus_f32 (atomics on the image)",
+        lambda: lib_csr_t @ x, 4 * (n + 1) + 8 * nnz + 8 * n, False,
+        ST @ x64, "vxm_plus_times", twice=True)
+    row("semiring_segment", "vxm min_plus_f32 (column view)",
         lambda: sops.segment_cols(MP, x, Aw),
-        lambda: sops.segment_cols_plain(MP, x, Aw), None, 12 * nnz + 8 * n,
-        True, _min_plus_oracle(ST, xs))
+        lambda: sops.segment_cols_plain(MP, x, Aw), None,
+        4 * (n + 1) + 8 * nnz + 8 * n, True, _min_plus_oracle(ST, xs),
+        twice=True)
+    row("semiring_segment", "vxm plus_times_f32, edge_mask = valid "
+        "(atomics)", lambda: sops.segment_cols(PT, x, Aw, valid),
+        lambda: sops.segment_cols_plain(PT, x, Aw, valid),
+        lambda: lib_csr_t @ x, 13 * nnz + 8 * n, False, ST @ x64)
+    print(f"semiring column view: build_s={view_s:.2f} (with the vxm rows "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
     del ST
     B8 = Bs[8]
     row("semiring_segment", "spmm plus_times_f32 k=8, edge_mask = valid",
@@ -1872,8 +1900,8 @@ SEMIRING_KERNELS = ("ell_mxv", "ell_spmm", "semiring_segment", "ewise_mask")
 def semiring_path(sg: SemiringGraph, outs):
     """bench_port_kernels.py's runs once each through the public API
     (falkordb_tpu_torch.sparse) at RMAT-22: each output equal to the
-    kernel's output of phase 3 (bit for bit; vxm's atomic float sums within
-    SUM_RTOL), host ms of the call with its synchronize."""
+    kernel's output of phase 3 bit for bit, host ms of the call with its
+    synchronize."""
     stats = {}
     for name, nbytes, fn in bench_port_kernels.runs(sg.A, sg.Aw, sg.Ah, sg.x,
                                                     sg.xi, sg.Bs):
@@ -1882,7 +1910,7 @@ def semiring_path(sg: SemiringGraph, outs):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         ref = outs[name]
-        _hold(y, ref, name != "vxm_plus_times", f"semiring path {name}")
+        _hold(y, ref, True, f"semiring path {name}")
         stats[name] = {"host_ms": ms, "model_bytes": nbytes,
                        "shape": list(y.shape), "dtype": str(y.dtype)}
     print(f"semiring rmat{sg.n.bit_length() - 1}: {json.dumps(stats)}",

@@ -5,8 +5,10 @@
 // Replaces falkordb_tpu/sparse/semiring.py:Semiring.segment_reduce (with
 // `_seg_sum`, `_seg_min`, `_seg_max`) and the edge-centric branches of
 // sparse/ops.py that feed it: `mxv`, `spmm`, `masked_mxv` and `reduce_rows`
-// (segments sorted by row), `vxm` and `masked_vxm` (unsorted, by column),
-// `reduce_scalar` (one segment), and `_neutralize`.
+// (segments sorted by row), `vxm` and `masked_vxm` (by column: the sorted
+// form over the matrix's column view, sparse/ops.py `column_view`, or the
+// unsorted form where an edge mask is given), `reduce_scalar` (one
+// segment), and `_neutralize`.
 //
 // Bound on this card: memory traffic, each entry's index, value and mask
 // read once, x (B) gathered once a distinct index at the least, the output
@@ -34,11 +36,16 @@
 //   hi) of at most `seg` entries, a block a task in a fixed shared-memory
 //   tree, and a last kernel combines each long row's task partials in
 //   order.  Deterministic: a float sum has the same bits every run.
-// - cols (unsorted): a thread an entry, combined into the output with
-//   atomics: integer add / min / max; float add by atomicAdd (float sums then
-//   come in any order); float min / max through the order-preserving image
-//   of semiring.cuh, decoded by a last pass that also applies the output
-//   mask.  Segment ids outside [0, n_out) are dropped, as XLA's are.
+//   vxm runs this form over the column view (the entries stably sorted by
+//   column once a snapshot): the view's indptr, its row ids as the gather
+//   index, its values.
+// - cols (unsorted; Semiring.segment_reduce over arbitrary ids, and the
+//   edge-masked vxm, whose mask the view could only read at random): a
+//   thread an entry, combined into the output with atomics: integer add /
+//   min / max; float add by atomicAdd (float sums then come in any order);
+//   float min / max through the order-preserving image of semiring.cuh,
+//   decoded by a last pass that also applies the output mask.  Segment ids
+//   outside [0, n_out) are dropped, as XLA's are.
 // - scalar: every entry to one value over a fixed grid, four accumulators a
 //   thread (with float32 values, 16-byte loads of four values and a 4-byte
 //   load of their edge mask, two such loads in flight), a block reduce in a

@@ -169,7 +169,9 @@ _SIGNATURES = {
                                _P],
     "fk_semiring_fill": [_P, _I64, _I64, _P],
     "fk_semiring_ell": [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _P, _P, _I64,
-                        _I64, _I64, _I64, _I64, _I64, _P, _I64, _P],
+                        _I64, _I64, _I64, _P, _I64, _P],
+    "fk_semiring_ell_mxv": [_P, _I64, _I64, _I64, _P, _P, _P, _I64, _P, _P,
+                            _P],
     "fk_semiring_rows": [_P, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
                          _P, _I64, _I64, _P, _I64, _P, _I64, _P, _P],
     "fk_semiring_cols": [_I64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64,

@@ -23,6 +23,8 @@ represent structural sparsity as the semiring's additive identity.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Optional
 
 import numpy as np
@@ -87,18 +89,19 @@ _ELL_WIDTHS = (4, 6, 8, 10, 12, 16, 20, 26, 32, 42, 54, 70, 90, 128,
 _ELL_TEMP_BYTES = 192 << 20  # per-bucket gather temp cap of the plain path
 
 # Kernel shapes (csrc/semiring_ell.cu and semiring_segment.cu hold no
-# thresholds of their own): mxv's ELL rows up to _NARROW wide a thread, up
-# to _WARP a warp, wider in segments of _ELL_SEG columns, a block each;
-# spmm's ELL rows a group of lanes each (`_ell_spmm_plan`), rows wider than
-# 4 k columns, clamped to [_ELL_SEG_K_MIN, _ELL_SEG_K], in segments of that
-# many (a lane walks a segment's columns in order: with few bytes of B an
-# entry its latency, not the bytes, bounds a segment).  CSR rows longer than
-# _LONG_ROW are cut into tasks of _LONG_SEG (mxv) or _LONG_SEG_K entries;
-# shorter ones go in tiles of whole rows (`_row_plan`, mxv) or take a warp
-# each (spmm).
-_NARROW = 32
-_WARP = 2048
-_ELL_SEG = 4096
+# thresholds of their own): mxv's ELL rows take a group of lanes each
+# (`ell_mxv_plan`), rows wider than _MXV_SEG in segments of that many
+# columns, every bucket in one launch of at most _MXV_BUCKETS buckets (the
+# kernel's kMxvBuckets); spmm's ELL rows a group of lanes each
+# (`_ell_spmm_plan`), rows wider than 4 k columns, clamped to
+# [_ELL_SEG_K_MIN, _ELL_SEG_K], in segments of that many (a lane walks a
+# segment's columns in order: with few bytes of B an entry its latency,
+# not the bytes, bounds a segment).  CSR rows longer than _LONG_ROW are cut
+# into tasks of _LONG_SEG (mxv) or _LONG_SEG_K entries; shorter ones go in
+# tiles of whole rows (`_row_plan`, mxv) or take a warp each (spmm).
+_MXV_SEG = 2048
+_MXV_BATCH = 8  # csrc/semiring_ell.cu kMxvBatch: columns a lane loads at once
+_MXV_BUCKETS = 40
 _ELL_SEG_K = 256
 _ELL_SEG_K_MIN = 64
 _LONG_ROW = 2048
@@ -113,13 +116,28 @@ _FIXED_SPECS = True
 _DYNAMIC_SPEC = 1 << 37
 
 
+class EllForm(tuple):
+    """A tuple of ELL buckets (ids, cols, vals, w), all on one device, that
+    caches what K19's launches need of it (`_mxv_binding`)."""
+
+
+def _form_tensors(form) -> tuple:
+    """The form's tensors that decide a wrapper's route: an EllForm's first
+    bucket's ids stand for all of its tensors (one device by construction),
+    so a call walks no buckets; another sequence of buckets gives every
+    tensor."""
+    if isinstance(form, EllForm):
+        return form[0][:1] if form else ()
+    return tuple(t for b in form for t in b[:3])
+
+
 def _ell_form(A: CSR, need_vals: bool):
-    """The ELL form of A on A's device, cached on the snapshot: a tuple of
-    buckets (ids (rows,) int32 row ids, cols (rows, w) int32 padded with
-    the sentinel n_cols, vals (rows, w) float32 or None, w).  The valued
-    form shares the structural form's ids and cols (only the vals matrices
-    are extra), so structural and valued semirings on one CSR do not hold
-    the padded cols twice."""
+    """The ELL form of A on A's device, cached on the snapshot: an EllForm
+    of buckets (ids (rows,) int32 row ids, cols (rows, w) int32 padded with
+    the sentinel n_cols after each row's columns, vals (rows, w) float32 or
+    None, w).  The valued form shares the structural form's ids and cols
+    (only the vals matrices are extra), so structural and valued semirings
+    on one CSR do not hold the padded cols twice."""
     key = "_ell_form_v" if need_vals else "_ell_form"
     cached = A.__dict__.get(key)
     if cached is not None:
@@ -144,11 +162,12 @@ def _ell_form(A: CSR, need_vals: bool):
             vm = host_tensor(vmat, dev)
         buckets.append((host_tensor(sel.astype(np.int32), dev),
                         host_tensor(mat, dev), vm, w))
-    form = tuple(buckets)
+    form = EllForm(buckets)
     A.__dict__[key] = form
     if need_vals:
         # share ids/cols with the structural form for later callers
-        A.__dict__["_ell_form"] = tuple((i, m, None, w) for i, m, _, w in form)
+        A.__dict__["_ell_form"] = EllForm((i, m, None, w)
+                                          for i, m, _, w in form)
     return form
 
 
@@ -186,7 +205,7 @@ def _attach_vals(A: CSR, bbuckets):
         vmat[rep_rows, within] = (vals[src_pos] if vals is not None
                                   else 1.0)
         out.append((ids, mat, host_tensor(vmat, A.device), w))
-    return tuple(out)
+    return EllForm(out)
 
 
 def _need_vals(sr: Semiring) -> bool:
@@ -244,14 +263,10 @@ def ell_reduce_plain(sr: Semiring, form, X, n_rows: int, n_cols: int,
 
 
 def _ell_segments(w: int, k: int) -> tuple[int, int]:
-    """(segment length, segments) of an ELL row of width w, as
-    csrc/semiring_ell.cu cuts it for these thresholds."""
-    if k > 1:
-        seg = min(max(4 * k, _ELL_SEG_K_MIN), _ELL_SEG_K)
-        return (max(w, 1), 1) if w <= seg else (seg, -(-w // seg))
-    if w <= _WARP:  # a thread (up to _NARROW) or a warp a row
-        return max(w, 1), 1
-    return _ELL_SEG, -(-w // _ELL_SEG)
+    """(segment length, segments) of an ELL row of width w under K20 (k >
+    1), as csrc/semiring_ell.cu cuts it for these thresholds."""
+    seg = min(max(4 * k, _ELL_SEG_K_MIN), _ELL_SEG_K)
+    return (max(w, 1), 1) if w <= seg else (seg, -(-w // seg))
 
 
 def _ell_spmm_plan(k: int, vec: bool) -> tuple[int, int]:
@@ -268,37 +283,171 @@ def _ell_spmm_plan(k: int, vec: bool) -> tuple[int, int]:
     return glog, v
 
 
-def _ell_launch(kernel: str, sr: Semiring, form, X, n_rows: int, n_cols: int,
-                mask=None, complement=False):
-    """K19 / K20 on the card: one identity fill, then one call a bucket."""
-    X, mask = _dense(X), _dense(mask)
-    k = X.shape[1] if X.dim() > 1 else 1
-    if X.shape[0] != n_cols:
-        raise ValueError(f"{kernel}: x must be a ({n_cols}, ...) tensor, got "
-                         f"{tuple(X.shape)}")
-    _check_vec(kernel, "the mask", mask, n_rows)
+@dataclasses.dataclass(frozen=True)
+class MxvPlan:
+    """K19's cut of a form's buckets, one launch: `order`, the buckets in
+    launch order (indices into the shapes), `fields` (nb, 9) int64 [rows,
+    w, glog, vlog, seg, nseg, item0, part0, cnt0] a bucket, `items` the
+    launch's warps, `partials` 8-byte slots and `counters` int32 words of
+    scratch for the rows of several segments."""
+    order: tuple
+    fields: np.ndarray
+    items: int
+    partials: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=64)
+def ell_mxv_plan(shapes: tuple) -> MxvPlan:
+    """The plan of K19's kernel for buckets of (rows, w) `shapes`, made from
+    the shapes alone (w = 0: rows of degree 0, which take the identity, a
+    lane a row).  A bucket of width w > 0 reads V = 2**vlog columns a load
+    (4 where w % 4 == 0, 2 where w is even, else 1); a row takes a group
+    of G = 2**glog lanes, the least power of two that covers its w / V
+    chunks in one batch of _MXV_BATCH columns a lane, at most 32, so a
+    warp takes a tile of 32 / G rows.  Rows wider than _MXV_SEG go in nseg
+    segments of seg = _MXV_SEG columns (G = 32); a warp takes one (tile,
+    segment), item item0 + tile * nseg + segment, its lane rl * G + g row
+    rl of the tile and chunks g, g + G, ... of the segment.  Buckets go widest first (the hubs' many warps start first),
+    at most _MXV_BUCKETS.  Rows of several segments leave a partial a
+    (row, segment) at part0 + row * nseg + segment and count their
+    finished segments at cnt0 + row."""
+    order = tuple(sorted((b for b, (r, _) in enumerate(shapes) if r > 0),
+                         key=lambda b: -shapes[b][1]))
+    if len(order) > _MXV_BUCKETS:
+        raise ValueError(f"K19: {len(order)} buckets, the kernel takes "
+                         f"{_MXV_BUCKETS} a launch")
+    fields = np.zeros((len(order), 9), dtype=np.int64)
+    item0 = part0 = cnt0 = 0
+    for f, b in zip(fields, order):
+        rows, w = shapes[b]
+        if w == 0:
+            f[:] = (rows, 0, 0, 0, 0, 1, item0, 0, 0)
+            item0 += -(-rows // 32)
+            continue
+        vlog = 2 if w % 4 == 0 else 1 if w % 2 == 0 else 0
+        per_lane = -(-(w >> vlog) // (_MXV_BATCH >> vlog))  # lanes to fill
+        glog = min((per_lane - 1).bit_length(), 5)
+        seg = _MXV_SEG if w > _MXV_SEG else w
+        nseg = -(-w // seg)
+        tiles = -(-rows // (32 >> glog))
+        f[:] = (rows, w, glog, vlog, seg, nseg, item0, part0, cnt0)
+        item0 += tiles * nseg
+        if nseg > 1:
+            part0 += rows * nseg
+            cnt0 += rows
+    return MxvPlan(order, fields, item0, part0, cnt0)
+
+
+def _check_form(kernel: str, form) -> None:
+    """Raise unless every bucket holds contiguous int32 ids (rows,) and
+    cols (rows, w), and float32 vals of cols' shape in every bucket or in
+    none: all the kernels take."""
+    valued = form[0][2] is not None if form else False
     for ids, mat, vm, w in form:
         _cuda.check_input(kernel, "ids", ids, torch.int32)
         if mat.dtype != torch.int32 or mat.shape != (ids.numel(), w) or \
                 not mat.is_contiguous():
             raise ValueError(f"{kernel}: bucket cols must be a contiguous "
                              f"({ids.numel()}, {w}) int32 tensor")
-        if vm is not None and (vm.dtype != torch.float32 or
-                               vm.shape != mat.shape):
-            raise ValueError(f"{kernel}: bucket vals must be float32 "
-                             f"{tuple(mat.shape)}")
+        if (vm is not None) != valued or vm is not None and (
+                vm.dtype != torch.float32 or vm.shape != mat.shape or
+                not vm.is_contiguous()):
+            raise ValueError(f"{kernel}: bucket vals must be contiguous "
+                             f"float32 {tuple(mat.shape)} in every bucket "
+                             f"or in none")
+
+
+@dataclasses.dataclass(frozen=True)
+class _MxvBinding:
+    """A plan bound to one form's tensors: `table` the kernel's (nb, 12)
+    int64 rows [ids, cols, vals pointers, *plan fields], the device scratch
+    (partial slots, counters the kernel leaves at zero) and the ids of the
+    rows no bucket covers, held while the table points at them."""
+    plan: MxvPlan
+    table: np.ndarray
+    partial: torch.Tensor
+    counters: torch.Tensor
+    empty: torch.Tensor
+
+
+def _mxv_binding(kernel: str, form, n_rows: int, n_cols: int, dev):
+    """K19's plan for `form` with its table and scratch on `dev`, checked
+    and made once an EllForm (cached on it; another sequence of buckets is
+    bound anew each call).  The scratch is the form's own: calls that
+    share a form run on one stream."""
+    cache = form.__dict__ if isinstance(form, EllForm) else {}
+    hit = cache.get(("mxv", n_rows, n_cols, dev))
+    if hit is not None:
+        return hit
+    _check_form(kernel, form)
+    covered = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    for ids, *_ in form:
+        covered[ids.to(torch.int64)] = True
+    empty = torch.nonzero(~covered).flatten().to(torch.int32)
+    parts = list(form) + [(empty, None, None, 0)]
+    plan = ell_mxv_plan(tuple((int(ids.numel()), w)
+                              for ids, _, _, w in parts))
+    table = np.zeros((len(plan.order), 12), dtype=np.int64)
+    for row, b, f in zip(table, plan.order, plan.fields):
+        ids, mat, vm, _ = parts[b]
+        row[:3] = (ids.data_ptr(), 0 if mat is None else mat.data_ptr(),
+                   0 if vm is None else vm.data_ptr())
+        row[3:] = f
+    hit = _MxvBinding(
+        plan, table,
+        torch.empty(max(plan.partials, 1), dtype=torch.int64, device=dev),
+        torch.zeros(max(plan.counters, 1), dtype=torch.int32, device=dev),
+        empty)
+    cache[("mxv", n_rows, n_cols, dev)] = hit
+    return hit
+
+
+def _mxv_launch(kernel: str, sr: Semiring, form, x, n_rows: int,
+                n_cols: int, mask=None, complement=False):
+    """K19 on the card: every bucket and the rows no bucket covers in one
+    launch (`ell_mxv_plan`); y (n_rows,)."""
+    x, mask = _dense(x), _dense(mask)
+    _check_vec(kernel, "x", x, n_cols)
+    _check_vec(kernel, "the mask", mask, n_rows)
+    bound = _mxv_binding(kernel, form, n_rows, n_cols, x.device)
     vals0 = form[0][2] if form else None
     out_dtype = _ell_out_dtype(sr, form)
     code = _sem_code(kernel, sr, sr.mul, vals0,
                      torch.int32 if vals0 is None else torch.float32,
-                     X.dtype, out_dtype, mask=mask, complement=complement)
+                     x.dtype, out_dtype, mask=mask, complement=complement)
     if not _FIXED_SPECS:
         code |= _DYNAMIC_SPEC
-    glog, v = (_ell_spmm_plan(k, k % 4 == 0 and X.element_size() == 4 and
-                              X.data_ptr() % 16 == 0) if k > 1 else (0, 1))
+    y = torch.empty(n_rows, dtype=out_dtype, device=x.device)
+    p = _cuda.ptr
+    _cuda.check(_cuda.lib().fk_semiring_ell_mxv(
+        bound.table.ctypes.data, bound.table.shape[0], bound.plan.items,
+        n_cols, p(x), p(y), p(mask), code, p(bound.partial),
+        p(bound.counters), _cuda.stream_ptr(x)), kernel)
+    _cuda.count_launch(kernel)
+    return y
+
+
+def _ell_launch(kernel: str, sr: Semiring, form, X, n_rows: int, n_cols: int):
+    """K20 on the card (X (n_cols, k), k > 1): one identity fill, then one
+    call a bucket."""
+    X = _dense(X)
+    if X.dim() != 2 or X.shape[0] != n_cols:
+        raise ValueError(f"{kernel}: B must be a ({n_cols}, k) tensor, got "
+                         f"{tuple(X.shape)}")
+    k = X.shape[1]
+    _check_form(kernel, form)
+    vals0 = form[0][2] if form else None
+    out_dtype = _ell_out_dtype(sr, form)
+    code = _sem_code(kernel, sr, sr.mul, vals0,
+                     torch.int32 if vals0 is None else torch.float32,
+                     X.dtype, out_dtype)
+    if not _FIXED_SPECS:
+        code |= _DYNAMIC_SPEC
+    glog, v = _ell_spmm_plan(k, k % 4 == 0 and X.element_size() == 4 and
+                             X.data_ptr() % 16 == 0)
     dev = X.device
-    y = torch.empty((n_rows, k) if X.dim() > 1 else (n_rows,),
-                    dtype=out_dtype, device=dev)
+    y = torch.empty((n_rows, k), dtype=out_dtype, device=dev)
     lib, p, s = _cuda.lib(), _cuda.ptr, _cuda.stream_ptr(X)
     _cuda.check(lib.fk_semiring_fill(p(y), y.numel(), code, s), kernel)
     for ids, mat, vm, w in form:
@@ -307,8 +456,8 @@ def _ell_launch(kernel: str, sr: Semiring, form, X, n_rows: int, n_cols: int,
         partial = (torch.empty(rows * nseg * k, dtype=out_dtype, device=dev)
                    if nseg > 1 else None)
         _cuda.check(lib.fk_semiring_ell(
-            p(ids), p(mat), p(vm), rows, w, n_cols, p(X), k, p(y), p(mask),
-            code, _NARROW, _WARP, seg, glog, v == 4, p(partial),
+            p(ids), p(mat), p(vm), rows, w, n_cols, p(X), k, p(y), None,
+            code, seg, glog, v == 4, p(partial),
             0 if partial is None else partial.numel(), s), kernel)
     _cuda.count_launch(kernel)
     return y
@@ -318,19 +467,23 @@ def ell_mxv(sr: Semiring, form, x, n_rows: int, n_cols: int, mask=None,
             complement=False):
     """K19: y = A ⊕.⊗ x over A's ELL form (`_ell_form`), with an optional
     output mask (masked-out rows read the identity).  CPU tensors run
-    `ell_reduce_plain`; CUDA tensors launch csrc/semiring_ell.cu."""
-    if not _cuda.on_cuda(x, mask, *(t for b in form for t in b[:3])):
+    `ell_reduce_plain`; CUDA tensors launch csrc/semiring_ell.cu once, from
+    the plan, table and scratch cached on the form (`_mxv_binding`)."""
+    if not _cuda.on_cuda(x, mask, *_form_tensors(form)):
         return ell_reduce_plain(sr, form, x, n_rows, n_cols, mask, complement)
-    return _ell_launch("ell_mxv", sr, form, x, n_rows, n_cols, mask,
+    return _mxv_launch("ell_mxv", sr, form, x, n_rows, n_cols, mask,
                        complement)
 
 
 def ell_spmm(sr: Semiring, form, B, n_rows: int, n_cols: int):
     """K20: Y = A ⊕.⊗ B for a dense B (n_cols, k) over A's ELL form.  CPU
     tensors run `ell_reduce_plain`; CUDA tensors launch
-    csrc/semiring_ell.cu."""
-    if not _cuda.on_cuda(B, *(t for b in form for t in b[:3])):
+    csrc/semiring_ell.cu (K19's kernel where k = 1)."""
+    if not _cuda.on_cuda(B, *_form_tensors(form)):
         return ell_reduce_plain(sr, form, B, n_rows, n_cols)
+    if B.dim() == 1 or B.shape[1] == 1:
+        y = _mxv_launch("ell_spmm", sr, form, B.reshape(-1), n_rows, n_cols)
+        return y if B.dim() == 1 else y.view(n_rows, 1)
     return _ell_launch("ell_spmm", sr, form, B, n_rows, n_cols)
 
 
@@ -384,6 +537,17 @@ def _sem_code(kernel: str, sr: Semiring, mul: Optional[str], vals, vdtype,
     """The 64-bit description of one semiring application that the kernels
     decode (csrc/semiring.cuh): vals None means every value is 1 (vdtype
     then names the type the promotion sees)."""
+    return _code_of(kernel, sr, mul, None if vals is None else vals.dtype,
+                    vdtype, xdtype, out_dtype,
+                    None if mask is None else mask.dtype, complement,
+                    None if emask is None else emask.dtype, sdtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _code_of(kernel: str, sr: Semiring, mul, vals_dtype, vdtype, xdtype,
+             out_dtype, mask_dtype, complement, emask_dtype, sdtype) -> int:
+    """`_sem_code` from the dtypes alone, cached: a call's host path packs
+    no fields."""
     if out_dtype not in _OUT_TYPES:
         raise TypeError(f"{kernel}: no CUDA instantiation for an output of "
                         f"{out_dtype}")
@@ -391,13 +555,14 @@ def _sem_code(kernel: str, sr: Semiring, mul: Optional[str], vals, vdtype,
         _MUL_VALUE if mul is None else _MUL_CODES[mul],
         _ADD_CODES[sr.add],
         _type_code(kernel, "the product", product_dtype(mul, vdtype, xdtype)),
-        0 if vals is None else _type_code(kernel, "values", vals.dtype),
+        0 if vals_dtype is None else _type_code(kernel, "values", vals_dtype),
         0 if xdtype is None else _type_code(kernel, "x", xdtype),
         _type_code(kernel, "the semiring", sdtype or sr.dtype),
         _type_code(kernel, "the output", out_dtype),
-        0 if mask is None else _type_code(kernel, "the mask", mask.dtype),
-        0 if emask is None else _type_code(kernel, "the edge mask",
-                                           emask.dtype),
+        0 if mask_dtype is None else _type_code(kernel, "the mask",
+                                                mask_dtype),
+        0 if emask_dtype is None else _type_code(kernel, "the edge mask",
+                                                 emask_dtype),
         1 if complement else 0,
     )
     code = 0
@@ -518,17 +683,27 @@ def segment_rows(sr: Semiring, A: CSR, X=None, edge_mask=None, mask=None,
     if not _cuda.on_cuda(A.indptr, A.cols, A.vals, A.nnz, X, edge_mask,
                          mask):
         return segment_rows_plain(sr, A, X, edge_mask, mask, complement)
-    kernel = "semiring_segment"
     X, edge_mask, mask = _dense(X), _dense(edge_mask), _dense(mask)
-    _check_csr(kernel, A)
-    _check_vec(kernel, "edge_mask", edge_mask, A.cap)
+    _check_csr("semiring_segment", A)
+    _check_vec("semiring_segment", "edge_mask", edge_mask, A.cap)
+    return _rows_launch(sr, A, None if X is None else A.cols, A.vals, X,
+                        edge_mask, mask, complement)
+
+
+def _rows_launch(sr: Semiring, A, gidx, vals, X, edge_mask, mask,
+                 complement):
+    """K21's sorted form on the card over A's indptr (a CSR, or a
+    ColumnView: the rows are then A's columns), entry e's x at gidx[e]
+    (gidx None: the value alone), its value vals[e] and edge mask
+    edge_mask[e]."""
+    kernel = "semiring_segment"
     _check_vec(kernel, "mask", mask, A.n_rows)
     k = 1 if X is None or X.dim() == 1 else X.shape[1]
     if X is not None and X.shape[0] != A.n_cols:
         raise ValueError(f"{kernel}: x must be a ({A.n_cols}, ...) tensor, got "
                          f"{tuple(X.shape)}")
-    vdtype = torch.int32 if A.vals is None else A.vals.dtype
-    code = _sem_code(kernel, sr, None if X is None else sr.mul, A.vals,
+    vdtype = torch.int32 if vals is None else vals.dtype
+    code = _sem_code(kernel, sr, None if X is None else sr.mul, vals,
                      vdtype, None if X is None else X.dtype, sr.dtype,
                      mask=mask, complement=complement, emask=edge_mask)
     if not _FIXED_SPECS:
@@ -542,13 +717,63 @@ def segment_rows(sr: Semiring, A: CSR, X=None, edge_mask=None, mask=None,
                           device=dev)
     p = _cuda.ptr
     _cuda.check(_cuda.lib().fk_semiring_rows(
-        p(A.indptr), A.n_rows, p(A.nnz), None if X is None else p(A.cols),
-        p(A.vals), p(edge_mask), p(X), k, p(y), p(mask), code, p(tiles),
+        p(A.indptr), A.n_rows, p(A.nnz), p(gidx), p(vals), p(edge_mask),
+        p(X), k, p(y), p(mask), code, p(tiles),
         0 if tiles is None else tiles.shape[0], _LONG_ROW, p(tasks),
         tasks.shape[0], p(off), n_long, p(partial), _cuda.stream_ptr(y)),
         kernel)
     _cuda.count_launch(kernel)
     return y
+
+
+@dataclasses.dataclass(eq=False)
+class ColumnView:
+    """A CSR's entries < nnz stably sorted by column: the CSR of its
+    transpose without the expanded ids, on the CSR's device.  indptr
+    (n_rows + 1,) int32 over the CSR's columns, rows (nnz,) int32 each
+    entry's row (where vxm gathers x), vals (nnz,) the CSR's values in that
+    order or None, perm (nnz,) int32 each entry's index in the CSR; n_rows
+    is the CSR's n_cols and n_cols its n_rows.  About 12 bytes an entry
+    (0.78 GB at RMAT-22's 65M entries).  `build_s`: the seconds the build
+    took."""
+    indptr: torch.Tensor
+    rows: torch.Tensor
+    vals: Optional[torch.Tensor]
+    perm: torch.Tensor
+    nnz: torch.Tensor
+    n_rows: int
+    n_cols: int
+    host_indptr: np.ndarray
+    build_s: float
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+    def host_view(self):
+        """(indptr, None, None) on the host, as the row plans read a CSR."""
+        return self.host_indptr, None, None
+
+
+def column_view(A: CSR) -> ColumnView:
+    """A's ColumnView, built once a snapshot (a stable sort of the columns
+    on A's device) and cached on it, as `_ell_form` is."""
+    hit = A.__dict__.get("_column_view")
+    if hit is not None:
+        return hit
+    t0 = time.perf_counter()
+    nnz = int(A.nnz)
+    cols = A.cols[:nnz]
+    perm = torch.sort(cols, stable=True).indices
+    indptr = torch.zeros(A.n_cols + 1, dtype=torch.int32, device=A.device)
+    indptr[1:] = torch.cumsum(torch.bincount(cols, minlength=A.n_cols), 0)
+    rows, vals = A.rows[perm], None if A.vals is None else A.vals[perm]
+    perm = perm.to(torch.int32)
+    host = indptr.cpu().numpy()  # after the sort and gathers on the stream
+    hit = ColumnView(indptr, rows, vals, perm, A.nnz, A.n_cols, A.n_rows,
+                     host, time.perf_counter() - t0)
+    A.__dict__["_column_view"] = hit
+    return hit
 
 
 def segment_cols_plain(sr: Semiring, x, A: CSR, edge_mask=None, mask=None,
@@ -566,9 +791,13 @@ def segment_cols(sr: Semiring, x, A: CSR, edge_mask=None, mask=None,
                  complement=False):
     """K21, unsorted form: y[j] = ⊕ over the valid entries (i, j) of A (and
     edge_mask) of mul(A.vals[e], x[i]); masked-out columns read the
-    identity.  CUDA float sums come in any order (atomics).  CPU tensors
-    run `segment_cols_plain`; CUDA tensors launch
-    csrc/semiring_segment.cu."""
+    identity.  CPU tensors run `segment_cols_plain`.  CUDA tensors reduce
+    A's column view (`column_view`, built once a snapshot) through the
+    sorted form's row tiles: no atomics, one order, the same bits every
+    run.  With an edge mask a thread an entry combines into y by atomics
+    (CUDA float sums then come in any order): the view would read the mask
+    at random through its permutation, 2.0 ms against 1.0 at RMAT-22
+    (PERF.md, PR 12)."""
     if not _cuda.on_cuda(A.rows, A.cols, A.vals, A.nnz, x, edge_mask, mask):
         return segment_cols_plain(sr, x, A, edge_mask, mask, complement)
     kernel = "semiring_segment"
@@ -576,6 +805,9 @@ def segment_cols(sr: Semiring, x, A: CSR, edge_mask=None, mask=None,
     _check_csr(kernel, A)
     _check_vec(kernel, "x", x, A.n_rows)
     _check_vec(kernel, "edge_mask", edge_mask, A.cap)
+    if edge_mask is None:
+        V = column_view(A)
+        return _rows_launch(sr, V, V.rows, V.vals, x, None, mask, complement)
     _check_vec(kernel, "mask", mask, A.n_cols)
     vdtype = torch.int32 if A.vals is None else A.vals.dtype
     code = _sem_code(kernel, sr, sr.mul, A.vals, vdtype, x.dtype, sr.dtype,
@@ -685,11 +917,10 @@ def mxv(sr: Semiring, A: CSR, x, edge_mask=None):
 
 
 def vxm(sr: Semiring, x, A: CSR, edge_mask=None):
-    """y = xᵀ ⊗.⊕ A — y[j] = ⊕_i mul(A[i,j], x[i]).  Unsorted segment
-    reduce (K21).
-
-    For hot paths prefer mxv over a cached transpose (the reference caches
-    `mt` the same way, tensor.rs:33-48)."""
+    """y = xᵀ ⊗.⊕ A — y[j] = ⊕_i mul(A[i,j], x[i]).  The reference's
+    unsorted segment reduce; on the card K21's sorted form over A's column
+    view, cached on the snapshot (`column_view`, ~12 bytes an entry), as
+    the reference caches the transpose `mt` (tensor.rs:33-48)."""
     return segment_cols(sr, x, A, edge_mask)
 
 

@@ -1,6 +1,7 @@
 """The host plans of K18's row sums (algos/pagerank.py `ell_rows_plan`, run
-by csrc/ell_pagerank.cu's `rows` kernel) and K20's ELL spmm at k > 1
-(sparse/ops.py `_ell_spmm_plan` and `_ell_segments`, run by
+by csrc/ell_pagerank.cu's `rows` kernel), K19's ELL mxv (sparse/ops.py
+`ell_mxv_plan`, run by csrc/semiring_ell.cu's `mxv_kernel`) and K20's ELL
+spmm at k > 1 (sparse/ops.py `_ell_spmm_plan` and `_ell_segments`, run by
 csrc/semiring_ell.cu's `spmm_kernel`), on the CPU.
 
 The kernels run only on the card; their plans are made here, from the
@@ -15,11 +16,13 @@ in column order within a lane and in segment order across segments, and
 the scratch each plan hands out is disjoint.  Then the sums in the
 kernels' order (float32, each addition rounded as `__fadd_rn` does) are
 held against the JAX package: K18's against `_step_ell_pagerank`'s row
-sums and bench_kernels.py's ell_spmv, K20's against `_spmm_ell_jit`.
-Tolerances: K18's float32 sums rtol 1e-5 against the JAX package and
-against float64 (a lane adds runs of up to 256 columns one after another,
-XLA in a tree; chip_smoke.py holds K18 to the same), K20's rtol 1e-6
-(runs of up to 64 columns at k = 8).
+sums and bench_kernels.py's ell_spmv, K19's against `_mxv_ell`, K20's
+against `_spmm_ell_jit`.  Tolerances: K18's float32 sums rtol 1e-5 against
+the JAX package and against float64 (a lane adds runs of up to 256 columns
+one after another, XLA in a tree; chip_smoke.py holds K18 to the same),
+K19's rtol 1e-5 (a lane adds up to 64 columns of a segment, then a
+shuffle tree and the segments in order), K20's rtol 1e-6 (runs of up to
+64 columns at k = 8).
 """
 
 import inspect
@@ -243,6 +246,155 @@ def test_k18_sums_in_the_kernels_order_match_jax(form):
     dang = np.float32((r * dm).sum(dtype=np.float32) / np.float32(n))
     np.testing.assert_allclose(base + d * (got + dang), step, rtol=1e-5,
                                atol=0)
+
+
+# -- K19 ---------------------------------------------------------------------
+
+
+def k19_lanes(f):
+    """Per lane of a warp of K19 bucket fields f: (rl, g), G and RL."""
+    glog = int(f[2])
+    lane = np.arange(32)
+    return lane >> glog, lane & ((1 << glog) - 1), 1 << glog, 32 >> glog
+
+
+def k19_chunks(f, g, c0, c1):
+    """Lane g's columns of a segment [c0, c1) of bucket fields f, in the
+    order csrc/semiring_ell.cu's mxv_fold reads them: batches of 8 columns,
+    chunk u of a batch at base + (u * G + g) * V, V columns each."""
+    V, G = 1 << int(f[3]), 1 << int(f[2])
+    out = []
+    for base in range(c0, c1, 8 * G):
+        for u in range(8 // V):
+            c = base + (u * G + g) * V
+            if c < c1:
+                out.extend(range(c, c + V))
+    return out
+
+
+def k19_walk(plan, shapes):
+    """Walk the plan as the mxv kernel does: counts of the reads of every
+    (row, column slot) of every bucket (rows alone for width 0), with the
+    checks on the way."""
+    counts = {b: np.zeros((r, max(w, 1)), dtype=np.int32)
+              for b, (r, w) in enumerate(shapes) if r > 0}
+    assert 0 < len(plan.order) <= tops._MXV_BUCKETS
+    assert sorted(plan.order) == sorted(counts)
+    widths = [shapes[b][1] for b in plan.order]
+    assert widths == sorted(widths, reverse=True)  # the widest first
+    item0, parts, cnts = 0, [], []
+    for b, f in zip(plan.order, plan.fields):
+        rows, w, glog, vlog, seg, nseg, f_item0, part0, cnt0 = map(int, f)
+        assert (rows, w) == shapes[b] and f_item0 == item0
+        if w == 0:  # a lane a row
+            counts[b][:, 0] += 1
+            item0 += -(-rows // 32)
+            continue
+        V = 1 << vlog
+        assert w % V == 0 and V == (4 if w % 4 == 0 else 2 if w % 2 == 0
+                                    else 1)
+        rl, g, G, RL = k19_lanes(f)
+        per_lane = -(-(w // V) // (8 // V))  # lanes a row's batch fills
+        assert (G >= per_lane or G == 32) and (G == 1 or G // 2 < per_lane)
+        assert seg * nseg >= w > seg * (nseg - 1) and seg % V == 0
+        assert nseg == 1 or (seg == tops._MXV_SEG and G == 32)
+        tiles = -(-rows // RL)
+        item0 += tiles * nseg
+        if nseg > 1:
+            parts.append((part0, part0 + rows * nseg))
+            cnts.append((cnt0, cnt0 + rows))
+        for sg in range(nseg):  # segments in order
+            c0, c1 = sg * seg, min(sg * seg + seg, w)
+            for lane_g in range(G):
+                cs = k19_chunks(f, lane_g, c0, c1)
+                assert cs == sorted(cs)
+                counts[b][:, cs] += 1  # every tile, every row of it
+    assert item0 == plan.items
+    for used, total in ((parts, plan.partials), (cnts, plan.counters)):
+        ends = sorted(used)
+        assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+        assert sum(hi - lo for lo, hi in ends) == total
+    return counts
+
+
+def test_k19_plan_reads_every_slot_once():
+    """Every (row, column slot) of every bucket of K19's width ladder
+    (_ELL_WIDTHS, the ladder of `_ell_form`), hub rows of several segments
+    and the rows of degree 0 included, is read once by one lane, in column
+    order within the lane."""
+    shapes = ladder_shapes("ell_widths") + [
+        (70, 0), (5, 2 * tops._MXV_SEG + 6), (3, 41)]
+    plan = tops.ell_mxv_plan(tuple(shapes))
+    for b, c in k19_walk(plan, shapes).items():
+        assert np.all(c == 1), f"bucket {b} {shapes[b]}"
+    assert plan.partials > 0 and plan.counters > 0
+    with pytest.raises(ValueError, match="buckets"):
+        tops.ell_mxv_plan(tuple((1, w) for w in range(1, 50)))
+
+
+def k19_sums(form, x, n_rows, n_cols):
+    """plus_times_f32 over the ELL form in K19's order, float32: per lane
+    its columns in k19_chunks' order from +0 up to the row's first
+    sentinel, the G lanes of a row in the shuffle tree, a row's segments
+    in order; +0 (the identity) where no bucket covers a row."""
+    parts = list(form)
+    plan = tops.ell_mxv_plan(tuple((ids.numel(), w) for ids, _, _, w in
+                                   parts))
+    y = np.zeros(n_rows, dtype=np.float32)
+    for b, f in zip(plan.order, plan.fields):
+        ids, mat, vm, _ = parts[b]
+        cols, vals = mat.numpy(), vm.numpy()
+        rows, w, _, _, seg, nseg = map(int, f[:6])
+        _, _, G, _ = k19_lanes(f)
+        first = np.where((cols == n_cols).any(1), (cols == n_cols).argmax(1),
+                         w)
+        prod = vals * x[np.minimum(cols, n_cols - 1)]
+        total = np.zeros(rows, dtype=np.float32)
+        for sg in range(nseg):
+            c0, c1 = sg * seg, min(sg * seg + seg, w)
+            lanes = np.zeros((G, rows), dtype=np.float32)
+            for g in range(G):
+                for c in k19_chunks(f, g, c0, c1):
+                    lanes[g] = np.where(c < first, lanes[g] + prod[:, c],
+                                        lanes[g])
+            d = G // 2
+            while d >= 1:  # __shfl_down_sync by d lanes within the group
+                lanes[:d] = lanes[:d] + lanes[d:2 * d]
+                d //= 2
+            total = lanes[0] if nseg == 1 else total + lanes[0]
+        y[ids.numpy()] = total
+    return y
+
+
+def test_k19_sums_in_the_kernels_order_match_jax():
+    """mxv plus_times_f32 over an ELL form with rows of odd, even and
+    4-multiple widths, one row cut into segments and empty rows, in K19's
+    order, against falkordb_tpu's `_mxv_ell`."""
+    rng = np.random.default_rng(17)
+    n_rows, n_cols = 700, 6000
+    deg = rng.poisson(9, n_rows)
+    deg[rng.random(n_rows) < 0.15] = 0
+    deg[[3, 8, 40]] = (2 * tops._MXV_SEG + 7, 300, 41)
+    src = np.repeat(np.arange(n_rows), deg)
+    dst = np.concatenate([rng.choice(n_cols, d, replace=False)
+                          for d in deg])
+    val = rng.uniform(0.5, 2.0, len(src)).astype(np.float32)
+    x = rng.uniform(size=n_cols).astype(np.float32)
+    A = CSR.from_coo_numpy(src, dst, val, shape=(n_rows, n_cols))
+    form = tops._ell_form(A, True)
+    assert max(w for *_, w in form) > tops._MXV_SEG
+    assert {w % 4 for *_, w in form} >= {0, 2} and any(w % 2 for *_, w in
+                                                       form)
+    got = k19_sums(form, x, n_rows, n_cols)
+    JA = JaxCSR.from_coo_numpy(src, dst, val, shape=(n_rows, n_cols))
+    want = np.asarray(jops._mxv_ell(jsr.PLUS_TIMES_F32, JA, jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    plain = tops.ell_reduce_plain(tsr.PLUS_TIMES_F32, form,
+                                  torch.from_numpy(x), n_rows, n_cols)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=0)
+    ref64 = np.zeros(n_rows)
+    np.add.at(ref64, src, val.astype(np.float64) * x[dst])
+    np.testing.assert_allclose(got, ref64, rtol=1e-5, atol=0)
 
 
 # -- K20 ---------------------------------------------------------------------

@@ -670,3 +670,87 @@ def test_row_plan_tiles_cover_each_short_row_once(mean):
     last = before[tiles[:, 1] - 1] // tops._TILE_ITEMS
     np.testing.assert_array_equal(step, last)
     assert tops._row_plan(A) is tops._row_plan(A)
+
+
+# -- vxm's column view (K21 on the card) ----------------------------------------
+
+
+def hub_columns_pair(seed=31):
+    """A JAX CSR (and its carry) with capacity past nnz and three hub
+    columns that most rows reach, the other entries at random."""
+    rng = np.random.default_rng(seed)
+    n, m = 90, 140
+    deg = rng.poisson(5, n)
+    r = np.repeat(np.arange(n), deg)
+    c = rng.integers(0, m, len(r))
+    hubs = np.nonzero(rng.random(n) < 0.8)[0]
+    r = np.concatenate([r, np.repeat(hubs, 3)])
+    c = np.concatenate([c, np.tile([7, 60, 133], len(hubs))])
+    v = rng.uniform(-2.0, 2.0, len(r)).astype(np.float32)
+    jA = J.CSR.from_coo_numpy(r, c, v, shape=(n, m), cap=len(r) + 300)
+    return jA, carry(jA)
+
+
+def view_as_csr(V):
+    """The column view as the transpose's CSR (its expanded column ids
+    made here), for the sorted form's plain version."""
+    ids = torch.repeat_interleave(torch.arange(V.n_rows, dtype=torch.int32),
+                                  torch.diff(V.indptr).to(torch.int64))
+    return T.CSR(V.indptr, ids, V.rows, V.vals, V.nnz, V.n_rows, V.n_cols)
+
+
+@pytest.mark.parametrize("name", REGISTERED)
+def test_column_view_reduces_to_jax_vxm(name):
+    """vxm and masked_vxm as the card computes them, K21's sorted form over
+    the column view (the edge mask read through its permutation), on the
+    CPU against the JAX package's vxm and masked_vxm: with an edge mask, an
+    output mask and its complement."""
+    jA, tA = hub_columns_pair()
+    assert tA.cap > int(tA.nnz)
+    rng = np.random.default_rng(32)
+    jsr, tsr = J.get_semiring(name), T.get_semiring(name)
+    V = tops.column_view(tA)
+    C = view_as_csr(V)
+    x = operand(name, rng, tA.n_rows)
+    em = rng.random(tA.cap) < 0.7
+    mask = (rng.random(tA.n_cols) < 0.5).astype(np.int32)
+    ex = exact_for(tsr)
+    assert_same(tops.segment_rows_plain(tsr, C, _t(x)),
+                J.vxm(jsr, jnp.asarray(x), jA), ex, name)
+    assert_same(tops.segment_rows_plain(tsr, C, _t(x), _t(em)[V.perm]),
+                J.vxm(jsr, jnp.asarray(x), jA, edge_mask=jnp.asarray(em)), ex,
+                name)
+    for complement in (False, True):
+        assert_same(
+            tops.segment_rows_plain(tsr, C, _t(x), _t(em)[V.perm], _t(mask),
+                                    complement),
+            J.masked_vxm(jsr, jnp.asarray(x), jA, jnp.asarray(mask),
+                         complement, edge_mask=jnp.asarray(em)), ex, name)
+        assert_same(
+            tops.segment_rows_plain(tsr, C, _t(x), None, _t(mask),
+                                    complement),
+            J.masked_vxm(jsr, jnp.asarray(x), jA, jnp.asarray(mask),
+                         complement), ex, name)
+
+
+def test_column_view_is_a_stable_sort_cached_per_snapshot():
+    """The view holds A's entries < nnz stably sorted by column (rows,
+    values and entry indices in that order, the column indptr), is built
+    once a snapshot and cached on it; another snapshot has its own."""
+    _, tA = hub_columns_pair()
+    V = tops.column_view(tA)
+    assert tops.column_view(tA) is V and V.build_s >= 0
+    nnz = int(tA.nnz)
+    cols = _np(tA.cols)[:nnz]
+    perm = np.argsort(cols, kind="stable")
+    np.testing.assert_array_equal(_np(V.perm), perm)
+    np.testing.assert_array_equal(_np(V.rows), _np(tA.rows)[perm])
+    np.testing.assert_array_equal(_np(V.vals), _np(tA.vals)[perm])
+    np.testing.assert_array_equal(
+        _np(V.indptr), np.concatenate([[0], np.cumsum(np.bincount(
+            cols, minlength=tA.n_cols))]))
+    assert V.perm.dtype == V.rows.dtype == V.indptr.dtype == torch.int32
+    assert (V.n_rows, V.n_cols) == (tA.n_cols, tA.n_rows)
+    _, tB = hub_columns_pair()
+    assert tops.column_view(tB) is not V
+    assert tops._row_plan(V) is tops._row_plan(V)

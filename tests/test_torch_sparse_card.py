@@ -5,8 +5,9 @@ enough for every split path (ELL segments, long-row tasks), k = 1, 6, 8,
 64 and 300 (and a B at an offset of 4 bytes into its buffer), output and
 edge masks, NaN, an unsorted B refused, dtypes the kernels do not
 instantiate refused, and strided operands (a transposed B, a strided x or
-mask) taken through the public API; K20 and K21's rows and scalar forms
-under their compile-time and dynamic semiring specs, bit for bit.
+mask) taken through the public API; K19, K20 and K21's rows and scalar
+forms under their compile-time and dynamic semiring specs, bit for bit;
+vxm over the cached column view with signed zeros and NaN.
 
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
@@ -17,8 +18,10 @@ and tests/conftest.py does, so run it there with the conftest off:
 
 Tolerances: ints, bools, masks and every min / max / or / any result
 exactly (each picks one input); float sums rtol=1e-4, atol=1e-4 (float32
-sums over rows of up to 30,000 entries, and vxm's atomics, in other
-orders than the plain version's).
+sums over rows of up to 30,000 entries, and the edge-masked vxm's
+atomics, in other orders than the plain version's).  K19 and vxm's
+column view sum in one order: the same bits on a second call, and K19's
+two semiring specs the same bits.
 """
 
 import numpy as np
@@ -355,3 +358,106 @@ def test_card_ell_spmm_fixed_and_dynamic(name, dev, monkeypatch):
                                            A.n_rows, A.n_cols), sr,
                 f"{name} transposed B")
     assert cuda.KERNELS["ell_spmm"].launches == 4 * len(Bs) + 1
+
+
+def bits(t):
+    """A tensor's bits, for a comparison that tells -0.0 from +0.0 and
+    equal NaNs apart from none."""
+    t = t.contiguous()
+    if t.dtype in (torch.float32, torch.int32):
+        return t.view(torch.int32)
+    if t.dtype in (torch.float64, torch.int64):
+        return t.view(torch.int64)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REGISTERED)
+def test_card_ell_mxv_fixed_and_dynamic(name, dev, monkeypatch):
+    """K19 under every registered semiring on hub_graph (hub rows of
+    several segments, rows of degree 0), without and with an output mask
+    and its complement, through the compile-time spec (where the semiring
+    has one) and the dynamic spec: each equal to the plain version, the
+    same bits on a second call, the two specs the same bits, one launch a
+    call; and through spmm with B (n, 1), counted as ell_spmm."""
+    A = hub_graph(seed=13).to(dev)
+    rng = np.random.default_rng(14)
+    sr = T.get_semiring(name)
+    form = tops._ell_form(A, tops._need_vals(sr))
+    assert max(w for *_, w in form) > 2 * tops._MXV_SEG
+    x = card_operand(name, rng, A.n_cols, dev)
+    mask = _t((rng.random(A.n_rows) < 0.5).astype(np.int32)).to(dev)
+    calls, unmasked = 0, None
+    for m, complement in ((None, False), (mask, False), (mask, True)):
+        plain = tops.ell_reduce_plain(sr, form, x, A.n_rows, A.n_cols, m,
+                                      complement)
+        runs = {}
+        for fixed in (True, False):
+            monkeypatch.setattr(tops, "_FIXED_SPECS", fixed)
+            before = cuda.KERNELS["ell_mxv"].launches
+            got = tops.ell_mxv(sr, form, x, A.n_rows, A.n_cols, m, complement)
+            assert cuda.KERNELS["ell_mxv"].launches == before + 1
+            again = tops.ell_mxv(sr, form, x, A.n_rows, A.n_cols, m,
+                                 complement)
+            torch.cuda.synchronize()
+            calls += 2
+            what = f"{name} mask={m is not None} {complement} fixed={fixed}"
+            assert_card(got, plain, sr, what)
+            assert torch.equal(bits(got), bits(again)), f"{what}: two calls"
+            runs[fixed] = got
+        assert torch.equal(bits(runs[True]), bits(runs[False])), \
+            f"{name} specs"
+        if m is None:
+            unmasked = runs[True]
+    monkeypatch.setattr(tops, "_FIXED_SPECS", True)
+    got = tops.ell_spmm(sr, form, x[:, None], A.n_rows, A.n_cols)
+    torch.cuda.synchronize()
+    assert got.shape == (A.n_rows, 1)
+    assert torch.equal(bits(got[:, 0]), bits(unmasked)), f"{name} spmm k=1"
+    assert cuda.KERNELS["ell_mxv"].launches == calls
+    assert cuda.KERNELS["ell_spmm"].launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["plus_times_f32", "min_plus_f32",
+                                  "max_times_f32"])
+def test_card_vxm_column_view(name, dev):
+    """vxm and masked_vxm on the card (K21's sorted form over the cached
+    column view) under the float32 semirings, x with signed zeros and a
+    NaN: equal to segment_cols_plain (sums rtol 1e-4, min and max exactly,
+    NaN where NaN), the same bits on a second call; edge-masked and
+    output-masked calls too."""
+    rng = np.random.default_rng(15)
+    sr = T.get_semiring(name)
+    for A in (hub_graph(seed=16).to(dev), lengths_graph(17, 14).to(dev)):
+        # the transpose's hub rows: vxm over A.T's rows through the tasks
+        x = card_operand(name, rng, A.n_rows, dev)
+        x[rng.random(A.n_rows) < 0.1] = 0.0
+        x[rng.random(A.n_rows) < 0.1] = -0.0
+        x[11] = float("nan")  # a row of 9,000 entries, or of 16
+        em = _t(rng.random(A.cap) < 0.7).to(dev)
+        mask = _t((rng.random(A.n_cols) < 0.5).astype(np.int32)).to(dev)
+        for what, args in (("vxm", (None, None, False)),
+                           ("edge mask", (em, None, False)),
+                           ("output mask", (None, mask, False)),
+                           ("complement", (None, mask, True)),
+                           ("both", (em, mask, True))):
+            got = tops.segment_cols(sr, x, A, *args)
+            again = tops.segment_cols(sr, x, A, *args)
+            plain = tops.segment_cols_plain(sr, x, A, *args)
+            torch.cuda.synchronize()
+            assert got.dtype == plain.dtype and got.shape == plain.shape
+            g, p = got.cpu(), plain.cpu()
+            assert torch.equal(g.isnan(), p.isnan()), f"{name} {what} NaN"
+            assert g.isnan().any(), f"{name} {what}: no NaN reached"
+            if sr.add == "plus":
+                torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-4,
+                                           equal_nan=True,
+                                           msg=f"{name} {what}")
+            else:
+                assert torch.equal(g.nan_to_num(), p.nan_to_num()), \
+                    f"{name} {what}"
+            if args[0] is None:  # the view's rows: one order, same bits
+                assert torch.equal(bits(got), bits(again)), \
+                    f"{name} {what}: two calls"
+    assert tops.column_view(A) is A.__dict__["_column_view"]
