@@ -1,11 +1,15 @@
-"""Time chip_smoke.py's K3, K13-K15 and K18-K21 rows from one checkout of
-the repo, so that two trees can be compared on one card in one call.
+"""Time chip_smoke.py's K3, K13-K15, K18-K21, K24, K27 and K30 rows from one
+checkout of the repo, so that two trees can be compared on one card in one
+call.
 
     python3 bench_port_compare.py                    # this checkout
     python3 bench_port_compare.py --root DIR         # another checkout
                                                      # (its own kernels)
     python3 bench_port_compare.py --rows vector      # K13-K15 alone
     python3 bench_port_compare.py --rows graph       # K3, K18-K21 alone
+    python3 bench_port_compare.py --rows mesh        # K24's four forms
+    python3 bench_port_compare.py --rows probes      # K30 reps 1, K27 double
+    python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
 (RMAT-22, K19-K22) rows of DIR/chip_smoke.py with DIR's package, each
@@ -44,6 +48,25 @@ stores them) against `torch.mm`; one `device {...}` line per K13 and K15
 call; and one `ptxas {...}` line per kernel function of
 csrc/kmeans_assign.cu and csrc/vector_scores.cu: its registers, shared
 memory and spills from the build's ptxas report.
+
+The mesh rows are DIR/chip_smoke.py's `check_shard_reduce` (K24 over shard
+0 of RMAT-22 cut into 4, the or, sum, min-plus and min forms, each against
+its plain version and one `index_add_` / `scatter_reduce_` call), then one
+`device {...}` line per form: the device ms by kernel of one K24 call and
+of its library call, and the shard's widest segment; and a `ptxas {...}`
+line per kernel function of csrc/shard_reduce.cu.
+
+The probe rows are K30's seven reps-1 forms (prof_pallas_gather2.py's
+`VAR` list) and K27's `double` (`A_sanity`), built by DIR's
+bench_port_gather.py as DIR/chip_smoke.py's `check_gather` builds them,
+each against its plain version, its numpy oracle and one `torch.gather` /
+`x * 2` call; per form a `device {...}` line for the wrapper and for the
+library call, and a `host {...}` line: the microseconds a call of each on
+the host clock over 1,000 calls with no synchronisation between them (the
+kernel launched every time; on a tree with the lean launch path also those
+of the output's allocation and of the entry point's ctypes call and
+launch alone); and a `ptxas {...}` line per kernel function of
+csrc/probe_lane_gather.cu.
 """
 
 import argparse
@@ -63,9 +86,10 @@ def main(argv=None):
     ap.add_argument("--root", default=HERE,
                     help="the checkout whose chip_smoke.py and package run")
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale")
-    ap.add_argument("--rows", default="all",
-                    choices=("all", "graph", "vector"),
-                    help="graph: K3 and K18-K21; vector: K13-K15")
+    ap.add_argument("--rows", default=["all"], nargs="+",
+                    choices=("all", "graph", "vector", "mesh", "probes"),
+                    help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
+                         "K24; probes: K30's reps-1 forms and K27's double")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -85,10 +109,14 @@ def main(argv=None):
     print(f"build: {smoke.cuda.build():.2f} s ({root})", flush=True)
     smoke.cuda.lib()
     dev = torch.device("cuda", 0)
-    if args.rows != "graph":
+    if {"all", "vector"} & set(args.rows):
         VectorBench(smoke, root, dev).run()
-    if args.rows != "vector":
+    if {"all", "graph"} & set(args.rows):
         graph_rows(smoke, root, args.scale, dev)
+    if {"all", "mesh"} & set(args.rows):
+        mesh_rows(smoke, root, args.scale, dev)
+    if {"all", "probes"} & set(args.rows):
+        probe_rows(smoke, root, dev)
     return 0
 
 
@@ -99,12 +127,134 @@ def compare_line(root, r):
         "bound_ms": r["bound_ms"]}), flush=True)
 
 
-def device_line(smoke, root, what, fn):
+def device_line(smoke, root, what, fn, **extra):
     fn()
     trace = smoke.bench_port.device_times(fn)
     print("device " + json.dumps({
         "root": root, "call": what, "span_ms": trace.span_ms,
-        "problem": trace.problem, "by_kernel": trace.by_kernel}), flush=True)
+        "problem": trace.problem, "by_kernel": trace.by_kernel, **extra}),
+        flush=True)
+
+
+def host_us(fn, calls=1000):
+    """Microseconds a call of fn() on the host clock over `calls` calls
+    with no synchronisation between them, after a warm-up call."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def mesh_rows(smoke, root, scale, dev):
+    """K24's rows from the root's chip_smoke.py, then the device ms by
+    kernel of each form's call and of its library call over the same
+    shard (the inputs made as check_shard_reduce makes them)."""
+    import numpy as np
+    import torch
+
+    ptxas(smoke, root, ("shard_reduce.cu",))
+    src, dst, n = smoke.bench_port.load_rmat(scale, CACHE)
+    for r in smoke.check_shard_reduce((src, dst), n, dev):
+        compare_line(root, r)
+    K, shards = smoke.K, smoke.MESH_SHARDS
+    torch.manual_seed(smoke.SEED + 22)
+    ps, pd, _pv, mask = smoke.pdist.shard_edges_1d(src, dst, None, shards)
+    s, d, m = (torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+               for a in (ps, pd, mask))
+    del ps, pd, mask
+    w = torch.rand(s.numel(), device=dev) * 1.5 + 0.5
+    plan = K.segment_plan(d, n)
+    widest = int((plan.offs[1:] - plan.offs[:-1]).max())
+    outdeg = torch.bincount(torch.from_numpy(src).to(dev), minlength=n)
+    xs = torch.where(outdeg > 0, 1.0 / outdeg.clamp(min=1),
+                     0.0).to(torch.float32)
+    xv = {"or": (torch.rand(n, device=dev) < 0.05).to(torch.int32),
+          "sum": torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev),
+          "minplus": torch.where(torch.rand(n, device=dev) < 0.3,
+                                 torch.rand(n, device=dev) * 10,
+                                 torch.full((n,), float("inf"),
+                                            device=dev)),
+          "min": torch.randperm(n, device=dev).to(torch.int32)}
+    idx, dl = s.to(torch.int64), d.to(torch.int64)
+    for form, x in xv.items():
+        ww = w if form in ("sum", "minplus") else None
+        sc = xs if form == "sum" else None
+        if form == "sum":
+            g = torch.where(m > 0, x[idx] * xs[idx] * w, 0.0)
+
+            def lib(g=g):
+                return torch.zeros(n, device=dev).index_add_(0, dl, g)
+        else:
+            masked = {"or": 0, "minplus": float("inf"), "min": K.BIG}[form]
+            v = x[idx] + w if form == "minplus" else x[idx]
+            g = torch.where(m > 0, v, torch.full((), masked, dtype=v.dtype,
+                                                  device=dev))
+            ident = {"or": 0, "minplus": float("inf"),
+                     "min": K.INT32_MAX}[form]
+
+            def lib(g=g, ident=ident, op=smoke.LIB_REDUCE[form]):
+                return torch.full((n,), ident, dtype=g.dtype,
+                                  device=dev).scatter_reduce_(0, dl, g, op)
+        lib()
+        lt = smoke.bench_port.device_times(lib)
+
+        def run(f=form, x=x, ww=ww, sc=sc):
+            return K.shard_reduce(f, s, d, m, x, n, w=ww, xs=sc, plan=plan)
+
+        device_line(smoke, root, f"shard_reduce {form}", run,
+                    edges=s.numel(), segments=n, widest=widest,
+                    library_span_ms=lt.span_ms, library_problem=lt.problem,
+                    library_by_kernel=lt.by_kernel)
+
+
+def probe_rows(smoke, root, dev):
+    """K30's reps-1 forms and K27's double from the root's builders: a
+    `compare` row each as check_gather makes it, the device ms by kernel
+    of the wrapper and of its library call, and the host microseconds a
+    call of each."""
+    import numpy as np
+    import torch
+
+    ptxas(smoke, root, ("probe_lane_gather.cu",))
+    bpg = smoke.bench_port_gather
+    names = {"A_sanity"} | {v[0] for v in bpg.VARIANTS
+                            if (v[4] if len(v) > 4 else 1) == 1}
+    for _, name, build in bpg.PROBES:
+        if name not in names:
+            continue
+        c = build(dev)
+        lib = smoke.probe_library(c)
+        got, ref = c.run(), c.run_plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), name
+        np.testing.assert_array_equal(got.cpu().numpy(), c.want)
+        compare_line(root, smoke._row(
+            c.kernel, f"{name} {c.shape()}", smoke.cuda_ms(c.run),
+            smoke.cuda_ms(c.run_plain), smoke.cuda_ms(lib), c.model_bytes,
+            smoke._max_err(got, ref)))
+        device_line(smoke, root, name, c.run)
+        device_line(smoke, root, f"library: {name}", lib)
+        split = {}
+        entry = getattr(smoke.PR, "_LANE_GATHER", None)
+        if c.fn is smoke.PR.take_along_or and entry is not None:
+            # the lean path's parts: the allocation, and the ctypes call
+            # with the launch into a held output
+            src, ix = c.args[0], c.args[1]
+            o = torch.empty_like(ix)
+            split = {"empty_like_us": host_us(lambda: torch.empty_like(ix)),
+                     "launch_us": host_us(lambda: entry.launch(
+                         src.get_device(), src.data_ptr(), *src.shape,
+                         ix.data_ptr(), *ix.shape, c.args[2], 1,
+                         o.data_ptr()))}
+        print("host " + json.dumps({
+            "root": root, "call": name, "wrapper_us": host_us(c.run),
+            "library_us": host_us(lib), **split}), flush=True)
 
 
 def graph_rows(smoke, root, scale, dev):

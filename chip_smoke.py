@@ -746,7 +746,7 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "ewise_mask": "exact, and equal to np.isin of the int64 keys",
     "shard_expand": "exact (every frame field, the counts)",
     "shard_reduce": "or, minplus, min exact; sum rtol 1e-4 atol 1e-12 "
-                    "(float32 sums of up to ~160,000 terms in other orders "
+                    "(float32 sums of up to ~50,000 terms in other orders "
                     "than index_add_'s atomics), two runs bit-identical",
     "mesh_bits": "exact",
     "mesh_update": "exact; the PageRank update rtol 1e-4 atol 1e-12 and its "
@@ -2599,8 +2599,8 @@ def check_shard_reduce(edges, n, dev):
           "min": torch.randperm(n, device=dev).to(torch.int32)}
     rows = []
     shape = (f"RMAT-22 shard 0 of {MESH_SHARDS} per={per} segments={n} "
-             f"warp={plan.mid.numel()} block={plan.long.numel()} "
-             f"widest={int((plan.offs[1:] - plan.offs[:-1]).max())}")
+             f"widest={int((plan.offs[1:] - plan.offs[:-1]).max())} "
+             f"tiles={plan.tiles.shape[0]} tasks={plan.tasks.shape[0]}")
     dl = d.to(torch.int64)
     for form in ("or", "sum", "minplus", "min"):
         x = xv[form]

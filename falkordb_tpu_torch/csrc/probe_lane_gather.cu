@@ -25,6 +25,12 @@
 // read they sit in the 50 MB L2, read through the read-only path.  Staging
 // the two tables that fit a block's shared memory (8 x 128, 8 x 2048) is
 // not done: their launches are too small to measure it.  Offsets are int64.
+// reps 1 (gather2's seven forms, a few microseconds of device time: the
+// wrapper's host path decides them, probes.py) takes its own body: a 2-D
+// grid, a block row per row i of idx and threads over its columns j, so no
+// element pays the division e / J, a clamp or a loop; four columns a thread
+// in one 16-byte load of idx and one store of o where J % 4 == 0 and both
+// are 16-byte aligned.
 #include "common.cuh"
 
 namespace {
@@ -54,6 +60,57 @@ __global__ void __launch_bounds__(kThreads) lane_gather_kernel(
   }
 }
 
+// reps 1: o[i, j] = src[f_0(idx[i, j]), j % C] (axis 0) or src[i,
+// f_0(idx[i, j])] (axis 1).  Block (tx, ty): tx threads over j, kVec
+// columns each, ty rows; rows beyond the grid's stride the y dimension.
+template <int kAxis, int kVec>
+__global__ void __launch_bounds__(kThreads) lane_gather1_kernel(
+    const int32_t* __restrict__ src, int64_t R, int64_t C,
+    const int32_t* __restrict__ idx, int64_t I, int64_t J,
+    int32_t* __restrict__ o) {
+  const int64_t lim = kAxis == 0 ? R : C;
+  const int64_t j = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * kVec;
+  if (j >= J) return;
+  for (int64_t i = (int64_t)blockIdx.y * blockDim.y + threadIdx.y; i < I;
+       i += (int64_t)gridDim.y * blockDim.y) {
+    const int64_t at = i * J + j;
+    int32_t c[kVec], r[kVec];
+    if constexpr (kVec == 4) {
+      const int4 v = __ldg((const int4*)(idx + at));
+      c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
+    } else {
+      c[0] = __ldg(idx + at);
+    }
+#pragma unroll
+    for (int u = 0; u < kVec; ++u) {
+      const int64_t f = c[u] < 0 ? 0 : (c[u] >= lim ? lim - 1 : c[u]);
+      if constexpr (kAxis == 0) {
+        const int64_t col = j + u < C ? j + u : (j + u) % C;
+        r[u] = __ldg(src + f * C + col);
+      } else {
+        r[u] = __ldg(src + i * C + f);
+      }
+    }
+    if constexpr (kVec == 4) {
+      *(int4*)(o + at) = make_int4(r[0], r[1], r[2], r[3]);
+    } else {
+      o[at] = r[0];
+    }
+  }
+}
+
+template <int kAxis, int kVec>
+void launch1(const int32_t* src, int64_t R, int64_t C, const int32_t* idx,
+             int64_t I, int64_t J, int32_t* o, cudaStream_t s) {
+  const int64_t nv = (J + kVec - 1) / kVec;
+  int tx = 32;
+  while (tx < nv && tx < kThreads) tx <<= 1;
+  const int ty = kThreads / tx;
+  const int64_t gy = (I + ty - 1) / ty;
+  const dim3 grid((unsigned)((nv + tx - 1) / tx), (unsigned)(gy < 65535 ? gy : 65535));
+  lane_gather1_kernel<kAxis, kVec><<<grid, dim3(tx, ty), 0, s>>>(src, R, C, idx, I, J, o);
+}
+
 }  // namespace
 
 // src (R, C), idx and o (I, J), int32 row-major; axis 0 or 1 (then I = R).
@@ -62,6 +119,18 @@ FK_EXPORT int fk_probe_lane_gather(const void* src, int64_t R, int64_t C,
                                    int axis, int reps, void* o, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (I <= 0 || J <= 0 || R <= 0 || C <= 0 || reps <= 0) {
+    return (int)cudaGetLastError();
+  }
+  const int32_t* sp = (const int32_t*)src;
+  const int32_t* ip = (const int32_t*)idx;
+  int32_t* op = (int32_t*)o;
+  if (reps == 1) {
+    const bool vec = J % 4 == 0 && (((uintptr_t)idx | (uintptr_t)o) & 15) == 0;
+    if (axis == 0) {
+      vec ? launch1<0, 4>(sp, R, C, ip, I, J, op, s) : launch1<0, 1>(sp, R, C, ip, I, J, op, s);
+    } else {
+      vec ? launch1<1, 4>(sp, R, C, ip, I, J, op, s) : launch1<1, 1>(sp, R, C, ip, I, J, op, s);
+    }
     return (int)cudaGetLastError();
   }
   const unsigned blocks = fk::grid_for(I * J, kThreads);

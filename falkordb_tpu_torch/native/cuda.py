@@ -12,6 +12,13 @@ Each kernel's wrapper picks its path from the device of its tensors
 wrapper, CUDA tensors to the kernel, and anything else raises.  A wrapper
 adds one to its kernel's `launches` each time it launches the kernel, and
 only then, so a run can show that it went through the kernels.
+
+The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
+kernel's host share down: direct device tests, one inline test a tensor
+whose message is built only when it fails, the entry point bound once, and
+`torch.cuda.device` entered only when the tensors' card is not the current
+one.  K24 and K30 take it; the other wrappers still take `on_cuda`,
+`check_input` and a `lib()` lookup a call.
 """
 
 from __future__ import annotations
@@ -184,8 +191,7 @@ _SIGNATURES = {
                               _INT, _INT, _P, _P, _I64, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P],
     "fk_shard_offsets": [_P, _I64, _I64, _P, _P],
-    "fk_shard_reduce": [_INT, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _P,
-                        _I64, _P, _I64, _P, _P],
+    "fk_shard_reduce": [_INT, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P],
     "fk_mesh_pack": [_P, _I64, _P, _P],
     "fk_mesh_unpack": [_P, _I64, _P, _P],
     "fk_mesh_or_fold": [_P, _I64, _I64, _P, _P],
@@ -312,6 +318,32 @@ def on_cuda(*tensors) -> bool:
     raise ValueError(f"no kernel for device {dev}")
 
 
+def on_card(t: torch.Tensor, *others) -> bool:
+    """`on_cuda` for a wrapper's hot path: True at once when t and the
+    others (None skipped) lie on t's CUDA device; every other case (the
+    CPU, mixed devices, another device type) goes to `on_cuda`, which
+    returns False or raises."""
+    if t.is_cuda:
+        d = t.get_device()
+        for o in others:
+            if o is not None and (not o.is_cuda or o.get_device() != d):
+                break
+        else:
+            return True
+    return on_cuda(t, *others)
+
+
+def input_error(kernel: str, name: str, t: torch.Tensor, dtype,
+                n: int | None = None, dim: int | None = 1) -> ValueError:
+    """The error for a tensor the kernel does not take: a wrapper tests
+    dtype, dimensions and contiguity inline and builds this only when the
+    test fails."""
+    want = f"{n} " if n is not None else ""
+    dims = "" if dim is None else f"{dim}-d "
+    return ValueError(f"{kernel}: {name} must be a contiguous {dims}tensor "
+                      f"of {want}{dtype}, got {t.dtype} {tuple(t.shape)}")
+
+
 def check_input(kernel: str, name: str, t: torch.Tensor | None, dtype,
                 n: int | None = None, dim: int | None = 1) -> None:
     """Raise unless `t` is None or a contiguous `dim`-d tensor (any shape for
@@ -321,10 +353,33 @@ def check_input(kernel: str, name: str, t: torch.Tensor | None, dtype,
         return
     if t.dtype != dtype or (dim is not None and t.dim() != dim) or \
             not t.is_contiguous() or (n is not None and t.numel() != n):
-        want = f"{n} " if n is not None else ""
-        dims = "" if dim is None else f"{dim}-d "
-        raise ValueError(f"{kernel}: {name} must be a contiguous {dims}tensor "
-                         f"of {want}{dtype}, got {t.dtype} {tuple(t.shape)}")
+        raise input_error(kernel, name, t, dtype, n, dim)
+
+
+class Entry:
+    """One C entry point on the lean launch path, for kernel `kernel`: bound
+    at its first call (no library or attribute lookup after); `launch(dev,
+    *args)` calls it with the current stream of CUDA device index `dev`
+    appended, inside `torch.cuda.device(dev)` only when dev is not the
+    current device, raises on an error code and counts the launch."""
+
+    __slots__ = ("symbol", "kernel", "fn")
+
+    def __init__(self, symbol: str, kernel: str):
+        self.symbol, self.kernel, self.fn = symbol, KERNELS[kernel], None
+
+    def launch(self, dev: int, *args) -> None:
+        fn = self.fn
+        if fn is None:
+            fn = self.fn = getattr(lib(), self.symbol)
+        if dev == torch._C._cuda_getDevice():
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        if rc:
+            check(rc, self.kernel.name)
+        self.kernel.launches += 1
 
 
 def stream_ptr(t: torch.Tensor) -> int:

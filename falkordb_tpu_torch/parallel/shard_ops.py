@@ -5,13 +5,16 @@ vector after a collective (csrc/mesh_update.cu).
 
 Each wrapper takes the plain PyTorch version beside it for CPU tensors and
 launches its kernel for CUDA tensors, on the tensors' own device (a ctypes
-launch runs on the current device, so each call enters
-torch.cuda.device).  Nothing is written in place."""
+launch runs on the current device: K24 takes native/cuda.py's lean path,
+which enters torch.cuda.device only when that device is not the current
+one; K25's and K26's wrappers enter it every call).  Nothing is written in
+place."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from falkordb_tpu_torch.native import cuda as _cuda
@@ -20,8 +23,10 @@ OR, SUM, MINPLUS, MIN = 0, 1, 2, 3
 FORMS = {"or": OR, "sum": SUM, "minplus": MINPLUS, "min": MIN}
 BIG = 2**30  # what a masked edge gives the MIN form
 INT32_MAX = 2**31 - 1
-SHORT_MAX = 32  # a thread a segment up to here, a warp up to LONG_MIN
-LONG_MIN = 1024  # wider segments take a block
+TILE_ITEMS = 2048  # K24: a tile's segments start within 2048 items
+LONG_SEG = 2048  # wider segments are cut into tasks
+TASK_EDGES = 4096  # the edges of a task
+TILE_CAP = TILE_ITEMS + LONG_SEG + 1  # csrc/shard_reduce.cu kTileCap
 SUM_BLOCKS = 1024  # K26's fixed grid for float sums
 
 
@@ -35,52 +40,114 @@ def _launch(name, fn, t, *args):
 
 # -- K24: the shard's segment reduce ----------------------------------------
 
+_OFFSETS = _cuda.Entry("fk_shard_offsets", "shard_reduce")
+_REDUCE = _cuda.Entry("fk_shard_reduce", "shard_reduce")
 
-@dataclasses.dataclass
+
+@dataclasses.dataclass(eq=False)
 class SegmentPlan:
-    """A shard's segments over its sorted dst, found once a sharding:
-    offs (num_segments + 1,) int64, and the ids of the segments a warp
-    (mid) and a block (long) reduce."""
+    """How K24 cuts a shard's sorted dst into num_segments segments, made
+    once a sharding, on dst's device: offs (num_segments + 1,) int64,
+    offs[s] the first edge whose dst >= s; tiles (n_tiles, 2) int64 [s0,
+    s1), runs of whole segments of at most LONG_SEG edges, in order, a
+    segment in the tile of its first merge-path item (a segment is its
+    edges plus its end) counted in steps of TILE_ITEMS, so a tile holds at
+    most TILE_ITEMS + LONG_SEG items; tasks (n_tasks, 5) int64 (segment,
+    lo, hi, first, count): each wider segment's edges in runs of at most
+    TASK_EDGES, in order, its tasks being rows first .. first + count - 1;
+    scratch (2 n_tasks,) int32, the tasks' partials then their counters
+    (zero between calls: the last task of a segment resets its counter);
+    table, the 7 int64 words the launch reads (the device pointers and
+    counts of offs, tiles, tasks and scratch), at host address
+    table_ptr."""
     offs: torch.Tensor
-    mid: torch.Tensor
-    long: torch.Tensor
+    tiles: torch.Tensor
+    tasks: torch.Tensor
+    scratch: torch.Tensor
     num_segments: int
+    table: np.ndarray
+    table_ptr: int
+
+
+def _tiles(width: torch.Tensor) -> torch.Tensor:
+    """The tiles of the segments of at most LONG_SEG edges (`SegmentPlan`)."""
+    dev = width.device
+    long = width > LONG_SEG
+    items = torch.where(long, 0, width + 1)
+    tile = (torch.cumsum(items, 0) - items) // TILE_ITEMS
+    segs = torch.nonzero(~long)[:, 0]
+    if segs.numel() == 0:
+        return torch.zeros((0, 2), dtype=torch.int64, device=dev)
+    cut = torch.ones(segs.numel(), dtype=torch.bool, device=dev)
+    cut[1:] = (tile[segs[1:]] != tile[segs[:-1]]) | (segs[1:] != segs[:-1] + 1)
+    first = torch.nonzero(cut)[:, 0]
+    s1 = torch.cat([segs[first[1:] - 1], segs[-1:]]) + 1
+    return torch.stack([segs[first], s1], dim=1).contiguous()
+
+
+def _tasks(offs: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
+    """The tasks of the segments wider than LONG_SEG (`SegmentPlan`)."""
+    segs = torch.nonzero(width > LONG_SEG)[:, 0]
+    count = (width[segs] + TASK_EDGES - 1) // TASK_EDGES
+    first = torch.cumsum(count, 0) - count
+    seg = torch.repeat_interleave(segs, count)
+    k = torch.arange(seg.numel(), device=offs.device) - \
+        torch.repeat_interleave(first, count)
+    lo = offs[seg] + k * TASK_EDGES
+    hi = torch.minimum(lo + TASK_EDGES, offs[seg + 1])
+    return torch.stack([seg, lo, hi, torch.repeat_interleave(first, count),
+                        torch.repeat_interleave(count, count)],
+                       dim=1).contiguous()
 
 
 def segment_plan(dst: torch.Tensor, num_segments: int) -> SegmentPlan:
-    """offs[s] = the first edge whose dst >= s (binary search over the
-    shard's sorted dst: K24's offsets kernel on the card)."""
-    if _cuda.on_cuda(dst):
-        _cuda.check_input("shard_reduce", "dst", dst, torch.int32)
+    """K24's plan of a shard's sorted dst (`SegmentPlan`): offs by binary
+    search (K24's offsets kernel on the card), tiles and tasks cut from
+    them with a few tensor operations on dst's device."""
+    if _cuda.on_card(dst):
+        if dst.dtype is not torch.int32 or dst.dim() != 1 or \
+                not dst.is_contiguous():
+            raise _cuda.input_error("shard_reduce", "dst", dst, torch.int32)
         offs = torch.empty(num_segments + 1, dtype=torch.int64,
                            device=dst.device)
-        _launch("shard_reduce", _cuda.lib().fk_shard_offsets, dst,
-                _cuda.ptr(dst), dst.numel(), num_segments, _cuda.ptr(offs))
+        _OFFSETS.launch(dst.get_device(), _cuda.ptr(dst), dst.numel(),
+                        num_segments, _cuda.ptr(offs))
     else:
         offs = torch.searchsorted(
             dst, torch.arange(num_segments + 1, dtype=torch.int32,
                               device=dst.device)).to(torch.int64)
     width = offs[1:] - offs[:-1]
-    mid = torch.nonzero((width > SHORT_MAX) & (width <= LONG_MIN))[:, 0]
-    lng = torch.nonzero(width > LONG_MIN)[:, 0]
-    return SegmentPlan(offs, mid.contiguous(), lng.contiguous(), num_segments)
+    tiles, tasks = _tiles(width), _tasks(offs, width)
+    n_tasks = tasks.shape[0]
+    scratch = torch.zeros(2 * n_tasks, dtype=torch.int32, device=dst.device)
+    table = np.array([offs.data_ptr(), tiles.data_ptr(), tiles.shape[0],
+                      tasks.data_ptr(), n_tasks, scratch.data_ptr(),
+                      scratch.data_ptr() + 4 * n_tasks], dtype=np.int64)
+    return SegmentPlan(offs, tiles, tasks, scratch, num_segments, table,
+                       table.ctypes.data)
 
 
 def shard_reduce(form: str, src, dst, mask, x, num_segments: int, w=None,
                  xs=None, plan: SegmentPlan | None = None) -> torch.Tensor:
     """One shard's partial over num_segments segments: gather x[src]
-    (clipped to x's range), combine with w (and xs[src]), neutralise masked
-    edges, reduce by the sorted dst.  form: "or" (int32 max, clamped at 0),
+    (clipped to x's range), combine with w (and xs[src]: on the card the
+    product x * xs is taken once a node first, the same bits), neutralise
+    masked edges, reduce by the sorted dst.  form: "or" (int32 max, clamped at 0),
     "sum" (float32 x[src] * xs[src] * w), "minplus" (float32 min of
-    x[src] + w) or "min" (int32 min, masked 2^30)."""
+    x[src] + w) or "min" (int32 min, masked 2^30).  On the card one launch
+    over `plan` (made here when not given; the mesh drivers cache one a
+    sharding)."""
     f = FORMS[form]
-    if not _cuda.on_cuda(src, dst, mask, x, w, xs):
+    if not _cuda.on_card(x, src, dst, mask, w, xs):
         return shard_reduce_plain(f, src, dst, mask, x, num_segments, w, xs)
     fdt = torch.float32 if f in (SUM, MINPLUS) else torch.int32
-    for name, t, dt in (("src", src, torch.int32), ("dst", dst, torch.int32),
-                        ("mask", mask, torch.int32), ("x", x, fdt),
-                        ("w", w, torch.float32), ("xs", xs, torch.float32)):
-        _cuda.check_input("shard_reduce", name, t, dt)
+    i32, f32 = torch.int32, torch.float32
+    for name, t, dt in (("src", src, i32), ("dst", dst, i32),
+                        ("mask", mask, i32), ("x", x, fdt), ("w", w, f32),
+                        ("xs", xs, f32)):
+        if t is not None and (t.dtype is not dt or t.dim() != 1 or
+                              not t.is_contiguous()):
+            raise _cuda.input_error("shard_reduce", name, t, dt)
     if f == MINPLUS and w is None:
         raise ValueError("shard_reduce: minplus needs w")
     if f != SUM and xs is not None:
@@ -94,12 +161,15 @@ def shard_reduce(form: str, src, dst, mask, x, num_segments: int, w=None,
         plan = segment_plan(dst, num_segments)
     if plan.num_segments != num_segments:
         raise ValueError("shard_reduce: plan for another segment count")
+    dev = x.get_device()
+    if plan.offs.get_device() != dev:
+        raise ValueError("shard_reduce: plan for another device")
     out = torch.empty(num_segments, dtype=fdt, device=x.device)
+    c = torch.empty_like(x) if xs is not None else None  # c = x * xs
     p = _cuda.ptr
-    _launch("shard_reduce", _cuda.lib().fk_shard_reduce, x, f, p(src),
-            p(mask), p(w), p(x), p(xs), x.numel(), p(plan.offs),
-            num_segments, SHORT_MAX, p(plan.mid), plan.mid.numel(),
-            p(plan.long), plan.long.numel(), p(out))
+    _REDUCE.launch(dev, f, src.data_ptr(), mask.data_ptr(), p(w),
+                   x.data_ptr(), p(xs), x.numel(), p(c), plan.table_ptr,
+                   out.data_ptr())
     return out
 
 

@@ -16,10 +16,11 @@ the two rows.
 
 Each wrapper runs its kernel for CUDA tensors (counting one launch under its
 name in native/cuda.py's KERNELS) and the `*_plain` PyTorch version beside
-it for CPU tensors; any other device raises.  Integer results are the same
-bits either way.  Indices outside a table are clamped to it (the probes'
-indices never are); ell_spmv and row_gather_or clip to [0, n] with the
-sentinel n, as the reference's take(mode="clip").
+it for CPU tensors; any other device raises.  take_along_or launches through
+native/cuda.py's lean path (`Entry`), on the tensors' card.  Integer results
+are the same bits either way.  Indices outside a table are clamped to it (the
+probes' indices never are); ell_spmv and row_gather_or clip to [0, n] with
+the sentinel n, as the reference's take(mode="clip").
 """
 
 from __future__ import annotations
@@ -132,12 +133,17 @@ def bittest_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # -- K30: the lane gather with an OR chain ----------------------------------------
 
 
+_LANE_GATHER = _cuda.Entry("fk_probe_lane_gather", "probe_lane_gather")
+
+
 def take_along_or(src: torch.Tensor, idx: torch.Tensor, axis: int,
                   reps: int = 1) -> torch.Tensor:
     """_gather2d_kernel and gather2's variant: for src (R, C), idx (I, J)
     int32, OR over k < reps of the gather at f_k(idx), f_0(c) = c (clamped
     to the table), f_k(c) = (c + k) & (lim - 1); axis 0 reads src[f_k,
-    j % C] (lim = R), axis 1 src[i, f_k] (lim = C, I = R)."""
+    j % C] (lim = R), axis 1 src[i, f_k] (lim = C, I = R).  On the card it
+    takes native/cuda.py's lean launch path: its calls at gather2's shapes
+    are a few microseconds of device time."""
     if axis not in (0, 1) or reps < 1 or src.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"probe_lane_gather: 2-d src and idx, axis 0 or 1, "
                          f"reps >= 1; got {tuple(src.shape)}, "
@@ -146,16 +152,18 @@ def take_along_or(src: torch.Tensor, idx: torch.Tensor, axis: int,
         raise ValueError(f"probe_lane_gather: axis 1 needs idx's rows equal "
                          f"to src's, got {tuple(idx.shape)} over "
                          f"{tuple(src.shape)}")
-    if not _cuda.on_cuda(src, idx):
+    if not _cuda.on_card(src, idx):
         return take_along_or_plain(src, idx, axis, reps)
-    _check("probe_lane_gather", "src", src, torch.int32, dim=2)
-    _check("probe_lane_gather", "idx", idx, torch.int32, dim=2)
+    i32 = torch.int32
+    if src.dtype is not i32 or not src.is_contiguous():
+        raise _cuda.input_error("probe_lane_gather", "src", src, i32, dim=2)
+    if idx.dtype is not i32 or not idx.is_contiguous():
+        raise _cuda.input_error("probe_lane_gather", "idx", idx, i32, dim=2)
     o = torch.empty_like(idx)
-    _cuda.check(_cuda.lib().fk_probe_lane_gather(
-        src.data_ptr(), src.shape[0], src.shape[1], idx.data_ptr(),
-        idx.shape[0], idx.shape[1], axis, reps, o.data_ptr(),
-        _cuda.stream_ptr(src)), "probe_lane_gather")
-    _cuda.count_launch("probe_lane_gather")
+    R, C = src.shape
+    I, J = idx.shape
+    _LANE_GATHER.launch(src.get_device(), src.data_ptr(), R, C,
+                        idx.data_ptr(), I, J, axis, reps, o.data_ptr())
     return o
 
 

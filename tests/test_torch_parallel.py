@@ -236,6 +236,196 @@ def test_shard_reduce_plain_matches_reference_bodies(form, nseg_extra):
     _hold(got, np.asarray(want), form != "sum")
 
 
+def _plan_case(seed, n=300, per=14_000):
+    """A shard for K24's plan: a hub segment of three tasks, a segment of
+    one, runs of empty segments, a segment whose edges are all masked and
+    the padded tail (mask 0, the last dst)."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, n, per - 9000 - 2500)
+    dst = dst[(dst < 100) | (dst >= 140)]  # segments 100-139 empty
+    dst = np.concatenate([dst, np.full(9000, 17), np.full(2500, 230)])
+    dst = np.sort(dst).astype(np.int32)
+    per = len(dst)
+    src = rng.integers(-2, n + 2, per).astype(np.int32)
+    mask = (rng.random(per) > 0.2).astype(np.int32)
+    mask[dst == 41] = 0
+    mask[-40:] = 0
+    dst[-40:] = dst[-41]
+    w = rng.uniform(0.5, 3.0, per).astype(np.float32)
+    return src, dst, mask, w, n
+
+
+@pytest.mark.parametrize("nseg_extra", [0, 33, -20])
+def test_k24_plan_covers_every_edge_once(nseg_extra):
+    _src, dst, _mask, _w, n = _plan_case(21)
+    nseg = n + nseg_extra
+    plan = K.segment_plan(torch.from_numpy(dst), nseg)
+    offs = plan.offs.numpy()
+    np.testing.assert_array_equal(
+        offs, np.searchsorted(dst, np.arange(nseg + 1), side="left"))
+    width = offs[1:] - offs[:-1]
+    covered = np.zeros(len(dst), dtype=np.int64)
+    segs = np.zeros(nseg, dtype=np.int64)
+    prev = 0
+    for s0, s1 in plan.tiles.tolist():
+        assert prev <= s0 < s1 <= nseg  # in order, disjoint
+        prev = s1
+        assert (width[s0:s1] <= K.LONG_SEG).all()
+        assert (s1 - s0) + (offs[s1] - offs[s0]) <= K.TILE_CAP
+        covered[offs[s0]:offs[s1]] += 1
+        segs[s0:s1] += 1
+    tasks = plan.tasks.numpy()
+    assert tasks.shape[0] >= 3  # the hub's three, and one for the other
+    for q, (seg, lo, hi, first, count) in enumerate(tasks):
+        assert first <= q < first + count and (tasks[first:first + count, 0]
+                                               == seg).all()
+        assert 0 < hi - lo <= K.TASK_EDGES
+        assert lo == (offs[seg] if q == first else tasks[q - 1, 2])
+        assert hi == offs[seg + 1] or q < first + count - 1
+        if q == first:
+            segs[seg] += 1
+        covered[lo:hi] += 1
+    assert (segs == 1).all()  # every segment in one tile or its tasks
+    inside = (dst >= 0) & (dst < nseg)
+    np.testing.assert_array_equal(covered, inside.astype(np.int64))
+    hub = tasks[tasks[:, 0] == 17]
+    assert len(hub) == 3 and hub[0, 4] == 3
+
+
+@pytest.mark.parametrize("source,cap,most", [
+    ("shard_reduce.cu", "TILE_CAP", ("TILE_ITEMS", "LONG_SEG")),
+    ("semiring_segment.cu", "_TILE_CAP", ("_TILE_ITEMS", "_LONG_ROW"))])
+def test_tile_cap_is_the_kernels(source, cap, most):
+    """A plan's tile fits the kernel's shared buffer: the host's cap is
+    the kTileCap of the .cu source, and the plan's limits stay inside it."""
+    import pathlib
+    import re
+
+    from falkordb_tpu_torch.sparse import ops as tops
+    mod = K if source == "shard_reduce.cu" else tops
+    text = (pathlib.Path(K.__file__).parents[1] / "csrc" / source).read_text()
+    found = re.findall(r"constexpr int kTileCap = (\d+);", text)
+    assert found == [str(getattr(mod, cap))]
+    assert sum(getattr(mod, m) for m in most) + 1 <= getattr(mod, cap)
+
+
+_IDENT ={"or": 0, "sum": 0.0, "minplus": np.inf, "min": 2**31 - 1}
+
+
+def _planned(form, src, dst, mask, x, nseg, w, xs, plan):
+    """K24's reduce in the plan's order on the host: each tile's segments
+    edge by edge, each task's edges, then a segment's task partials in task
+    order; float32 arithmetic throughout."""
+    idx = np.clip(src, 0, len(x) - 1)
+    if form == "sum":
+        c = ((x * xs)[idx] if xs is not None else x[idx]) * w
+        c = np.where(mask > 0, c, np.float32(0))
+    elif form == "minplus":
+        c = np.where(mask > 0, x[idx] + w, np.float32(np.inf))
+    else:
+        c = np.where(mask > 0, x[idx], 0 if form == "or" else 2**30)
+    c = c.astype(x.dtype)
+    if form == "sum":
+        def comb(p, q):
+            return np.float32(p + q)
+    elif form == "or":
+        comb = max
+    else:
+        comb = min
+    ident = x.dtype.type(_IDENT[form])
+    offs = plan.offs.numpy()
+    out = np.full(nseg, ident, dtype=x.dtype)
+
+    def fold(lo, hi):
+        acc = ident
+        for e in range(lo, hi):
+            acc = comb(acc, c[e])
+        return acc
+
+    for s0, s1 in plan.tiles.tolist():
+        for s in range(s0, s1):
+            out[s] = fold(offs[s], offs[s + 1])
+    parts = [fold(lo, hi) for _s, lo, hi, _f, _c in plan.tasks.tolist()]
+    for seg, _lo, _hi, first, count in plan.tasks.tolist():
+        acc = ident
+        for p in parts[first:first + count]:
+            acc = comb(acc, p)
+        out[seg] = acc
+    return out
+
+
+@pytest.mark.parametrize("nseg_extra", [0, 33, -20])
+@pytest.mark.parametrize("form", ["or", "sum", "minplus", "min"])
+def test_k24_plan_order_matches_jax(form, nseg_extra):
+    src, dst, mask, w, n = _plan_case(22)
+    nseg = n + nseg_extra
+    rng = np.random.default_rng(23)
+    x = {"or": rng.integers(-3, 2, n).astype(np.int32),
+         "sum": rng.uniform(0, 1, n).astype(np.float32),
+         "minplus": np.where(rng.random(n) < 0.2, np.inf,
+                             rng.uniform(0, 5, n)).astype(np.float32),
+         "min": rng.integers(0, 1000, n).astype(np.int32)}[form]
+    xs = rng.uniform(0.1, 1, n).astype(np.float32)
+    plan = K.segment_plan(torch.from_numpy(dst), nseg)
+    j = jnp.asarray
+    if form == "or":
+        want = rdist._local_reduce_or(j(src), j(dst), j(mask), j(x), nseg)
+        got = _planned(form, src, dst, mask, x, nseg, None, None, plan)
+    elif form == "sum":
+        want = rdist._local_reduce_sum(j(src), j(dst), j(w), j(mask),
+                                       j(x) * j(xs), nseg)
+        got = _planned(form, src, dst, mask, x, nseg, w, xs, plan)
+    else:  # the segment_min bodies of the SSSP and WCC steps (dist.py:293)
+        g = jnp.take(j(x), j(src), mode="clip")
+        if form == "minplus":
+            g = jnp.where(j(mask) > 0, g + j(w), jnp.float32(np.inf))
+        else:
+            g = jnp.where(j(mask) > 0, g, jnp.int32(2**30))
+        want = jax.ops.segment_min(g, j(dst), num_segments=nseg,
+                                   indices_are_sorted=True)
+        got = _planned(form, src, dst, mask, x, nseg,
+                       w if form == "minplus" else None, None, plan)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if form == "sum":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_k24_node_product_gives_the_edge_product_bits():
+    """The sum form's pre-pass c = x * xs, gathered an edge and times w,
+    rounds as the per-edge x[src] * xs[src] * w: the same float32 bits."""
+    rng = np.random.default_rng(24)
+    n, per = 5000, 40_000
+    x = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32) ** 7)
+    xs = torch.from_numpy((1.0 / rng.integers(1, 1000, n)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 3.0, per).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, n, per))
+    node = (x * xs)[idx] * w
+    edge = x[idx] * xs[idx] * w
+    assert torch.equal(node.view(torch.int32), edge.view(torch.int32))
+    j = jnp.asarray
+    want = np.asarray(jnp.take(j(x.numpy()) * j(xs.numpy()), j(idx.numpy()))
+                      * j(w.numpy()))
+    np.testing.assert_array_equal(node.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_k24_lean_path_refuses_other_devices():
+    i3 = torch.zeros(3, dtype=torch.int32)
+    m3 = i3.to("meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.shard_reduce("or", m3, m3, m3, m3, 3)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.segment_plan(m3, 3)
+    with pytest.raises(ValueError, match="several devices"):
+        K.shard_reduce("or", i3, i3, m3, i3, 3)
+    with pytest.raises(ValueError, match="several devices"):
+        K.shard_reduce("sum", i3, i3, i3, torch.ones(3), 3, w=m3.float())
+    assert cuda.KERNELS["shard_reduce"].launches == 0
+
+
 def test_pack_and_unpack_bits_match_reference():
     rng = np.random.default_rng(0)
     bits = rng.integers(0, 2, 32 * 40).astype(np.int32)

@@ -1,10 +1,11 @@
 """K23-K26 on the card: each kernel wrapper of the mesh
 (falkordb_tpu_torch/parallel/qdist.py: shard_expand; parallel/shard_ops.py:
 shard_reduce, the bit-packed frontier, the vector updates) against its
-plain PyTorch version on the same CUDA tensors, with segments wide enough
-for the warp and block paths of K24 and a frame that overflows K23's
-capacity; then a mesh of 4 shards on cuda:0 through CALL algo.* and a
-forced MATCH, against the single-card route.
+plain PyTorch version on the same CUDA tensors, with a segment wide enough
+for five of K24's tasks, runs of empty segments, an all-masked segment and
+a padded tail, and a frame that overflows K23's capacity; then a mesh of 4
+shards on cuda:0 through CALL algo.* and a forced MATCH, against the
+single-card route.
 
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
@@ -47,16 +48,20 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def shard(rng, n=5000, per=40_000, hubs=(3000, 700, 40)):
+def shard(rng, n=5000, per=60_000, hubs=(20_000, 3000, 700, 40)):
     """One shard's sorted edges over n segments: random dst, plus a hub
-    segment per entry of `hubs` (block, warp and warp paths), a fifth of
-    the edges masked, padding at the end with the largest dst."""
+    segment per entry of `hubs` (five tasks, one task, and tiles), no edge
+    in segments 2000-2299 (a run of empty segments between tiles), segment
+    2400's edges all masked, a fifth of the others masked, padding at the
+    end with the largest dst."""
     dst = rng.integers(0, n, per - sum(hubs))
+    dst = np.where((dst >= 2000) & (dst < 2300), dst + 300, dst)
     for h, d in enumerate(hubs):
         dst = np.concatenate([dst, np.full(d, 7 + 13 * h)])
     dst = np.sort(dst).astype(np.int32)
     src = rng.integers(-3, n + 3, per).astype(np.int32)  # clipped gathers
     mask = (rng.random(per) > 0.2).astype(np.int32)
+    mask[dst == 2400] = 0
     mask[-50:] = 0
     dst[-50:] = dst[-51]
     w = rng.uniform(0.5, 3.0, per).astype(np.float32)
@@ -78,23 +83,48 @@ def test_shard_reduce_matches_plain(form, dev):
     xs = rng.uniform(0.1, 1.0, n).astype(np.float32) if form == "sum" else None
     args = [_t(a, dev) for a in (src, dst, mask, x)]
     wd = _t(w, dev) if form in ("sum", "minplus") else None
-    xsd = _t(xs, dev) if xs is not None else None
     for nseg in (n, n + 700):  # the padded 2D case: more segments than x
         plan = K.segment_plan(args[1], nseg)
-        assert plan.long.numel() >= 1 and plan.mid.numel() >= 2
-        got = K.shard_reduce(form, *args, nseg, w=wd, xs=xsd, plan=plan)
-        plain = K.shard_reduce_plain(K.FORMS[form], *args, nseg, wd, xsd)
-        torch.cuda.synchronize()
-        assert got.dtype == plain.dtype and got.shape == plain.shape
-        if form == "sum":
-            torch.testing.assert_close(got.cpu(), plain.cpu(), rtol=1e-5,
-                                       atol=1e-6)
-            again = K.shard_reduce(form, *args, nseg, w=wd, xs=xsd,
-                                   plan=plan)
-            assert torch.equal(got, again)  # a fixed order, no atomics
-        else:
-            assert torch.equal(got.cpu(), plain.cpu())
+        hub = plan.tasks[plan.tasks[:, 0] == 7]
+        assert hub.shape[0] == 5 and plan.tiles.shape[0] >= 2
+        for xsd in ((_t(xs, dev), None) if form == "sum" else (None,)):
+            before = cuda.KERNELS["shard_reduce"].launches
+            got = K.shard_reduce(form, *args, nseg, w=wd, xs=xsd, plan=plan)
+            assert cuda.KERNELS["shard_reduce"].launches == before + 1
+            plain = K.shard_reduce_plain(K.FORMS[form], *args, nseg, wd, xsd)
+            torch.cuda.synchronize()
+            assert got.dtype == plain.dtype and got.shape == plain.shape
+            if form == "sum":
+                torch.testing.assert_close(got.cpu(), plain.cpu(), rtol=1e-5,
+                                           atol=1e-6)
+                again = K.shard_reduce(form, *args, nseg, w=wd, xs=xsd,
+                                       plan=plan)
+                assert torch.equal(got, again)  # a fixed order, no atomics
+                if xsd is not None:  # the pre-pass's x * xs rounds once
+                    pre = K.shard_reduce(form, *args[:3], args[3] * xsd,
+                                         nseg, w=wd, plan=plan)
+                    assert torch.equal(got, pre)
+            else:
+                assert torch.equal(got.cpu(), plain.cpu())
+            empty, masked = {"or": (0, 0), "sum": (0, 0),
+                             "minplus": (np.inf, np.inf),
+                             "min": (K.INT32_MAX, K.BIG)}[form]
+            assert (got[2000:2300].cpu() == empty).all()
+            assert float(got[2400]) == masked
     assert cuda.KERNELS["shard_reduce"].launches >= 4
+
+
+@pytest.mark.cuda
+def test_shard_reduce_refuses_what_the_kernel_does_not_take(dev):
+    i3 = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="several devices"):
+        K.shard_reduce("or", i3, i3, i3.cpu(), i3, 3)
+    with pytest.raises(ValueError, match="x must be a contiguous"):
+        K.shard_reduce("or", i3, i3, i3, i3.to(torch.int64), 3)
+    with pytest.raises(ValueError, match="src must be a contiguous"):
+        K.shard_reduce("or", torch.zeros(6, dtype=torch.int32,
+                                         device=dev)[::2], i3, i3, i3, 3)
+    assert cuda.KERNELS["shard_reduce"].launches == 0
 
 
 @pytest.mark.cuda

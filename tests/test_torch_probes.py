@@ -189,6 +189,21 @@ def test_variant(ref, capsys, name, src_shape, idx_rows, axis, reps):
         P.take_along_or(_t(src), _t(idx), axis, reps).numpy(), want)
 
 
+def test_lane_gather_lean_path_refuses_other_devices():
+    """take_along_or's lean launch path (native/cuda.py `on_card`) still
+    raises on a device that is neither the CPU nor CUDA and on tensors on
+    two devices, before any kernel is built."""
+    w = torch.zeros((8, 128), dtype=torch.int32)
+    m = w.to("meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        P.take_along_or(m, m, 0)
+    with pytest.raises(ValueError, match="several devices"):
+        P.take_along_or(w, m, 1)
+    with pytest.raises(ValueError, match="several devices"):
+        P.take_along_or(m, w, 0)
+    assert cuda._lib is None or cuda.KERNELS["probe_lane_gather"].launches == 0
+
+
 # -- bench_kernels.py's bench-local rows --------------------------------------
 
 

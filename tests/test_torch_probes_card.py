@@ -2,7 +2,9 @@
 falkordb_tpu_torch/probes.py against its plain PyTorch version on the same
 CUDA tensors, at awkward shapes: ragged tails, unaligned bases (the scalar
 paths), indices at a table's last word and past it (clamped), reps = 64,
-axis 1, a 512-wide idx over a 128-wide table, rowgather indices at n and
+axis 1, a 512-wide idx over a 128-wide table, the lane gather's seven
+reps-1 forms of bench_port_gather.py's VARIANTS and the inputs its wrapper
+refuses (int64, not contiguous, on two devices), rowgather indices at n and
 past it with more output rows than table rows, every row width's unit,
 and ELL rows wide enough for K18's warp and block classes; ell_spmv also
 over tests/test_torch_bfs_card.py's K18 forms (a hub row wider than
@@ -121,6 +123,13 @@ def test_card_take_and_bittest(dev):
     ((8, 2048), (8, 2048), 1, 1),           # axis 1
     ((8, 128), (8, 333), 1, 64),            # axis 1, ragged, reps 64
     ((1000, 7), (13, 21), 0, 1),            # lim not a power of two
+    ((8, 128), (8, 128), 0, 1),             # the other reps-1 forms of
+    ((512, 128), (512, 128), 0, 1),         # bench_port_gather.VARIANTS
+    ((512, 128), (8, 128), 0, 1),
+    ((4096, 128), (512, 128), 0, 1),
+    ((8, 128), (8, 128), 1, 1),
+    ((1000, 8), (13, 20), 0, 1),            # J = 2.5 C, 16-byte loads
+    ((3, 5000), (3, 70_001), 1, 1),         # rows past one block's columns
 ])
 def test_card_lane_gather(dev, src_shape, idx_shape, axis, reps):
     rng = np.random.default_rng(2)
@@ -133,6 +142,30 @@ def test_card_lane_gather(dev, src_shape, idx_shape, axis, reps):
           P.take_along_or_plain(src, idx, axis, reps),
           f"lane gather {src_shape} {idx_shape} {axis} {reps}")
     assert cuda.KERNELS["probe_lane_gather"].launches == 1
+    # an index table not 16-byte aligned: the reps-1 body's scalar loads
+    _same(P.take_along_or(src, offset_view(ix, dev), axis, reps),
+          P.take_along_or_plain(src, idx, axis, reps),
+          f"lane gather unaligned {src_shape} {idx_shape} {axis} {reps}")
+    assert cuda.KERNELS["probe_lane_gather"].launches == 2
+
+
+@pytest.mark.cuda
+def test_card_lane_gather_refuses_what_the_kernel_does_not_take(dev):
+    src = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    idx = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="idx must be a contiguous"):
+        P.take_along_or(src, idx.to(torch.int64), 0)
+    with pytest.raises(ValueError, match="src must be a contiguous"):
+        P.take_along_or(torch.zeros((128, 8), dtype=torch.int32,
+                                    device=dev).t(), idx, 0)
+    with pytest.raises(ValueError, match="idx must be a contiguous"):
+        P.take_along_or(src, torch.zeros((128, 8), dtype=torch.int32,
+                                         device=dev).t(), 1)
+    with pytest.raises(ValueError, match="several devices"):
+        P.take_along_or(src, idx.cpu(), 0)
+    with pytest.raises(ValueError, match="several devices"):
+        P.take_along_or(src.cpu(), idx, 0)
+    assert cuda.KERNELS["probe_lane_gather"].launches == 0
 
 
 @pytest.mark.cuda
