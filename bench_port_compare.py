@@ -1,14 +1,15 @@
-"""Time chip_smoke.py's K3, K13-K15, K18-K21, K24, K27 and K30 rows from one
-checkout of the repo, so that two trees can be compared on one card in one
-call.
+"""Time chip_smoke.py's K3, K5, K13-K15, K18-K21, K24, K26, K27 and K30 rows
+from one checkout of the repo, so that two trees can be compared on one
+card in one call.
 
     python3 bench_port_compare.py                    # this checkout
     python3 bench_port_compare.py --root DIR         # another checkout
                                                      # (its own kernels)
     python3 bench_port_compare.py --rows vector      # K13-K15 alone
     python3 bench_port_compare.py --rows graph       # K3, K18-K21 alone
-    python3 bench_port_compare.py --rows mesh        # K24's four forms
+    python3 bench_port_compare.py --rows mesh        # K24's four forms, K26
     python3 bench_port_compare.py --rows probes      # K30 reps 1, K27 double
+    python3 bench_port_compare.py --rows pagerank    # K5
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -56,6 +57,25 @@ its plain version and one `index_add_` / `scatter_reduce_` call), then one
 of its library call, and the shard's widest segment; and a `ptxas {...}`
 line per kernel function of csrc/shard_reduce.cu.
 
+They go on with K26's five rows of DIR/chip_smoke.py's
+`check_mesh_update` at n = 4,194,304 (the PageRank update with its L1
+change, the dangling sum beside torch.dot, the BFS update, the min update
+over one block beside torch.minimum and over two), a `device` line per
+call and per library call with the CUDA API calls of one call (launches,
+memsets) and `queued_ms`, the device time a call of 200 queued behind a
+spin kernel (the host's share out of the way), a `host` line for the dangling sum beside torch.dot and for the
+PageRank update (µs a call over 1,000 calls, as for the probes), and a
+`ptxas` line per kernel function of csrc/mesh_update.cu.
+
+The pagerank rows are K5 at DIR/chip_smoke.py's `check_pagerank` shapes
+(the whole compact graph and Person / KNOWS of the SF1-class dataset at P
+= 430,000, built once by DIR's generator, loader and compact_adjacency
+and cached under this checkout's .bench_cache/port/), each held to its
+plain version and to a second call's bits, against cuSPARSE's SpMV times
+the steps; a `device` line each with the CUDA API calls of one call
+(launches, copies, stream synchronisations), one for the library call,
+and a `ptxas` line per kernel function of csrc/pagerank.cu.
+
 The probe rows are K30's seven reps-1 forms (prof_pallas_gather2.py's
 `VAR` list) and K27's `double` (`A_sanity`), built by DIR's
 bench_port_gather.py as DIR/chip_smoke.py's `check_gather` builds them,
@@ -87,9 +107,11 @@ def main(argv=None):
                     help="the checkout whose chip_smoke.py and package run")
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale")
     ap.add_argument("--rows", default=["all"], nargs="+",
-                    choices=("all", "graph", "vector", "mesh", "probes"),
+                    choices=("all", "graph", "vector", "mesh", "probes",
+                             "pagerank"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
-                         "K24; probes: K30's reps-1 forms and K27's double")
+                         "K24 and K26; probes: K30's reps-1 forms and K27's "
+                         "double; pagerank: K5")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -113,8 +135,11 @@ def main(argv=None):
         VectorBench(smoke, root, dev).run()
     if {"all", "graph"} & set(args.rows):
         graph_rows(smoke, root, args.scale, dev)
+    if {"all", "pagerank"} & set(args.rows):
+        pagerank_rows(smoke, root, dev)
     if {"all", "mesh"} & set(args.rows):
         mesh_rows(smoke, root, args.scale, dev)
+        mesh_update_rows(smoke, root, dev)
     if {"all", "probes"} & set(args.rows):
         probe_rows(smoke, root, dev)
     return 0
@@ -211,6 +236,181 @@ def mesh_rows(smoke, root, scale, dev):
                     edges=s.numel(), segments=n, widest=widest,
                     library_span_ms=lt.span_ms, library_problem=lt.problem,
                     library_by_kernel=lt.by_kernel)
+
+
+def api_counts(fn):
+    """The CUDA API calls one fn() makes on the host, by name, from one
+    torch.profiler trace (after a warm-up call; the trace's own closing
+    synchronize left out): its launches, copies and synchronisations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith("cuda"):
+            out[e.key] = out.get(e.key, 0) + e.count
+    out["cudaDeviceSynchronize"] = out.get("cudaDeviceSynchronize", 1) - 1
+    return {k: v for k, v in sorted(out.items()) if v}
+
+
+def queued_ms(fn, calls=200):
+    """Device milliseconds a call of fn() with the host's share out of the
+    way: the stream spins (torch.cuda._sleep) while `calls` calls queue
+    behind it, and CUDA events time them back to back.  For calls that do
+    not synchronise, where one trace may drop a small kernel's record."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms: longer than queueing the calls
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def ldbc_transposes(smoke, dev):
+    """The two transposes check_pagerank runs K5 over at P = 430,000 (the
+    whole compact graph, Person / KNOWS), built once by the root's
+    generator, loader and compact_adjacency and cached under this
+    checkout's .bench_cache/port/ as host arrays; [(what, CSR on dev)]
+    through the root's CSR."""
+    import numpy as np
+    from falkordb_tpu_torch.sparse.csr import CSR
+
+    path = os.path.join(CACHE, f"k5_ldbc_{smoke.SF1_PERSONS}.npz")
+    shapes = (("whole graph", None, None), ("Person/KNOWS", "Person",
+                                            ["KNOWS"]))
+    if not os.path.exists(path):
+        from falkordb_tpu_torch.algos.common import compact_adjacency
+        t = smoke.gen_dataset(smoke.SF1_PERSONS,
+                              np.random.default_rng(smoke.SEED))
+        db = smoke.FalkorDB(device="cpu")
+        smoke.load_ldbc(db.select_graph("ldbc"), t)
+        store = db._get_or_create("ldbc").store
+        arrays = {}
+        for i, (_, label, rels) in enumerate(shapes):
+            at = compact_adjacency(store, label, rels, directed=True).at
+            for f in ("indptr", "rows", "cols"):
+                arrays[f"{f}{i}"] = getattr(at, f).cpu().numpy()
+            arrays[f"nnz{i}"] = np.int64(int(at.nnz))
+        os.makedirs(CACHE, exist_ok=True)
+        np.savez(path + ".tmp.npz", **arrays)
+        os.replace(path + ".tmp.npz", path)
+    z = np.load(path)
+    out = []
+    for i, (what, _, _) in enumerate(shapes):
+        n = len(z[f"indptr{i}"]) - 1
+        out.append((what, CSR.from_host(z[f"indptr{i}"], z[f"rows{i}"],
+                                        z[f"cols{i}"], None,
+                                        int(z[f"nnz{i}"]), (n, n),
+                                        device=dev)))
+    return out
+
+
+def pagerank_rows(smoke, root, dev):
+    """K5 at check_pagerank's two shapes from the root's package: a
+    `compare` row each (the root's wrapper, its plain version, cuSPARSE's
+    SpMV times the steps), checked as check_pagerank checks it and for
+    the same bits on a second call; a `device` line each for the call
+    (with the CUDA API calls of one call: launches, copies,
+    synchronisations) and for its library call; the ptxas report of
+    csrc/pagerank.cu."""
+    import torch
+
+    ptxas(smoke, root, ("pagerank.cu",))
+    tpr = importlib.import_module("falkordb_tpu_torch.algos.pagerank")
+    for what, at in ldbc_transposes(smoke, dev):
+        n, nnz = at.n_rows, int(at.nnz)
+        plain = (at.indptr, at.rows, at.cols, at.nnz, n)
+        rp, ip, ep = tpr.pagerank_plain(*plain)
+        spmv = smoke._spmv(at)
+
+        def run():
+            return tpr.pagerank_transposed(at)
+
+        rk, ik, ek = run()
+        again = run()
+        torch.cuda.synchronize()
+        assert ik == ip, f"pagerank {what}: {ik} steps, plain {ip}"
+        torch.testing.assert_close(rk, rp, **smoke.PR_TOL)
+        same = bool(torch.equal(rk, again[0])) and again[1] == ik
+        compare_line(root, {
+            "name": "pagerank", "shape": f"{what} n={n} nnz={nnz} iters={ik} "
+            f"(plain {ip}) l1={ek:.6e} (plain {ep:.6e}) same bits twice="
+            f"{same}",
+            "ms": smoke.cuda_ms(run),
+            "plain_ms": smoke.cuda_ms(lambda: tpr.pagerank_plain(*plain)),
+            "library_ms": smoke.cuda_ms(spmv) * ik,
+            "bound_ms": smoke.bound_ms(ik * (4 * nnz + 16 * n) + 4 * nnz +
+                                       4 * n)})
+        device_line(smoke, root, f"pagerank {what}", run, steps=ik,
+                    host_api=api_counts(run))
+
+        def lib(ik=ik):
+            for _ in range(ik):
+                spmv()
+
+        device_line(smoke, root, f"library: spmv x {ik} ({what})", lib)
+
+
+def mesh_update_rows(smoke, root, dev):
+    """K26's five rows from the root's check_mesh_update at n = 4,194,304,
+    then, over the same inputs, a `device` line per call and per library
+    call (with the CUDA API calls of one call), a `host` line for the
+    dangling sum beside torch.dot and for the PageRank update, and the
+    ptxas report of csrc/mesh_update.cu."""
+    import torch
+
+    ptxas(smoke, root, ("mesh_update.cu",))
+    n = 1 << 22
+    for r in smoke.check_mesh_update(n, dev):
+        compare_line(root, r)
+    K = smoke.K
+    # check_mesh_update's inputs, made the same way
+    torch.manual_seed(smoke.SEED + 24)
+    f32 = torch.float32
+    acc = torch.rand(n, device=dev, dtype=f32) / n
+    rank = torch.rand(n, device=dev, dtype=f32) / n
+    dang = (torch.rand(n, device=dev) < 0.3).to(f32)
+    ds = K.dot_sum(rank, dang)
+    reach = torch.randint(0, 3, (n,), device=dev, dtype=torch.int32)
+    levels = torch.where(torch.rand(n, device=dev) < 0.5,
+                         torch.randint(0, 6, (n,), device=dev),
+                         -1).to(torch.int32)
+    old = torch.where(torch.rand(n, device=dev) < 0.5,
+                      torch.rand(n, device=dev) * 8,
+                      torch.full((n,), float("inf"), device=dev))
+    best = torch.rand(n, device=dev, dtype=f32) * 8
+    two = torch.rand(2 * n, device=dev, dtype=f32) * 8
+    calls = {
+        "pagerank update + L1":
+            lambda: K.pagerank_update(acc, rank, ds, n, 0.85, l1=True),
+        "dangling sum": lambda: K.dot_sum(rank, dang),
+        "library: torch.dot": lambda: torch.dot(rank, dang),
+        "bfs update": lambda: K.bfs_update(reach, levels, 6),
+        "min update, 1 block": lambda: K.min_update(old, best),
+        "library: torch.minimum": lambda: torch.minimum(old, best),
+        "min update, 2 blocks": lambda: K.min_update(old, two)}
+    for what, fn in calls.items():
+        device_line(smoke, root, f"mesh_update {what}", fn,
+                    host_api=api_counts(fn), queued_ms=queued_ms(fn))
+    for what in ("dangling sum", "pagerank update + L1"):
+        lib = {"dangling sum": calls["library: torch.dot"]}.get(what)
+        print("host " + json.dumps({
+            "root": root, "call": f"mesh_update {what}",
+            "wrapper_us": host_us(calls[what]),
+            "library_us": host_us(lib) if lib else None}), flush=True)
 
 
 def probe_rows(smoke, root, dev):

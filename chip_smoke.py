@@ -116,11 +116,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
       (with and without max_depth; the mesh keeps levels < max_depth, the
       reference's own rule) over Person / KNOWS, then the read mix of a.
       with FALKOR_DIST_QUERY=force, then auto, each against its oracle and
-      path a.'s single-card rows; then every parallel/dist.py driver, the
-      1D host-driven ones at RMAT-22 (--rmat-scale) and the fused, bitmap
-      and 2D ones at RMAT-20 (--mesh-scale; cut for the run's time), BFS
-      levels against scipy, SSSP and WCC against K6 on one card exactly,
-      PageRank within rtol 1e-4 of float64 on the card.
+      path a.'s single-card rows; then every parallel/dist.py driver (the
+      1D host-driven ones, the fused, bitmap and 2D ones) at RMAT-20
+      (--mesh-scale; cut from RMAT-22 for the run's time), BFS levels
+      against scipy, SSSP and WCC against K6 on one card exactly, PageRank
+      within rtol 1e-4 of float64 on the card.
    h. (run after f.) The gather probes: bench_port_gather.py's probes,
       every PROBE and VAR line of the reference scripts' main() and the two
       tables past L2, each held to its plain version on the same card
@@ -189,7 +189,7 @@ from falkordb_tpu_torch.runtime.ops import (
     group_partials, group_partials_plain, topk_smallest, topk_smallest_plain,
 )
 from falkordb_tpu_torch.runtime.value import VectorF32
-from falkordb_tpu_torch.sparse.csr import CSR
+from falkordb_tpu_torch.sparse.csr import CSR, bucket_cap
 from falkordb_tpu_torch.sparse.ell import build_blocked_ell
 from falkordb_tpu_torch.sparse import ops as sops
 from falkordb_tpu_torch.sparse.ops import expand, expand_plain
@@ -702,7 +702,7 @@ TOLERANCE = {  # what each kernel is held to against its plain version
                       "rtol 1e-12 atol 1e-9 (atomics add in any order)",
     "topk": "exact", "bfs_levels": "exact",
     "pagerank": "same steps; scores rtol 1e-5 atol 1e-9 (float32 sums in "
-                "other orders)",
+                "other orders); the same bits and steps on a second call",
     "wcc": "exact", "sssp": "exact, inf as inf",
     "bc_push_counts": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
     "bc_pull_deps": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
@@ -751,7 +751,8 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "mesh_bits": "exact",
     "mesh_update": "exact; the PageRank update rtol 1e-4 atol 1e-12 and its "
                    "L1 change and the dangling sum rtol 1e-5 (float32 sums "
-                   "in other orders)",
+                   "in other orders); every output the same bits on a "
+                   "second call",
     "probe_stream": "exact", "probe_take": "exact", "probe_bittest": "exact",
     "probe_lane_gather": "exact",
     "ell_spmv": "rtol 1e-5 atol 1e-9 (K18's: the kernel sums a row in "
@@ -927,10 +928,13 @@ def check_pagerank(store, dev):
         n, nnz = at.n_rows, int(at.nnz)
         plain = (at.indptr, at.rows, at.cols, at.nnz, n)
         rk, ik, ek = pagerank_transposed(at)
+        again = pagerank_transposed(at)
         rp, ip, ep = pagerank_plain(*plain)
         torch.cuda.synchronize()
         assert ik == ip, f"pagerank {what}: {ik} steps, plain {ip}"
         torch.testing.assert_close(rk, rp, **PR_TOL)
+        assert again[1:] == (ik, ek) and torch.equal(again[0], rk), \
+            f"pagerank {what}: a second call differs"
         spmv = _spmv(at)
         rows.append(_row(
             "pagerank", f"{what} n={n} nnz={nnz} iters={ik} "
@@ -1645,23 +1649,48 @@ class SemiringGraph:
     Bs: dict
 
 
+def coo_csr_on(src, dst, w, n, dev):
+    """CSR.from_coo_numpy(src, dst, w, shape=(n, n)) with its dedup (the
+    last of each duplicate (src, dst) wins) built on `dev`: the same arrays
+    bit for bit, from a stable sort of the same int64 keys src << 32 | dst
+    there (seconds of numpy's argsort at RMAT-22 become milliseconds)."""
+    key = ((torch.from_numpy(np.asarray(src, np.int64)).to(dev) << 32)
+           | torch.from_numpy(np.asarray(dst, np.int64)).to(dev))
+    key, order = torch.sort(key, stable=True)
+    keep = torch.ones(key.numel(), dtype=torch.bool, device=dev)
+    keep[:-1] = key[:-1] != key[1:]
+    key = key[keep]
+    vals = torch.from_numpy(np.asarray(w)).to(dev)[order[keep]]
+    nnz = key.numel()
+    cap = bucket_cap(nnz)
+    rows = torch.zeros(cap, dtype=torch.int32, device=dev)
+    cols = torch.zeros(cap, dtype=torch.int32, device=dev)
+    pvals = torch.zeros(cap, dtype=vals.dtype, device=dev)
+    rows[:nnz] = (key >> 32).to(torch.int32)
+    cols[:nnz] = (key & 0xFFFFFFFF).to(torch.int32)
+    pvals[:nnz] = vals
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(rows[:nnz], minlength=n), 0)
+    return CSR(indptr, rows, cols, pvals,
+               torch.tensor(nnz, dtype=torch.int32, device=dev), n, n)
+
+
 def semiring_graph(edges, n, dev):
     """bench_kernels.py's graphs over the RMAT edges the script already has:
-    Aw = CSR.from_coo_numpy(src, dst, vals, dedup=True) on the card; A its
-    structural twin (from_coo_numpy(src, dst, None) gives the same arrays
-    bit for bit, so it is not built twice, and takes Aw's structural ELL
-    form); Ah every other edge; x, xi and B as bench_port_kernels makes
-    them."""
+    Aw = CSR.from_coo_numpy(src, dst, vals, dedup=True), built on the card
+    (`coo_csr_on`); A its structural twin (from_coo_numpy(src, dst, None)
+    gives the same arrays bit for bit, so it is not built twice, and takes
+    Aw's structural ELL form); Ah every other edge; x, xi and B as
+    bench_port_kernels makes them."""
     import scipy.sparse as sp
 
     src, dst = edges
     w = np.random.default_rng(1).uniform(0.5, 2.0, len(src)).astype(
         np.float32)
-    host = CSR.from_coo_numpy(src, dst, w, shape=(n, n))
-    Aw = host.to(dev)
+    Aw = coo_csr_on(src, dst, w, n, dev)
     A = CSR(Aw.indptr, Aw.rows, Aw.cols, None, Aw.nnz, n, n)
-    ip, cols, vals = host.host_view()
-    nnz = int(host.nnz)
+    ip, cols, vals = Aw.host_view()
+    nnz = int(Aw.nnz)
     S = sp.csr_matrix((vals[:nnz], cols[:nnz], ip), shape=(n, n))
     x, xi, Bs = bench_port_kernels.operands(n, dev)
     return SemiringGraph(A, Aw, bench_port_kernels.half_of(Aw), n, S, x,
@@ -2746,10 +2775,14 @@ def check_mesh_update(n, dev):
     ]
     rows = []
     for name, run, plain, lib, nbytes, exact in cases:
-        got, want = run(), plain()
+        got, again, want = run(), run(), plain()
         got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
         want = want if isinstance(want, tuple) else (want,)
         err = 0.0
+        for g, a in zip(got, again):
+            assert g is None or torch.equal(g, a), \
+                f"mesh_update {name}: a second call differs"
         for g, p in zip(got, want):
             if not exact and g.numel() == 1:  # a sum in another order
                 torch.testing.assert_close(g, p, rtol=1e-5, atol=0)
@@ -2820,13 +2853,13 @@ class MeshGraph:
         self.oracle_s = time.perf_counter() - t0
 
 
-def mesh_drivers(g1, g2, dev):
-    """Path g (iii): every dist.py driver through the card's 4 shards, the
-    1D host-driven ones over g1 (RMAT-22), the fused, bitmap and 2D ones
-    over g2, each against its oracle: BFS levels equal to scipy's (the
-    max_levels rule of each driver), SSSP and WCC equal to K6 on one card,
-    PageRank within rtol 1e-4 of float64 (at the driver's steps under the
-    tol rule, within one of the float64 rule's count; or 20 steps)."""
+def mesh_drivers(g, dev):
+    """Path g (iii): every dist.py driver through the card's 4 shards over
+    the graph g (RMAT at --mesh-scale), each against its oracle: BFS levels
+    equal to scipy's (the max_levels rule of each driver), SSSP and WCC
+    equal to K6 on one card, PageRank within rtol 1e-4 of float64 (at the
+    driver's steps under the tol rule, within one of the float64 rule's
+    count; or 20 steps)."""
     mesh = pdist.make_mesh([dev] * MESH_SHARDS)
     mesh2 = pdist.make_mesh_2d([dev] * (MESH_2D[0] * MESH_2D[1]),
                                rows=MESH_2D[0])
@@ -2841,9 +2874,9 @@ def mesh_drivers(g1, g2, dev):
     def pr_tol_check(got, st):
         # the float64 oracle at the driver's own step count: float32 and
         # float64 L1 changes may cross the tol one step apart
-        assert abs(st["steps"] - g1.pr_tol_steps) <= 1, (
-            st["steps"], g1.pr_tol_steps)
-        want, _ = pagerank64(g1.src, g1.dst, g1.n, tol=None,
+        assert abs(st["steps"] - g.pr_tol_steps) <= 1, (
+            st["steps"], g.pr_tol_steps)
+        want, _ = pagerank64(g.src, g.dst, g.n, tol=None,
                              max_iters=st["steps"])
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
 
@@ -2851,65 +2884,63 @@ def mesh_drivers(g1, g2, dev):
         return lambda got, st: np.testing.assert_array_equal(got, want)
 
     D = pdist
-    g1_drivers = [  # (name, layout, kind, call(g, stats), check)
+    drivers = [  # (name, layout, kind, call(g, stats), check)
         ("dist_bfs", "1d", "bfs", lambda g, st: D.dist_bfs(
             mesh, g.src, g.dst, None, g.n, g.source, stats=st),
-         eq(g1.levels)),
+         eq(g.levels)),
         ("dist_bfs max_levels=3", "1d", "bfs", lambda g, st: D.dist_bfs(
             mesh, g.src, g.dst, None, g.n, g.source, 3, stats=st),
-         eq(cut(g1.levels, 2))),
+         eq(cut(g.levels, 2))),
         ("dist_pagerank", "1d", "pr", lambda g, st: D.dist_pagerank(
             mesh, g.src, g.dst, g.n, stats=st), pr_tol_check),
         ("dist_sssp", "1d", "pr", lambda g, st: D.dist_sssp(
-            mesh, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g1.sssp)),
+            mesh, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g.sssp)),
         ("dist_wcc", "1d", "pr", lambda g, st: D.dist_wcc(
-            mesh, g.src, g.dst, g.n, stats=st), eq(g1.wcc))]
-    g2_drivers = [
+            mesh, g.src, g.dst, g.n, stats=st), eq(g.wcc)),
         ("dist_bfs_fused", "1d", "bfs", lambda g, st: D.dist_bfs_fused(
-            mesh, g.src, g.dst, g.n, g.source, stats=st), eq(g2.levels)),
+            mesh, g.src, g.dst, g.n, g.source, stats=st), eq(g.levels)),
         ("dist_bfs_fused max_levels=3", "1d", "bfs",
          lambda g, st: D.dist_bfs_fused(mesh, g.src, g.dst, g.n, g.source, 3,
-                                        stats=st), eq(cut(g2.levels, 3))),
+                                        stats=st), eq(cut(g.levels, 3))),
         ("dist_bfs_fused_bitmap", "1dbm", "bfs",
          lambda g, st: D.dist_bfs_fused_bitmap(mesh, g.src, g.dst, g.n,
                                                g.source, stats=st),
-         eq(g2.levels)),
+         eq(g.levels)),
         ("dist_pagerank_fused", "1d", "pr",
          lambda g, st: D.dist_pagerank_fused(mesh, g.src, g.dst, g.n,
-                                             stats=st), pr_check(g2.pr20)),
+                                             stats=st), pr_check(g.pr20)),
         ("dist_sssp_fused", "1d", "pr", lambda g, st: D.dist_sssp_fused(
-            mesh, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g2.sssp)),
+            mesh, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g.sssp)),
         ("dist_wcc_fused", "1d", "pr", lambda g, st: D.dist_wcc_fused(
-            mesh, g.src, g.dst, g.n, stats=st), eq(g2.wcc)),
+            mesh, g.src, g.dst, g.n, stats=st), eq(g.wcc)),
         ("dist_bfs_2d", "2d", "bfs", lambda g, st: D.dist_bfs_2d(
-            mesh2, g.src, g.dst, g.n, g.source, stats=st), eq(g2.levels)),
+            mesh2, g.src, g.dst, g.n, g.source, stats=st), eq(g.levels)),
         ("dist_bfs_2d_bitmap", "2d", "bfs", lambda g, st: D.dist_bfs_2d_bitmap(
-            mesh2, g.src, g.dst, g.n, g.source, stats=st), eq(g2.levels)),
+            mesh2, g.src, g.dst, g.n, g.source, stats=st), eq(g.levels)),
         ("dist_pagerank_2d", "2d", "pr", lambda g, st: D.dist_pagerank_2d(
-            mesh2, g.src, g.dst, g.n, stats=st), pr_check(g2.pr20)),
+            mesh2, g.src, g.dst, g.n, stats=st), pr_check(g.pr20)),
         ("dist_sssp_2d", "2d", "pr", lambda g, st: D.dist_sssp_2d(
-            mesh2, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g2.sssp))]
+            mesh2, g.src, g.dst, g.w, g.n, g.source, stats=st), eq(g.sssp))]
     runs = []
-    for g, drivers in ((g1, g1_drivers), (g2, g2_drivers)):
-        for name, layout, kind, fn, check in drivers:
-            st = {}
-            t0 = time.perf_counter()
-            out = fn(g, st)
-            if isinstance(out, torch.Tensor):
-                out = out.cpu().numpy()
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            check(out, st)
-            shape = MESH_2D if layout == "2d" else (MESH_SHARDS,)
-            r = {"driver": name, "rmat_scale": g.scale, "n": g.n,
-                 "edges": len(g.src), "s": secs, "shard_s": st["shard_s"],
-                 "loop_s": secs - st["shard_s"], "steps": st["steps"],
-                 "comm_bytes_per_iter": pdist.comm_bytes_per_iter(
-                     kind, layout, g.n, shape)}
-            if name == "dist_pagerank":
-                r["float64_oracle_steps"] = g.pr_tol_steps
-            runs.append(r)
-            print(f"mesh driver: {json.dumps(r)} oracle=ok", flush=True)
+    for name, layout, kind, fn, check in drivers:
+        st = {}
+        t0 = time.perf_counter()
+        out = fn(g, st)
+        if isinstance(out, torch.Tensor):
+            out = out.cpu().numpy()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(out, st)
+        shape = MESH_2D if layout == "2d" else (MESH_SHARDS,)
+        r = {"driver": name, "rmat_scale": g.scale, "n": g.n,
+             "edges": len(g.src), "s": secs, "shard_s": st["shard_s"],
+             "loop_s": secs - st["shard_s"], "steps": st["steps"],
+             "comm_bytes_per_iter": pdist.comm_bytes_per_iter(
+                 kind, layout, g.n, shape)}
+        if name == "dist_pagerank":
+            r["float64_oracle_steps"] = g.pr_tol_steps
+        runs.append(r)
+        print(f"mesh driver: {json.dumps(r)} oracle=ok", flush=True)
     return runs
 
 
@@ -2973,7 +3004,7 @@ def mesh_algo_queries(t):
     return qs
 
 
-def mesh_path(db, t, g1, g2, dev, single):
+def mesh_path(db, t, g, dev, single):
     """Path g: the mesh route with 4 shards on the one card
     (FALKOR_MESH_DEVICES=cuda:0*4): (i) the algorithm mix, (ii) the LDBC
     read mix with FALKOR_DIST_QUERY=force, then auto, each against path
@@ -2993,7 +3024,7 @@ def mesh_path(db, t, g1, g2, dev, single):
                 g_dev, ldbc_queries(t), {"FALKOR_DIST_QUERY": mode}, single)
         print(f"mesh read mix: s={time.perf_counter() - t0:.1f}", flush=True)
         t0 = time.perf_counter()
-        out["drivers"] = mesh_drivers(g1, g2, dev)
+        out["drivers"] = mesh_drivers(g, dev)
         print(f"mesh drivers: s={time.perf_counter() - t0:.1f}", flush=True)
     router._cached_mesh = None
     return out
@@ -3076,12 +3107,21 @@ FAMILY_KERNELS = ("multi_bfs", "packed_levels", "ell_pagerank",
                   "packed_epilogue", "packed_counts")
 
 
+_T_START = [time.perf_counter()]  # main() sets it at its start
+
+
+def at_s():
+    """Seconds since main() started, for the phase lines."""
+    return round(time.perf_counter() - _T_START[0], 1)
+
+
 def path_launches(what, kernels, total):
     """Read the launch counts of a main path just after it (they were set to
     0 just before it), fail if one of its kernels never launched, and add
     them to `total`."""
     got = {k: cuda.KERNELS[k].launches for k in kernels}
-    print(f"main path launches ({what}): {json.dumps(got)}", flush=True)
+    print(f"main path launches ({what}): {json.dumps(got)} at_s={at_s()}",
+          flush=True)
     missing = [k for k in kernels if got[k] == 0]
     assert not missing, f"kernels not launched on the {what} path: {missing}"
     for k, c in got.items():
@@ -3096,13 +3136,13 @@ def main(argv=None):
                     help="RMAT scale of the batched BFS path (bench_port.py's "
                          "full size is 24)")
     ap.add_argument("--mesh-scale", type=int, default=20,
-                    help="RMAT scale of path g's fused, bitmap and 2D mesh "
-                         "drivers (cut from 22 for the run's time)")
+                    help="RMAT scale of path g's mesh drivers (cut from 22 "
+                         "for the run's time)")
     ap.add_argument("--vectors", type=int, default=SIFT.n,
                     help="base vectors of the sift-128-euclidean index "
                          "(1000000); glove-100-angular is cut in proportion")
     args = ap.parse_args(argv)
-    t_start = time.perf_counter()
+    t_start = _T_START[0] = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full
     sift = dataclasses.replace(SIFT, n=args.vectors)
     glove = dataclasses.replace(
@@ -3162,7 +3202,8 @@ def main(argv=None):
     load_ldbc(db_cpu.select_graph("ldbc"), t)
     store = db._get_or_create("ldbc").store
     print(f"load: nodes={store.node_count} edges={store.edge_count} "
-          f"s={time.perf_counter() - t0:.1f} (both databases)", flush=True)
+          f"s={time.perf_counter() - t0:.1f} (both databases) at_s={at_s()}",
+          flush=True)
 
     krng = np.random.default_rng(SEED + 1)
     results = {
@@ -3195,7 +3236,7 @@ def main(argv=None):
     semiring_rows, semiring_outs, _ = check_semiring(sg, dev)
     results.update(semiring_rows)
     print(f"semiring kernels: graph_s={t_graph:.1f} "
-          f"s={time.perf_counter() - t0:.1f}", flush=True)
+          f"s={time.perf_counter() - t0:.1f} at_s={at_s()}", flush=True)
     t0 = time.perf_counter()
     gb = gather_bench(rmat_edges, prep.n, dev)
     t_inputs = time.perf_counter() - t0
@@ -3215,7 +3256,8 @@ def main(argv=None):
     results["shard_reduce"] = check_shard_reduce(rmat_edges, prep.n, dev)
     results["mesh_bits"] = check_mesh_bits(1 << args.mesh_scale, dev)
     results["mesh_update"] = check_mesh_update(prep.n, dev)
-    print(f"mesh kernels: s={time.perf_counter() - t0:.1f}", flush=True)
+    print(f"mesh kernels: s={time.perf_counter() - t0:.1f} at_s={at_s()}",
+          flush=True)
 
     # phase 4: the main paths, each with its launches counted from just
     # before it to just after it
@@ -3242,17 +3284,15 @@ def main(argv=None):
     path_launches("harmonic centrality", HARMONIC_KERNELS, launches)
 
     t0 = time.perf_counter()
-    g1 = MeshGraph(args.rmat_scale, dev)
-    g2 = MeshGraph(args.mesh_scale, dev)
-    print(f"mesh graphs: RMAT-{g1.scale} oracle_s={g1.oracle_s:.1f} "
-          f"RMAT-{g2.scale} oracle_s={g2.oracle_s:.1f} "
+    g = MeshGraph(args.mesh_scale, dev)
+    print(f"mesh graph: RMAT-{g.scale} oracle_s={g.oracle_s:.1f} "
           f"s={time.perf_counter() - t0:.1f}", flush=True)
     cuda.reset_launches()
     t0 = time.perf_counter()
-    mesh_stats = mesh_path(db, t, g1, g2, dev, single)
+    mesh_stats = mesh_path(db, t, g, dev, single)
     path_launches("device mesh", MESH_KERNELS, launches)
     print(f"mesh path: s={time.perf_counter() - t0:.1f}", flush=True)
-    del db, db_cpu, store, g1, g2, single
+    del db, db_cpu, store, g, single
 
     cuda.reset_launches()
     bfs_stats, gated_counts = bfs_path(prep, dev,

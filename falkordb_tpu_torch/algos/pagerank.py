@@ -3,8 +3,10 @@
 r <- (1-d)/n + d * (A^T D^-1 r + dangling/n), a row-wise sum over the
 transpose CSR per step, to the tolerance.  falkordb_tpu runs this as a
 jitted while_loop (algos/pagerank.py:_pagerank_jit); here CUDA tensors
-launch csrc/pagerank.cu, whose host loop reads the step's L1 change, and
-CPU tensors run `pagerank_plain`.
+launch csrc/pagerank.cu, one persistent cooperative launch a call that runs
+every step over the tiles and tasks of `pagerank_plan` (cut once a
+transpose CSR and cached on it) and stops on the card, and CPU tensors run
+`pagerank_plain`.
 
 The blocked-ELL variant (pagerank_ell, which no procedure calls) steps over
 the buckets of a transpose ELL: CUDA tensors launch csrc/ell_pagerank.cu
@@ -29,6 +31,94 @@ from falkordb_tpu_torch.sparse.ell import as_tensor, ell_device
 # blocks of a pass over the nodes, at most: csrc/pagerank.cu sizes its grid
 # to the length of the per-block scratch it is given
 MAX_BLOCKS = 132 * 16
+# K5's plan: a tile's rows start within TILE_ITEMS merge-path items (a row
+# is its entries plus its end), so a tile holds at most TILE_ITEMS +
+# LONG_ROW items (csrc/pagerank.cu kTileCap); rows wider than LONG_ROW go
+# in tasks of at most TASK_EDGES entries
+TILE_ITEMS = 2048
+LONG_ROW = 2048
+TILE_CAP = 4097
+TASK_EDGES = 4096
+
+
+def plan_arrays(ip: np.ndarray):
+    """K5's cut of the rows of a transpose CSR whose indptr, clamped at nnz,
+    is `ip` (int64): (tiles (n_tiles, 4) int32 (r0, r1, ip[r0], ip[r1]),
+    runs [r0, r1) of whole rows of at most LONG_ROW entries, in order, a row
+    in the tile of its first merge-path item counted in steps of
+    TILE_ITEMS; tasks (n_tasks, 6) int64 (row, lo, hi, long row, first
+    task, task count), each wider row's entries in runs of at most
+    TASK_EDGES, in order; the number of wider rows)."""
+    if TILE_ITEMS + LONG_ROW > TILE_CAP:
+        raise ValueError("TILE_ITEMS + LONG_ROW exceeds the kernel's tile "
+                         f"of {TILE_CAP} items")
+    deg = ip[1:] - ip[:-1]
+    long = deg > LONG_ROW
+    items = np.where(long, 0, deg + 1)
+    tile = (np.cumsum(items) - items) // TILE_ITEMS
+    rows = np.nonzero(~long)[0]
+    cut = np.ones(len(rows), dtype=bool)
+    cut[1:] = (tile[rows[1:]] != tile[rows[:-1]]) | (rows[1:] != rows[:-1] + 1)
+    first = np.nonzero(cut)[0]
+    r0 = rows[first]
+    r1 = np.append(rows[first[1:] - 1], rows[-1:]) + 1
+    tiles = np.stack([r0, r1, ip[r0], ip[r1]], axis=1).astype(np.int32)
+    wide = np.nonzero(long)[0]
+    count = -(-deg[wide] // TASK_EDGES)
+    start = np.zeros(len(wide) + 1, dtype=np.int64)
+    np.cumsum(count, out=start[1:])
+    li = np.repeat(np.arange(len(wide)), count)
+    lo = ip[wide[li]] + (np.arange(start[-1]) - start[li]) * TASK_EDGES
+    hi = np.minimum(lo + TASK_EDGES, ip[wide[li] + 1])
+    tasks = np.stack([wide[li], lo, hi, li, start[li], count[li]],
+                     axis=1).astype(np.int64).reshape(-1, 6)
+    return tiles, tasks, len(wide)
+
+
+@dataclasses.dataclass(eq=False)
+class PagerankPlan:
+    """K5's plan of one transpose CSR on its device (`plan_arrays`), with
+    the long rows' task counters (zero between calls: a row's last task
+    resets its own)."""
+    tiles: torch.Tensor
+    tasks: torch.Tensor
+    n_long: int
+    counters: torch.Tensor
+
+
+def pagerank_plan(at: CSR) -> PagerankPlan:
+    """K5's plan of `at`, made once and cached on the snapshot."""
+    hit = at.__dict__.get("_pagerank_plan")
+    if hit is None:
+        ip = np.minimum(at.host_view()[0].astype(np.int64), int(at.nnz))
+        tiles, tasks, n_long = plan_arrays(ip)
+        dev = at.device
+        hit = PagerankPlan(torch.from_numpy(tiles).to(dev),
+                           torch.from_numpy(tasks).to(dev), n_long,
+                           torch.zeros(max(n_long, 1), dtype=torch.int32,
+                                       device=dev))
+        at.__dict__["_pagerank_plan"] = hit
+    return hit
+
+
+_PAGERANK = _cuda.Entry("fk_pagerank", "pagerank")
+_CONTROL: dict = {}  # CUDA device index -> K5's control words, staging
+
+
+def _control(dev: int):
+    """The addresses of K5's control words on CUDA device `dev` (csrc/
+    pagerank.cu `Control`: the grid barrier, a ticket, the sums, the
+    result), zeroed once at their first use there, and of the pinned host
+    words the result is copied to.  Calls share them in stream order."""
+    hit = _CONTROL.get(dev)
+    if hit is None:
+        words = -(-_cuda.lib().fk_pagerank_control_bytes() // 4)
+        ctl = torch.zeros(words, dtype=torch.int32,
+                          device=torch.device("cuda", dev))
+        staging = torch.zeros(8, dtype=torch.int32, pin_memory=True)
+        hit = _CONTROL[dev] = (ctl, staging, ctl.data_ptr(),
+                               staging.data_ptr())
+    return hit[2], hit[3]
 
 
 def pagerank(a_csr: CSR, damping=0.85, tol=1e-4, max_iters=100):
@@ -40,6 +130,7 @@ def pagerank(a_csr: CSR, damping=0.85, tol=1e-4, max_iters=100):
     return pagerank_transposed(at, damping, tol, max_iters)[0]
 
 
+@functools.lru_cache(maxsize=64)
 def _scalars(n: int, damping, tol):
     """The float32 constants of the reference: r0 = 1/n (rounded from a
     double), d, tol and (1 - d)/n computed in float32."""
@@ -54,28 +145,35 @@ def pagerank_transposed(at: CSR, damping=0.85, tol=1e-4, max_iters=100):
     reference's stopping rule: the first step always runs, then it stops at
     L1 <= tol or after max_iters steps."""
     n = at.n_rows
-    if not _cuda.on_cuda(at.indptr, at.cols, at.nnz):
-        return pagerank_plain(at.indptr, at.rows, at.cols, at.nnz, n,
-                              damping, tol, max_iters)
-    _cuda.check_input("pagerank", "indptr", at.indptr, torch.int32, n + 1)
-    _cuda.check_input("pagerank", "cols", at.cols, torch.int32)
+    indptr, cols, nnz = at.indptr, at.cols, at.nnz
+    if not _cuda.on_card(indptr, cols, nnz):
+        return pagerank_plain(indptr, at.rows, cols, nnz, n, damping, tol,
+                              max_iters)
+    for name, t, size in (("indptr", indptr, n + 1), ("cols", cols, None)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
+                or (size is not None and t.numel() != size):
+            raise _cuda.input_error("pagerank", name, t, torch.int32, size)
+    if nnz.dtype != torch.int32 or nnz.numel() != 1:
+        raise _cuda.input_error("pagerank", "nnz", nnz, torch.int32, 1, None)
+    dev = indptr.get_device()
+    f32 = dict(dtype=torch.float32, device=indptr.device)
+    if n == 0:
+        return torch.empty(0, **f32), 0, 0.0
+    plan = pagerank_plan(at)
     r0, d, tol32, base = _scalars(n, damping, tol)
-    dev = at.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    deg = torch.empty(n, dtype=torch.int32, device=dev)
-    inv_out, contrib = torch.empty(n, **f32), torch.empty(n, **f32)
+    ctl, staging = _control(dev)
     r_a, r_b = torch.empty(n, **f32), torch.empty(n, **f32)
-    partial, scalars = torch.empty(MAX_BLOCKS, **f32), torch.empty(2, **f32)
+    n_tasks = plan.tasks.shape[0]
+    scratch = torch.empty(4 * n + 4 * (MAX_BLOCKS + plan.n_long) + n_tasks,
+                          **f32)
     iters, err, in_b = ctypes.c_int64(0), ctypes.c_float(0), ctypes.c_int32(0)
-    p = _cuda.ptr
-    rc = _cuda.lib().fk_pagerank(
-        p(at.indptr), p(at.cols), p(at.nnz), n, float(d), float(tol32),
-        int(max_iters), float(r0), float(base), p(deg), p(inv_out),
-        p(contrib), p(r_a), p(r_b), p(partial), partial.numel(), p(scalars),
-        ctypes.byref(iters), ctypes.byref(err), ctypes.byref(in_b),
-        _cuda.stream_ptr(r_a))
-    _cuda.check(rc, "pagerank")
-    _cuda.count_launch("pagerank")
+    _PAGERANK.launch(
+        dev, indptr.data_ptr(), cols.data_ptr(), nnz.data_ptr(), n,
+        float(d), float(tol32), int(max_iters), float(r0), float(base),
+        plan.tiles.data_ptr(), plan.tiles.shape[0], plan.tasks.data_ptr(),
+        n_tasks, plan.n_long, plan.counters.data_ptr(), r_a.data_ptr(),
+        r_b.data_ptr(), scratch.data_ptr(), MAX_BLOCKS, ctl, staging,
+        ctypes.byref(iters), ctypes.byref(err), ctypes.byref(in_b))
     return (r_b if in_b.value else r_a), int(iters.value), float(err.value)
 
 

@@ -1,7 +1,8 @@
 // Shared pieces of the PageRank kernels (K5 pagerank.cu, K18
-// ell_pagerank.cu): the reference's clip gather and the fixed-order float32
-// block reduction, so that every sum of a step has one order from run to
-// run.
+// ell_pagerank.cu, K26 mesh_update.cu): the reference's clip gather and the
+// fixed-order float32 block reduction, so that every sum of a step has one
+// order from run to run, and the one-launch fold of per-block partials (a
+// ticket: the last block to finish adds them in block order).
 #pragma once
 
 #include "common.cuh"
@@ -41,6 +42,37 @@ __global__ void finish_kernel(const float* __restrict__ partial, int m,
   for (int i = threadIdx.x; i < m; i += kThreads) s = __fadd_rn(s, partial[i]);
   s = block_sum(s);
   if (threadIdx.x == 0) *out = div_n ? __fdiv_rn(s, (float)n) : s;
+}
+
+// True in every thread of the block that is the last of the grid to get
+// here.  What thread 0 of each block wrote before the call (its partial)
+// is visible to that last block: thread 0 fences before it takes its
+// ticket (the other threads' writes need not wait).  The caller resets
+// the ticket.
+__device__ __forceinline__ bool last_block(unsigned* ticket) {
+  __shared__ unsigned is_last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  return is_last != 0;
+}
+
+// sum(partial[0:m]) in finish_kernel's order (valid in thread 0), read
+// through L2 (other blocks of this launch wrote the partials), four loads
+// in flight a thread.
+__device__ float fold_partials(const float* partial, int m) {
+  float s = 0.0f;
+  int i = threadIdx.x;
+  for (; i + 3 * kThreads < m; i += 4 * kThreads) {
+    const float a = __ldcg(partial + i), b = __ldcg(partial + i + kThreads);
+    const float c = __ldcg(partial + i + 2 * kThreads), d = __ldcg(partial + i + 3 * kThreads);
+    s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, a), b), c), d);
+  }
+  for (; i < m; i += kThreads) s = __fadd_rn(s, __ldcg(partial + i));
+  return block_sum(s);
 }
 
 }  // namespace

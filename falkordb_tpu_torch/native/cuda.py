@@ -17,8 +17,8 @@ The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
 kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
-one.  K24 and K30 take it; the other wrappers still take `on_cuda`,
-`check_input` and a `lib()` lookup a call.
+one.  K5, K24, K26 and K30 take it; the other wrappers still take
+`on_cuda`, `check_input` and a `lib()` lookup a call.
 """
 
 from __future__ import annotations
@@ -147,8 +147,9 @@ _SIGNATURES = {
     "fk_group_partials": [_P, _P, _P, _I64, _I64, _INT, _P, _P, _P],
     "fk_topk": [_P, _I64, _INT, _P, _I64, _P, _P],
     "fk_bfs_levels": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _OUT_I64, _P],
-    "fk_pagerank": [_P, _P, _P, _I64, _F32, _F32, _I64, _F32, _F32, _P, _P,
-                    _P, _P, _P, _P, _I64, _P, _OUT_I64,
+    "fk_pagerank_control_bytes": [],
+    "fk_pagerank": [_P, _P, _P, _I64, _F32, _F32, _I64, _F32, _F32, _P, _I64,
+                    _P, _I64, _I64, _P, _P, _P, _P, _I64, _P, _P, _OUT_I64,
                     ctypes.POINTER(ctypes.c_float), _OUT_I32, _P],
     "fk_wcc": [_P, _P, _P, _I64, _P, _P, _P, _OUT_I64, _OUT_I32, _P],
     "fk_sssp": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _OUT_I32,
@@ -196,8 +197,9 @@ _SIGNATURES = {
     "fk_mesh_unpack": [_P, _I64, _P, _P],
     "fk_mesh_or_fold": [_P, _I64, _I64, _P, _P],
     "fk_mesh_bits_epilogue": [_P, _P, _I64, _INT, _P, _P, _P, _P],
-    "fk_mesh_bfs_update": [_P, _P, _I64, _INT, _P, _P, _P, _P],
-    "fk_mesh_min_update": [_INT, _P, _P, _I64, _I64, _P, _P, _P],
+    "fk_mesh_scratch_bytes": [],
+    "fk_mesh_bfs_update": [_P, _P, _I64, _INT, _P, _P, _P, _P, _P],
+    "fk_mesh_min_update": [_INT, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "fk_mesh_dot": [_P, _P, _I64, _P, _P, _P],
     "fk_mesh_pagerank_update": [_P, _P, _P, _P, _I64, _I64, _F32, _F32, _P,
                                 _P, _P, _P],
@@ -210,7 +212,9 @@ _SIGNATURES = {
                              _P],
 }
 
-_RESTYPES = {"fk_kmeans_assign_scratch": _I64}  # the rest return an error
+_RESTYPES = {"fk_kmeans_assign_scratch": _I64,
+             "fk_pagerank_control_bytes": _I64,
+             "fk_mesh_scratch_bytes": _I64}  # the rest return an error
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -5,9 +5,9 @@ vector after a collective (csrc/mesh_update.cu).
 
 Each wrapper takes the plain PyTorch version beside it for CPU tensors and
 launches its kernel for CUDA tensors, on the tensors' own device (a ctypes
-launch runs on the current device: K24 takes native/cuda.py's lean path,
-which enters torch.cuda.device only when that device is not the current
-one; K25's and K26's wrappers enter it every call).  Nothing is written in
+launch runs on the current device: K24 and K26 take native/cuda.py's lean
+path, which enters torch.cuda.device only when that device is not the
+current one; K25's wrappers enter it every call).  Nothing is written in
 place."""
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ TILE_ITEMS = 2048  # K24: a tile's segments start within 2048 items
 LONG_SEG = 2048  # wider segments are cut into tasks
 TASK_EDGES = 4096  # the edges of a task
 TILE_CAP = TILE_ITEMS + LONG_SEG + 1  # csrc/shard_reduce.cu kTileCap
-SUM_BLOCKS = 1024  # K26's fixed grid for float sums
 
 
 def _launch(name, fn, t, *args):
@@ -300,23 +299,51 @@ def bits_epilogue_plain(reach, levels, d):
 
 # -- K26: vector updates after a collective --------------------------------
 
+_BFS_UPDATE = _cuda.Entry("fk_mesh_bfs_update", "mesh_update")
+_MIN_UPDATE = _cuda.Entry("fk_mesh_min_update", "mesh_update")
+_DOT = _cuda.Entry("fk_mesh_dot", "mesh_update")
+_PR_UPDATE = _cuda.Entry("fk_mesh_pagerank_update", "mesh_update")
+_SCRATCH: dict = {}  # CUDA device index -> K26's scratch there
+
+
+def _scratch(dev: int) -> int:
+    """The address of K26's scratch on CUDA device `dev` (csrc/
+    mesh_update.cu `Scratch`: the block partials, the ticket, a count and
+    a flag), zeroed once at its first use there: every launch leaves it
+    zero again.  Launches share it in stream order, so K26 runs on one
+    stream a device at a time, as the mesh drivers run it."""
+    t = _SCRATCH.get(dev)
+    if t is None:
+        words = -(-_cuda.lib().fk_mesh_scratch_bytes() // 4)
+        t = _SCRATCH[dev] = torch.zeros(words, dtype=torch.int32,
+                                        device=torch.device("cuda", dev))
+    return t.data_ptr()
+
+
+def _vec(name, t, dtype, n):
+    """Raise unless t is a contiguous 1-d tensor of n `dtype` (None passes)."""
+    if t is not None and (t.dtype != dtype or t.dim() != 1 or t.numel() != n
+                          or not t.is_contiguous()):
+        raise _cuda.input_error("mesh_update", name, t, dtype, n)
+
 
 def bfs_update(reach: torch.Tensor, levels: torch.Tensor, depth: int,
                with_levels: bool = True):
     """fresh = (levels < 0) & (reach > 0) as int32; levels set to depth
     where fresh (None unless with_levels); count, a one-element int32 tensor
     of the fresh nodes."""
-    if not _cuda.on_cuda(reach, levels):
+    if not _cuda.on_card(reach, levels):
         return bfs_update_plain(reach, levels, depth, with_levels)
-    _cuda.check_input("mesh_update", "reach", reach, torch.int32)
-    _cuda.check_input("mesh_update", "levels", levels, torch.int32,
-                      reach.numel())
+    n = reach.numel()
+    _vec("reach", reach, torch.int32, n)
+    _vec("levels", levels, torch.int32, n)
+    dev = levels.get_device()
     fresh = torch.empty_like(levels)
     out = torch.empty_like(levels) if with_levels else None
     count = torch.empty(1, dtype=torch.int32, device=levels.device)
-    p = _cuda.ptr
-    _launch("mesh_update", _cuda.lib().fk_mesh_bfs_update, levels, p(reach),
-            p(levels), levels.numel(), depth, p(fresh), p(out), p(count))
+    _BFS_UPDATE.launch(dev, reach.data_ptr(), levels.data_ptr(), n, depth,
+                       fresh.data_ptr(), None if out is None
+                       else out.data_ptr(), _scratch(dev), count.data_ptr())
     return fresh, out, count
 
 
@@ -333,18 +360,19 @@ def min_update(old: torch.Tensor, blocks: torch.Tensor):
     n = old.numel()
     if blocks.numel() % max(n, 1):
         raise ValueError("min_update: blocks must be whole vectors")
-    if not _cuda.on_cuda(old, blocks):
+    if not _cuda.on_card(old, blocks):
         return min_update_plain(old, blocks)
     if old.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"min_update: no kernel for {old.dtype}")
-    _cuda.check_input("mesh_update", "old", old, old.dtype)
-    _cuda.check_input("mesh_update", "blocks", blocks.reshape(-1), old.dtype)
+    _vec("old", old, old.dtype, n)
+    flat = blocks.reshape(-1)
+    _vec("blocks", flat, old.dtype, flat.numel())
+    dev = old.get_device()
     out = torch.empty_like(old)
     changed = torch.empty(1, dtype=torch.int32, device=old.device)
-    p = _cuda.ptr
-    _launch("mesh_update", _cuda.lib().fk_mesh_min_update, old,
-            int(old.dtype == torch.float32), p(old), p(blocks),
-            blocks.numel() // max(n, 1), n, p(out), p(changed))
+    _MIN_UPDATE.launch(dev, int(old.dtype == torch.float32), old.data_ptr(),
+                       flat.data_ptr(), flat.numel() // max(n, 1), n,
+                       out.data_ptr(), _scratch(dev), changed.data_ptr())
     return out, changed
 
 
@@ -357,15 +385,15 @@ def min_update_plain(old, blocks):
 def dot_sum(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """sum(a * b) (or sum(a)) in float32, in a fixed order on the card: a
     one-element tensor."""
-    if not _cuda.on_cuda(a, b):
+    if not _cuda.on_card(a, b):
         return (a * b if b is not None else a).sum().reshape(1)
-    _cuda.check_input("mesh_update", "a", a, torch.float32)
-    _cuda.check_input("mesh_update", "b", b, torch.float32, a.numel())
-    partial = torch.empty(SUM_BLOCKS, dtype=torch.float32, device=a.device)
+    n = a.numel()
+    _vec("a", a, torch.float32, n)
+    _vec("b", b, torch.float32, n)
+    dev = a.get_device()
     out = torch.empty(1, dtype=torch.float32, device=a.device)
-    p = _cuda.ptr
-    _launch("mesh_update", _cuda.lib().fk_mesh_dot, a, p(a), p(b), a.numel(),
-            p(partial), p(out))
+    _DOT.launch(dev, a.data_ptr(), None if b is None else b.data_ptr(), n,
+                _scratch(dev), out.data_ptr())
     return out
 
 
@@ -374,22 +402,25 @@ def pagerank_update(acc, rank, dsum, n_total: int, damping: float,
     """new = (1-d)/n + d * (acc + dsum/n) in float32 (times val where
     given); with l1, also sum(|new - rank|) as a one-element tensor, else
     None.  dsum: a one-element float32 tensor, the dangling sum."""
-    base = (1.0 - damping) / n_total
-    if not _cuda.on_cuda(acc, rank, dsum, val):
+    if not _cuda.on_card(acc, rank, dsum, val):
         return pagerank_update_plain(acc, rank, dsum, n_total, damping, val,
                                      l1)
-    for name, t in (("acc", acc), ("rank", rank), ("val", val)):
-        _cuda.check_input("mesh_update", name, t, torch.float32, acc.numel())
-    _cuda.check_input("mesh_update", "dsum", dsum, torch.float32, 1)
+    n = acc.numel()
+    _vec("acc", acc, torch.float32, n)
+    _vec("rank", rank, torch.float32, n)
+    _vec("val", val, torch.float32, n)
+    if dsum.dtype != torch.float32 or dsum.numel() != 1:
+        raise _cuda.input_error("mesh_update", "dsum", dsum, torch.float32, 1,
+                                None)
+    dev = acc.get_device()
     out = torch.empty_like(acc)
-    partial = (torch.empty(SUM_BLOCKS, dtype=torch.float32,
-                           device=acc.device) if l1 else None)
     l1_out = torch.empty(1, dtype=torch.float32, device=acc.device) \
         if l1 else None
-    p = _cuda.ptr
-    _launch("mesh_update", _cuda.lib().fk_mesh_pagerank_update, acc, p(acc),
-            p(rank), p(val), p(dsum), acc.numel(), n_total, base, damping,
-            p(out), p(partial), p(l1_out))
+    _PR_UPDATE.launch(dev, acc.data_ptr(), rank.data_ptr(),
+                      None if val is None else val.data_ptr(),
+                      dsum.data_ptr(), n, n_total, (1.0 - damping) / n_total,
+                      damping, out.data_ptr(), _scratch(dev),
+                      None if l1_out is None else l1_out.data_ptr())
     return out, l1_out
 
 

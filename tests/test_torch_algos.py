@@ -131,6 +131,70 @@ def test_pagerank_matches_jax(rng, kind, tol, max_iters):
     assert _jax_ran(jc, n, tol, max_iters, steps)
 
 
+def _walk_plan(ip):
+    """K5's tile plan by a row-by-row walk of the clamped indptr: a row of at
+    most LONG_ROW entries joins the open tile while its first merge-path
+    item (its entries, then its end) falls in the tile's TILE_ITEMS window
+    and no wider row came between; a wider row closes the tile and becomes
+    TASK_EDGES-entry tasks."""
+    from falkordb_tpu_torch.algos import pagerank as tpr
+
+    tiles, tasks, wide = [], [], 0
+    items, cur = 0, None  # merge-path items of the short rows so far
+    for v in range(len(ip) - 1):
+        deg = int(ip[v + 1] - ip[v])
+        if deg > tpr.LONG_ROW:
+            cur = None
+            count = -(-deg // tpr.TASK_EDGES)
+            for j in range(count):
+                lo = int(ip[v]) + j * tpr.TASK_EDGES
+                tasks.append([v, lo, min(lo + tpr.TASK_EDGES, int(ip[v + 1])),
+                              wide, len(tasks) - j, count])
+            wide += 1
+            continue
+        window = items // tpr.TILE_ITEMS
+        if cur is None or cur[4] != window:
+            cur = [v, v, 0, 0, window]
+            tiles.append(cur)
+        cur[1] = v + 1
+        items += deg + 1
+    return ([[a, b, int(ip[a]), int(ip[b])] for a, b, _, _, _ in tiles],
+            tasks, wide)
+
+
+def test_pagerank_plan_matches_a_walk():
+    """K5's tiles and tasks (algos/pagerank.py `plan_arrays`) are a walk of
+    the same indptr: whole rows, in order, each tile within the kernel's
+    TILE_CAP items; the rows over LONG_ROW entries in tasks, in order; the
+    plan cut once a snapshot (clamped at nnz, past a padded capacity) and
+    cached on it."""
+    from falkordb_tpu_torch.algos import pagerank as tpr
+
+    rng = np.random.default_rng(14)
+    n = 3000
+    deg = rng.integers(0, 12, n)
+    deg[[5, 6, 900, 2999]] = [2049, 9000, 2048, 4097]  # hubs and the edges
+    deg[1000:1300] = 0  # a run of empty rows
+    ip = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    tiles, tasks, wide = tpr.plan_arrays(ip)
+    want_tiles, want_tasks, want_wide = _walk_plan(ip)
+    np.testing.assert_array_equal(tiles, np.array(want_tiles, np.int32))
+    np.testing.assert_array_equal(tasks, np.array(want_tasks, np.int64))
+    assert wide == want_wide == 3 and tasks.shape == (1 + 3 + 2, 6)
+    assert ((tiles[:, 1] - tiles[:, 0]) + (tiles[:, 3] - tiles[:, 2])
+            <= tpr.TILE_CAP).all()
+    nnz = int(ip[-1])
+    src = rng.integers(0, n, nnz)
+    dst = np.repeat(np.arange(n), deg)
+    at = CSR.from_coo_numpy(dst, src, None, shape=(n, n), dedup=False,
+                            cap=nnz + 500)
+    plan = tpr.pagerank_plan(at)
+    assert tpr.pagerank_plan(at) is plan and plan.n_long == 3
+    np.testing.assert_array_equal(plan.tiles.numpy(), tiles)
+    np.testing.assert_array_equal(plan.tasks.numpy(), tasks)
+    assert plan.counters.shape == (3,) and not plan.counters.any()
+
+
 # -- K6 WCC and SSSP ----------------------------------------------------------
 
 

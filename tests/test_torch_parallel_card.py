@@ -3,9 +3,11 @@
 shard_reduce, the bit-packed frontier, the vector updates) against its
 plain PyTorch version on the same CUDA tensors, with a segment wide enough
 for five of K24's tasks, runs of empty segments, an all-masked segment and
-a padded tail, and a frame that overflows K23's capacity; then a mesh of 4
-shards on cuda:0 through CALL algo.* and a forced MATCH, against the
-single-card route.
+a padded tail, K26's one-launch sums at n not a multiple of 4 and on
+unaligned views (the same bits twice and as on aligned copies), its counts
+and flags call after call, and on a card that is not current, and a frame
+that overflows K23's capacity; then a mesh of 4 shards on cuda:0 through
+CALL algo.* and a forced MATCH, against the single-card route.
 
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
@@ -187,6 +189,96 @@ def test_mesh_update_matches_plain(dev):
                                           l1=True)
         torch.testing.assert_close(new.cpu(), pn, rtol=1e-6, atol=0)
         torch.testing.assert_close(l1.cpu(), pl1, rtol=1e-5, atol=0)
+
+
+def _view(rng, n, dev, lo=0.0, hi=1e-5):
+    """n float32 values as a view 4 bytes past a 16-byte boundary, and the
+    same values in a tensor of their own (16-byte aligned)."""
+    buf = _t(rng.uniform(lo, hi, n + 1).astype(np.float32), dev)
+    v = buf[1:]
+    assert v.data_ptr() % 16 == 4
+    return v, v.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4_194_301, 100_003, 6])
+def test_mesh_sums_same_bits_on_views(n, dev):
+    """K26's one-launch sums: the same bits on two calls in a row (the
+    ticket and partials left zero) and on an unaligned view as on an
+    aligned copy (four-byte or 16-byte loads, one order), at n not a
+    multiple of 4; within the plain version's tolerance."""
+    rng = np.random.default_rng(8)
+    (a, ac), (b, bc) = _view(rng, n, dev), _view(rng, n, dev)
+    (val, valc) = _view(rng, n, dev, 0.0, 1.0)
+    d = K.dot_sum(a, b)
+    assert torch.equal(d, K.dot_sum(a, b)) and torch.equal(d, K.dot_sum(ac, bc))
+    torch.testing.assert_close(d.cpu(), (ac * bc).sum().reshape(1).cpu(),
+                               rtol=1e-5, atol=0)
+    s = K.dot_sum(a)
+    assert torch.equal(s, K.dot_sum(ac))
+    torch.testing.assert_close(s.cpu(), ac.sum().reshape(1).cpu(), rtol=1e-5,
+                               atol=0)
+    for v, vc in ((None, None), (val, valc)):
+        o, l1 = K.pagerank_update(a, b, d, n, 0.85, val=v, l1=True)
+        o2, l2 = K.pagerank_update(a, b, d, n, 0.85, val=v, l1=True)
+        o3, l3 = K.pagerank_update(ac, bc, d, n, 0.85, val=vc, l1=True)
+        o4, none = K.pagerank_update(a, b, d, n, 0.85, val=v)
+        assert none is None
+        for g in (o2, o3, o4):
+            assert torch.equal(o, g)
+        assert torch.equal(l1, l2) and torch.equal(l1, l3)
+        po, pl = K.pagerank_update_plain(ac.cpu(), bc.cpu(), d.cpu(), n, 0.85,
+                                         None if vc is None else vc.cpu(),
+                                         l1=True)
+        torch.testing.assert_close(o.cpu(), po, rtol=1e-6, atol=0)
+        torch.testing.assert_close(l1.cpu(), pl, rtol=1e-5, atol=0)
+    assert cuda.KERNELS["mesh_update"].launches == 13
+
+
+@pytest.mark.cuda
+def test_mesh_counts_and_flags_reset(dev):
+    """The count and the changed flag come back right call after call:
+    each launch leaves K26's scratch as it found it."""
+    rng = np.random.default_rng(9)
+    n = 100_003
+    for depth in range(3):
+        reach = _t(rng.integers(0, 3, n).astype(np.int32), dev)
+        levels = _t(rng.integers(-1, 4, n).astype(np.int32), dev)
+        count = K.bfs_update(reach, levels, depth, with_levels=False)[2]
+        want = K.bfs_update_plain(reach.cpu(), levels.cpu(), depth)[2]
+        assert int(count.item()) == int(want.item()) > 0
+    old = _t(rng.integers(0, 100, n).astype(np.int32), dev)
+    blocks = _t(rng.integers(0, 120, 2 * n).astype(np.int32), dev)
+    flags = []
+    for _ in range(2):
+        new, changed = K.min_update(old, blocks)
+        flags.append(int(changed.item()))
+        flags.append(int(K.min_update(new, blocks)[1].item()))
+    assert flags == [1, 0, 1, 0]
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    assert int(K.min_update(empty, empty)[1].item()) == 0
+    assert int(K.bfs_update(empty, empty, 1)[2].item()) == 0
+
+
+@pytest.mark.cuda
+def test_mesh_update_on_a_card_that_is_not_current(dev):
+    """K26 launches on its tensors' card when another card is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    other = torch.device("cuda", 1)
+    assert torch.cuda.current_device() == 0
+    rng = np.random.default_rng(10)
+    n = 50_001
+    old = _t(rng.uniform(0, 9, n).astype(np.float32), other)
+    blocks = _t(rng.uniform(0, 9, 2 * n).astype(np.float32), other)
+    new, changed = K.min_update(old, blocks)
+    plain = K.min_update_plain(old.cpu(), blocks.cpu())
+    assert new.device == other and torch.equal(new.cpu(), plain[0])
+    assert int(changed.item()) == 1
+    d = K.dot_sum(old, new)
+    torch.testing.assert_close(d.cpu(), (old * new).sum().reshape(1).cpu(),
+                               rtol=1e-5, atol=0)
+    assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.cuda

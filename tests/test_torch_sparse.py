@@ -754,3 +754,24 @@ def test_column_view_is_a_stable_sort_cached_per_snapshot():
     _, tB = hub_columns_pair()
     assert tops.column_view(tB) is not V
     assert tops._row_plan(V) is tops._row_plan(V)
+
+
+def test_chip_smoke_builds_the_semiring_graph_as_from_coo_numpy():
+    """chip_smoke.py builds bench_kernels.py's weighted graph on the card
+    (`coo_csr_on`: a torch stable sort of the int64 keys in place of
+    numpy's argsort); its arrays are CSR.from_coo_numpy's bit for bit,
+    duplicates (the last wins) and capacity padding included."""
+    import chip_smoke
+    from falkordb_tpu_torch.sparse.csr import CSR
+
+    rng = np.random.default_rng(14)
+    n = 3000
+    src, dst = rng.integers(0, n, 40_000), rng.integers(0, n, 40_000)
+    src[:500], dst[:500] = src[500:1000], dst[500:1000]  # duplicates
+    w = rng.uniform(0.5, 2.0, len(src)).astype(np.float32)
+    got = chip_smoke.coo_csr_on(src, dst, w, n, torch.device("cpu"))
+    want = CSR.from_coo_numpy(src, dst, w, shape=(n, n))
+    for f in ("indptr", "rows", "cols", "vals", "nnz"):
+        g, h = getattr(got, f), getattr(want, f)
+        assert g.dtype == h.dtype and torch.equal(g, h), f
+    assert (got.n_rows, got.n_cols) == (n, n)
