@@ -1,5 +1,5 @@
-"""Time chip_smoke.py's K3, K5, K13-K15, K18-K21, K24, K26, K27 and K30 rows
-from one checkout of the repo, so that two trees can be compared on one
+"""Time chip_smoke.py's K2, K3, K5, K13-K15, K18-K21, K24, K26, K27 and K30
+rows from one checkout of the repo, so that two trees can be compared on one
 card in one call.
 
     python3 bench_port_compare.py                    # this checkout
@@ -10,6 +10,7 @@ card in one call.
     python3 bench_port_compare.py --rows mesh        # K24's four forms, K26
     python3 bench_port_compare.py --rows probes      # K30 reps 1, K27 double
     python3 bench_port_compare.py --rows pagerank    # K5
+    python3 bench_port_compare.py --rows agg         # K2's five shapes
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -87,6 +88,19 @@ kernel launched every time; on a tree with the lean launch path also those
 of the output's allocation and of the entry point's ctypes call and
 launch alone); and a `ptxas {...}` line per kernel function of
 csrc/probe_lane_gather.cu.
+
+The agg rows are K2 at chip_smoke.py's five shapes (`agg_shapes`: random
+codes at (131,072, 65,536) and (5 M, 430,000), one group, the KNOWS runs
+of the SF1-class dataset's pairs, cached under this checkout's
+.bench_cache/port/, and 16 groups), built here for every tree and held to
+the root's plain version (`hold_agg`): a `compare` row each (the masked
+float sum beside one scatter_reduce_; torch.sum beside it at one group),
+a `device` line for each op of the shape (with the CUDA API calls of one
+call) and for the library call, a `host` line (µs a call; on a tree with
+the lean launch path also its allocation, its ctypes call alone and with
+the launch), and a `ptxas` line per kernel function of
+csrc/group_partials.cu.  On a tree with K2's two forms, one `form {...}`
+line per (n, u) of a sweep over both, forced (`agg_forms`).
 """
 
 import argparse
@@ -108,10 +122,10 @@ def main(argv=None):
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale")
     ap.add_argument("--rows", default=["all"], nargs="+",
                     choices=("all", "graph", "vector", "mesh", "probes",
-                             "pagerank"),
+                             "pagerank", "agg"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
                          "K24 and K26; probes: K30's reps-1 forms and K27's "
-                         "double; pagerank: K5")
+                         "double; pagerank: K5; agg: K2")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -142,6 +156,8 @@ def main(argv=None):
         mesh_update_rows(smoke, root, dev)
     if {"all", "probes"} & set(args.rows):
         probe_rows(smoke, root, dev)
+    if {"all", "agg"} & set(args.rows):
+        agg_rows(smoke, root, dev)
     return 0
 
 
@@ -174,6 +190,256 @@ def host_us(fn, calls=1000):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
+
+
+# -- K2's shapes: chip_smoke.py's check_group_partials runs them too ----------
+
+
+class AggShape:
+    """One K2 input: int32 codes, a live-row mask (20% nulls), integer
+    valued and real float64 values, u groups; `ops` are the (op, values,
+    masked) calls held against the plain version; the last `empty_tail`
+    groups get no row."""
+
+    def __init__(self, what, u, codes, mask, ints, reals, ops, empty_tail=0):
+        self.what, self.u, self.ops, self.empty_tail = what, u, ops, empty_tail
+        self.codes, self.mask, self.ints, self.reals = codes, mask, ints, reals
+        self.n = codes.numel()
+
+    def args(self, op, vals, masked):
+        return (self.codes, getattr(self, vals) if vals else None,
+                self.mask if masked else None, self.u, op)
+
+
+_RANDOM_OPS = (("count", None, False), ("count", None, True),
+               ("sum", "ints", True), ("sum", "reals", True),
+               ("min", "reals", True), ("max", "ints", True))
+
+
+def knows_runs(knows_a, knows_b, persons):
+    """The group codes persons_by_knows_degree aggregates: each person's
+    KNOWS out-rows, then each person's in-rows, coded in first-seen order
+    (as runtime/vectorized.py's group_codes codes them); (codes, u)."""
+    import numpy as np
+
+    p = np.arange(persons)
+    rows = np.concatenate([
+        np.repeat(p, np.bincount(knows_a, minlength=persons)),
+        np.repeat(p, np.bincount(knows_b, minlength=persons))])
+    seen, first = np.unique(rows, return_index=True)
+    code_of = np.zeros(persons, np.int64)
+    code_of[seen[np.argsort(first)]] = np.arange(len(seen))
+    return code_of[rows], len(seen)
+
+
+def agg_shapes(dev, rng, new_rng, knows, persons):
+    """K2's five shapes.  From rng, in the order chip_smoke.py has drawn
+    them since PR 1: random codes at (n, u) = (131,072, 65,536) and (5 M,
+    persons), the last 1,000 groups empty.  Then from new_rng the main
+    path's code distributions: one group (an aggregate with no key), the
+    KNOWS runs (`knows_runs` over knows = (knows_a, knows_b)), and 16
+    groups in random order (a low-cardinality key)."""
+    import numpy as np
+    import torch
+
+    def inputs(codes, g):
+        n = len(codes)
+        mask = g.random(n) >= 0.2
+        ints = g.integers(1000, 1000 + persons, n).astype(np.float64)
+        reals = g.normal(0.0, 1e3, n)
+        return [torch.from_numpy(a).to(dev)
+                for a in (codes.astype(np.int32), mask, ints, reals)]
+
+    for n, u in ((131_072, 65_536), (5_000_000, persons)):
+        codes = rng.integers(0, u - 1000, n)
+        yield AggShape(f"sum n={n} u={u} 20% nulls", u,
+                       *inputs(codes, rng), _RANDOM_OPS, empty_tail=1000)
+    n = 5_000_000
+    yield AggShape(f"sum n={n} u=1 20% nulls (one group)", 1,
+                   *inputs(np.zeros(n, np.int64), new_rng),
+                   (("count", None, False), ("sum", "ints", True),
+                    ("sum", "reals", True), ("max", "reals", True)))
+    codes, u = knows_runs(*knows, persons)
+    yield AggShape(f"sum n={len(codes)} u={u} 20% nulls (KNOWS runs)", u,
+                   *inputs(codes, new_rng),
+                   (("count", None, False), ("sum", "ints", True),
+                    ("sum", "reals", True)))
+    yield AggShape(f"sum n={n} u=16 20% nulls (few groups)", 16,
+                   *inputs(new_rng.integers(0, 16, n), new_rng),
+                   (("sum", "ints", True), ("sum", "reals", True),
+                    ("min", "reals", True)))
+
+
+def hold_agg(s, kernel, plain):
+    """Hold kernel (group_partials) to plain at every op of shape s:
+    counts, integer-valued sums (below 2^53), min and max exact; a float
+    sum of group g within (n_g - 1) * 2^-52 * sum_g |v| of the plain one
+    (each order is within half that of the exact sum); empty groups at
+    the identities.  Returns the largest absolute difference."""
+    import torch
+
+    err = 0.0
+    for op, vals, masked in s.ops:
+        args = s.args(op, vals, masked)
+        ck, ak = kernel(*args)
+        cp, ap = plain(*args)
+        torch.cuda.synchronize()
+        what = f"group_partials {s.what}: {op} {vals or ''}"
+        assert torch.equal(ck, cp), f"{what}: counts"
+        empty = cp == 0
+        assert bool(empty[s.u - s.empty_tail:].all()), what
+        if ak is None:
+            continue
+        if vals == "reals" and op == "sum":  # any order: the stated bound
+            absum = plain(s.codes, s.reals.abs(), args[2], s.u, "sum")[1]
+            lim = (cp - 1).clamp(min=0).double() * 2.0 ** -52 * absum
+            over = (ak - ap).abs() > lim
+            assert not bool(over.any()), \
+                f"{what}: {int(over.sum())} groups past the bound"
+        else:
+            assert torch.equal(ak, ap), what
+        ident = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+        assert bool((ak[empty] == ident[op]).all()), f"{what}: identity"
+        d = (ak - ap).abs()
+        d = d[~(ak == ap)]  # equal infinities differ by nan
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def knows_pairs(smoke):
+    """(knows_a, knows_b) of the root's SF1-class dataset (gen_dataset at
+    P = 430,000 from chip_smoke.py's seed), cached under this checkout's
+    .bench_cache/port/."""
+    import numpy as np
+
+    path = os.path.join(CACHE, f"knows_{smoke.SF1_PERSONS}.npz")
+    if not os.path.exists(path):
+        t = smoke.gen_dataset(smoke.SF1_PERSONS,
+                              np.random.default_rng(smoke.SEED))
+        os.makedirs(CACHE, exist_ok=True)
+        np.savez(path + ".tmp.npz", a=t["knows_a"], b=t["knows_b"])
+        os.replace(path + ".tmp.npz", path)
+    z = np.load(path)
+    return z["a"], z["b"]
+
+
+def agg_rows(smoke, root, dev):
+    """K2 at its five shapes (`agg_shapes`) with the root's wrapper: a
+    `compare` row each (the masked float sum, beside its plain version and
+    one scatter_reduce_), held as `hold_agg` holds it; a `device` line for
+    each op of the shape (with the CUDA API calls of one call) and for the
+    library call; a `host` line (µs a call); the ptxas report of
+    csrc/group_partials.cu."""
+    import numpy as np
+    import torch
+
+    ptxas(smoke, root, ("group_partials.cu",))
+    ops = importlib.import_module("falkordb_tpu_torch.runtime.ops")
+    knows = knows_pairs(smoke)
+    for s in agg_shapes(dev, np.random.default_rng(smoke.SEED + 1),
+                        np.random.default_rng(smoke.SEED + 13), knows,
+                        smoke.SF1_PERSONS):
+        err = hold_agg(s, ops.group_partials, ops.group_partials_plain)
+
+        def run(s=s):
+            return ops.group_partials(s.codes, s.reals, s.mask, s.u, "sum")
+
+        def lib(s=s):
+            return torch.zeros(s.u, dtype=torch.float64, device=dev) \
+                .scatter_reduce_(0, s.codes.long(), s.reals, "sum")
+
+        compare_line(root, smoke._row(
+            "group_partials", s.what, smoke.cuda_ms(run),
+            smoke.cuda_ms(lambda: ops.group_partials_plain(
+                s.codes, s.reals, s.mask, s.u, "sum")),
+            smoke.cuda_ms(lib), 13 * s.n + 16 * s.u, err))
+        if s.u == 1:
+            print("compare " + json.dumps({
+                "root": root, "name": "torch.sum", "shape": s.what,
+                "ms": smoke.cuda_ms(lambda: torch.sum(s.reals))}),
+                flush=True)
+        for op, vals, masked in s.ops:
+            fn = (lambda a=s.args(op, vals, masked):
+                  ops.group_partials(*a))
+            device_line(smoke, root, f"group_partials {s.what}: {op} "
+                        f"{vals or ''}{' masked' if masked else ''}", fn,
+                        host_api=api_counts(fn))
+        device_line(smoke, root, f"library: scatter_reduce_ {s.what}", lib)
+        print("host " + json.dumps({
+            "root": root, "call": f"group_partials {s.what}",
+            "wrapper_us": host_us(run), "library_us": host_us(lib),
+            **agg_host_split(ops, s)}), flush=True)
+    agg_forms(smoke, root, ops, dev)
+
+
+def agg_host_split(ops, s):
+    """On a tree whose K2 takes the lean launch path: the µs a call of the
+    outputs' (and scratch's) allocation, of the entry point's ctypes call
+    alone (u = 0 returns before any launch) and of that call with its
+    launch into held outputs; the shared form's blocks (0: global)."""
+    import torch
+
+    entry = getattr(ops, "_GROUP_PARTIALS", None)
+    if entry is None:
+        return {}
+    d, n, u = s.codes.get_device(), s.n, s.u
+    blocks = ops.group_partials_blocks(
+        n, u, torch.cuda.get_device_properties(d).multi_processor_count)
+
+    def alloc():  # as the wrapper allocates
+        out = (torch.empty(u, dtype=torch.int64, device=s.codes.device),
+               torch.empty(u, dtype=torch.float64, device=s.codes.device))
+        if blocks > 1:
+            out += (torch.empty(blocks * u * 12, dtype=torch.uint8,
+                                device=s.codes.device),)
+        return out
+
+    held = alloc()
+    ptrs = [t.data_ptr() for t in held] + [None]
+
+    def launch(uu):
+        entry.launch(d, s.codes.data_ptr(), s.reals.data_ptr(),
+                     s.mask.data_ptr(), n, uu, 1, blocks, *ptrs[:3])
+
+    return {"blocks": blocks, "alloc_us": host_us(alloc),
+            "ctypes_us": host_us(lambda: launch(0)),
+            "launch_us": host_us(lambda: launch(u))}
+
+
+def agg_forms(smoke, root, ops, dev):
+    """On a tree with K2's two forms: both, forced through SHARED_GROUPS,
+    at u = 1 to 16,384 random groups over n = 131,072 and 5,000,000 rows
+    (20% nulls, the masked float sum): one `form` line each, ms on CUDA
+    events and the device ms of 200 calls queued; counts held equal."""
+    import torch
+
+    if not hasattr(ops, "group_partials_blocks"):
+        return
+    keep = ops.SHARED_GROUPS
+    g = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    try:
+        for n in (131_072, 5_000_000):
+            vals = torch.randn(n, generator=g, dtype=torch.float64,
+                               device=dev)
+            mask = torch.rand(n, generator=g, device=dev) >= 0.2
+            for u in (1, 16, 256, 1024, 2048, 4096, 8192, 16_384):
+                codes = torch.randint(0, u, (n,), generator=g, device=dev,
+                                      dtype=torch.int32)
+                line, cnts = {"root": root, "n": n, "u": u}, []
+                for form, cap in (("shared", 16_384), ("global", -1)):
+                    ops.SHARED_GROUPS = cap
+
+                    def fn():
+                        return ops.group_partials(codes, vals, mask, u,
+                                                  "sum")
+
+                    cnts.append(fn()[0])
+                    line[f"{form}_ms"] = smoke.cuda_ms(fn)
+                    line[f"{form}_queued_ms"] = queued_ms(fn)
+                assert torch.equal(*cnts), (n, u)
+                print("form " + json.dumps(line), flush=True)
+    finally:
+        ops.SHARED_GROUPS = keep
 
 
 def mesh_rows(smoke, root, scale, dev):
@@ -442,6 +708,19 @@ def probe_rows(smoke, root, dev):
         device_line(smoke, root, f"library: {name}", lib)
         split = {}
         entry = getattr(smoke.PR, "_LANE_GATHER", None)
+        dbl = getattr(smoke.PR, "_DOUBLE", None)
+        if c.fn is smoke.PR.double and dbl is not None:
+            # the lean path's parts: the allocation, the ctypes call alone
+            # (no element: no launch), and with the launch into a held
+            # output
+            x = c.args[0]
+            o = torch.empty_like(x)
+            split = {"empty_like_us": host_us(lambda: torch.empty_like(x)),
+                     "ctypes_us": host_us(lambda: dbl.launch(
+                         x.get_device(), x.data_ptr(), 0, o.data_ptr())),
+                     "launch_us": host_us(lambda: dbl.launch(
+                         x.get_device(), x.data_ptr(), x.numel(),
+                         o.data_ptr()))}
         if c.fn is smoke.PR.take_along_or and entry is not None:
             # the lean path's parts: the allocation, and the ctypes call
             # with the launch into a held output

@@ -16,6 +16,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the shapes the main paths give it, timed with CUDA events (median of 7
    after a warm-up) beside its memory-traffic bound, its plain version and,
    where one exists, the one PyTorch call that computes the same function.
+   K2 runs at five shapes (bench_port_compare.py `agg_shapes`): random codes
+   at (131,072, 65,536) and (5 M, 430,000), one group (an aggregate with no
+   key), the KNOWS runs that persons_by_knows_degree groups (the dataset's
+   out-rows then in-rows, codes in first-seen order) and 16 groups.
    The packed-BFS kernels also run a whole small BFS for every word type
    (int8, int16, int32) against the same BFS on the host.  The vector
    kernels run at SIFT1M's build and query shapes (below); K13's library
@@ -152,6 +156,7 @@ import torch
 import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
 import bench_port
+import bench_port_compare
 import bench_port_gather
 import bench_port_kernels
 from falkordb_tpu_torch.algos.betweenness import (
@@ -698,8 +703,9 @@ def _max_err(x, y):
 
 TOLERANCE = {  # what each kernel is held to against its plain version
     "expand": "exact",
-    "group_partials": "counts, integer sums, min, max exact; float64 sums "
-                      "rtol 1e-12 atol 1e-9 (atomics add in any order)",
+    "group_partials": "counts, integer sums, min, max exact; a float64 sum "
+                      "of group g within (n_g - 1) * 2^-52 * sum_g |v| "
+                      "(atomics add in any order)",
     "topk": "exact", "bfs_levels": "exact",
     "pagerank": "same steps; scores rtol 1e-5 atol 1e-9 (float32 sums in "
                 "other orders); the same bits and steps on a second call",
@@ -808,44 +814,28 @@ def check_expand(store, dev):
     return rows
 
 
-def check_group_partials(dev, rng):
+def check_group_partials(dev, rng, knows):
+    """K2 at bench_port_compare.py's five shapes (`agg_shapes`): the two
+    random ones from rng, then one group, the KNOWS runs of the dataset's
+    (knows_a, knows_b) and 16 groups, each held as `hold_agg` holds it and
+    timed on the masked float sum beside one scatter_reduce_ (and, at one
+    group, torch.sum)."""
     rows = []
-    for n, u in ((131_072, 65_536), (5_000_000, SF1_PERSONS)):
-        codes = torch.from_numpy(
-            rng.integers(0, u - 1000, n).astype(np.int32)).to(dev)
-        mask = torch.from_numpy(rng.random(n) >= 0.2).to(dev)
-        ints = torch.from_numpy(
-            rng.integers(1000, 1000 + SF1_PERSONS, n).astype(np.float64)
-        ).to(dev)
-        reals = torch.from_numpy(rng.normal(0.0, 1e3, n)).to(dev)
-        err = 0.0
-        for op, vals, m in (("count", None, None), ("count", None, mask),
-                            ("sum", ints, mask), ("sum", reals, mask),
-                            ("min", reals, mask), ("max", ints, mask)):
-            ck, ak = group_partials(codes, vals, m, u, op)
-            cp, ap = group_partials_plain(codes, vals, m, u, op)
-            torch.cuda.synchronize()
-            assert torch.equal(ck, cp), f"group_partials {op}: counts"
-            empty = cp == 0
-            assert bool(empty[-1000:].all())
-            if ak is None:
-                continue
-            if op == "sum" and vals is reals:  # atomics add in any order
-                torch.testing.assert_close(ak, ap, rtol=1e-12, atol=1e-9)
-            else:  # integer sums below 2^53, min, max: exact
-                assert torch.equal(ak, ap), f"group_partials {op}"
-            ident = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
-            assert bool((ak[empty] == ident[op]).all()), f"{op} identity"
-            err = max(err, _max_err(ak, ap))
-        nbytes = 13 * n + 16 * u
+    for s in bench_port_compare.agg_shapes(
+            dev, rng, np.random.default_rng(SEED + 13), knows, SF1_PERSONS):
+        err = bench_port_compare.hold_agg(s, group_partials,
+                                          group_partials_plain)
+        codes, reals, mask, u = s.codes, s.reals, s.mask, s.u
+        extra = ({"torch_sum_ms": cuda_ms(lambda: torch.sum(reals))}
+                 if u == 1 else {})
         rows.append(_row(
-            "group_partials", f"sum n={n} u={u} 20% nulls",
+            "group_partials", s.what,
             cuda_ms(lambda: group_partials(codes, reals, mask, u, "sum")),
             cuda_ms(lambda: group_partials_plain(codes, reals, mask, u,
                                                  "sum")),
             cuda_ms(lambda: torch.zeros(u, dtype=torch.float64, device=dev)
                     .scatter_reduce_(0, codes.long(), reals, "sum")),
-            nbytes, err))
+            13 * s.n + 16 * u, err, **extra))
     return rows
 
 
@@ -3208,7 +3198,8 @@ def main(argv=None):
     krng = np.random.default_rng(SEED + 1)
     results = {
         "expand": check_expand(store, dev),
-        "group_partials": check_group_partials(dev, krng),
+        "group_partials": check_group_partials(
+            dev, krng, (t["knows_a"], t["knows_b"])),
         "topk": check_topk(dev, krng),
         "bfs_levels": check_bfs(store, dev),
         "pagerank": check_pagerank(store, dev),

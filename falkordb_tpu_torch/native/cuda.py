@@ -17,8 +17,8 @@ The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
 kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
-one.  K5, K24, K26 and K30 take it; the other wrappers still take
-`on_cuda`, `check_input` and a `lib()` lookup a call.
+one.  K2, K5, K24, K26, K27's `double` and K30 take it; the other
+wrappers still take `on_cuda`, `check_input` and a `lib()` lookup a call.
 """
 
 from __future__ import annotations
@@ -144,7 +144,7 @@ _OUT_I32 = ctypes.POINTER(ctypes.c_int32)
 _SIGNATURES = {
     "fk_expand": [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P,
                   _P, _P, _P],
-    "fk_group_partials": [_P, _P, _P, _I64, _I64, _INT, _P, _P, _P],
+    "fk_group_partials": [_P, _P, _P, _I64, _I64, _INT, _I64, _P, _P, _P, _P],
     "fk_topk": [_P, _I64, _INT, _P, _I64, _P, _P],
     "fk_bfs_levels": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _OUT_I64, _P],
     "fk_pagerank_control_bytes": [],

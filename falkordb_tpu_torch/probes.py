@@ -16,11 +16,11 @@ the two rows.
 
 Each wrapper runs its kernel for CUDA tensors (counting one launch under its
 name in native/cuda.py's KERNELS) and the `*_plain` PyTorch version beside
-it for CPU tensors; any other device raises.  take_along_or launches through
-native/cuda.py's lean path (`Entry`), on the tensors' card.  Integer results
-are the same bits either way.  Indices outside a table are clamped to it (the
-probes' indices never are); ell_spmv and row_gather_or clip to [0, n] with
-the sentinel n, as the reference's take(mode="clip").
+it for CPU tensors; any other device raises.  double and take_along_or
+launch through native/cuda.py's lean path (`Entry`), on the tensors' card.
+Integer results are the same bits either way.  Indices outside a table are
+clamped to it (the probes' indices never are); ell_spmv and row_gather_or
+clip to [0, n] with the sentinel n, as the reference's take(mode="clip").
 """
 
 from __future__ import annotations
@@ -36,17 +36,18 @@ _check = _cuda.check_input
 # -- K27: the streaming probes --------------------------------------------------
 
 
+_DOUBLE = _cuda.Entry("fk_probe_double", "probe_stream")
+
+
 def double(x: torch.Tensor) -> torch.Tensor:
     """probe_sanity's kernel: x * 2 for an int32 tensor of any shape (int32
-    wrap-around)."""
-    if not _cuda.on_cuda(x):
+    wrap-around), through native/cuda.py's lean launch path on the card."""
+    if not _cuda.on_card(x):
         return double_plain(x)
-    _check("probe_stream", "x", x, torch.int32, dim=None)
+    if x.dtype is not torch.int32 or not x.is_contiguous():
+        raise _cuda.input_error("probe_stream", "x", x, torch.int32, dim=None)
     o = torch.empty_like(x)
-    _cuda.check(_cuda.lib().fk_probe_double(
-        x.data_ptr(), x.numel(), o.data_ptr(), _cuda.stream_ptr(x)),
-        "probe_stream")
-    _cuda.count_launch("probe_stream")
+    _DOUBLE.launch(x.get_device(), x.data_ptr(), x.numel(), o.data_ptr())
     return o
 
 

@@ -1563,6 +1563,23 @@ class Unwind(Op):
 # -- K2: group partials ------------------------------------------------------
 
 _PARTIAL_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3}
+_GROUP_PARTIALS = _cuda.Entry("fk_group_partials", "group_partials")
+# K2's shared form up to this many groups (12 bytes of shared memory a
+# group), its global form above (PERF.md §6, PR 15: the crossover)
+SHARED_GROUPS = 4096
+_SMS: dict = {}  # streaming multiprocessors by CUDA device index
+
+
+def group_partials_blocks(n: int, u: int, sms: int) -> int:
+    """K2's form for n rows over u groups on a card of `sms`
+    multiprocessors: 0 takes the global form (u > SHARED_GROUPS; the form
+    depends on u alone), else the shared form's most blocks: one for every
+    max(4 u, 1,024) rows, so that folding the blocks' partials (12 bytes a
+    group a block) reads under a quarter of the rows' 13 bytes, at most 8
+    an SM, at least one."""
+    if u > SHARED_GROUPS:
+        return 0
+    return max(1, min(8 * sms, -(-n // max(4 * u, 1024))))
 
 
 def group_partials(codes, vals, mask, u: int, op: str):
@@ -1574,29 +1591,43 @@ def group_partials(codes, vals, mask, u: int, op: str):
     op "count"; mask (n,) bool rows that count, or None for every row
     (count(*)).  Returns (cnt (u,) int64, acc (u,) float64 or None): the
     live rows per group and their sum / min / max.  Groups with no live row
-    read 0, +inf (min) and -inf (max).  CPU tensors run
-    `group_partials_plain`; CUDA tensors launch the kernel."""
-    if op not in _PARTIAL_OPS:
+    read 0, +inf (min) and -inf (max); out-of-range codes drop; a NaN wins
+    min and max.  CPU tensors run `group_partials_plain`; CUDA tensors
+    launch the kernel once, through native/cuda.py's lean launch path."""
+    opc = _PARTIAL_OPS.get(op)
+    if opc is None:
         raise ValueError(f"group_partials: unknown op {op!r}")
-    if op != "count" and vals is None:
+    if opc and vals is None:
         raise ValueError(f"group_partials: op {op!r} needs vals")
-    if not _cuda.on_cuda(codes, vals, mask):
+    if not _cuda.on_card(codes, vals, mask):
         return group_partials_plain(codes, vals, mask, u, op)
     n = codes.numel()
-    for name, t, dtype in (("codes", codes, torch.int32),
-                           ("vals", vals, torch.float64),
-                           ("mask", mask, torch.bool)):
-        _cuda.check_input("group_partials", name, t, dtype, n)
-    dev = codes.device
+    i32, f64, b8 = torch.int32, torch.float64, torch.bool
+    if codes.dtype is not i32 or codes.dim() != 1 or \
+            not codes.is_contiguous():
+        raise _cuda.input_error("group_partials", "codes", codes, i32, n)
+    if vals is not None and (vals.dtype is not f64 or vals.dim() != 1 or
+                             vals.numel() != n or not vals.is_contiguous()):
+        raise _cuda.input_error("group_partials", "vals", vals, f64, n)
+    if mask is not None and (mask.dtype is not b8 or mask.dim() != 1 or
+                             mask.numel() != n or not mask.is_contiguous()):
+        raise _cuda.input_error("group_partials", "mask", mask, b8, n)
+    d, dev = codes.get_device(), codes.device
     cnt = torch.empty(u, dtype=torch.int64, device=dev)
-    acc = (None if op == "count"
-           else torch.empty(u, dtype=torch.float64, device=dev))
-    p = _cuda.ptr
-    rc = _cuda.lib().fk_group_partials(
-        p(codes), p(vals), p(mask), n, u, _PARTIAL_OPS[op], p(cnt), p(acc),
-        _cuda.stream_ptr(codes))
-    _cuda.check(rc, "group_partials")
-    _cuda.count_launch("group_partials")
+    acc = torch.empty(u, dtype=f64, device=dev) if opc else None
+    if u == 0:
+        return cnt, acc
+    sms = _SMS.get(d)
+    if sms is None:
+        sms = _SMS[d] = torch.cuda.get_device_properties(d).multi_processor_count
+    blocks = group_partials_blocks(n, u, sms)
+    scratch = (torch.empty(blocks * u * (12 if opc else 4), dtype=torch.uint8,
+                           device=dev) if blocks > 1 else None)
+    _GROUP_PARTIALS.launch(
+        d, codes.data_ptr(), vals.data_ptr() if opc else None,
+        None if mask is None else mask.data_ptr(), n, u, opc, blocks,
+        cnt.data_ptr(), acc.data_ptr() if opc else None,
+        None if scratch is None else scratch.data_ptr())
     return cnt, acc
 
 

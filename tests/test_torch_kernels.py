@@ -136,6 +136,92 @@ def test_group_partials_match_jax(rng, kind):
     assert (t[5][2][empty] == -np.inf).all()
 
 
+def _agg_dist(rng, dist, kind):
+    """chip_smoke.py's K2 distributions at a small size: (codes, u, tv)."""
+    n = 0 if dist == "empty" else 6000
+    if dist == "one_group":  # an aggregate with no group key
+        codes, u = np.zeros(n, np.int64), 1
+    elif dist == "runs":  # an expansion's rows, source by source
+        first = np.repeat(np.arange(1200), rng.poisson(6, 1200))[:n]
+        codes, u = first, int(first.max()) + 1
+    elif dist == "few_groups":  # a low-cardinality key
+        codes, u = rng.integers(0, 16, n), 16
+    else:  # all_null and empty: u groups, none with a live row
+        codes, u = rng.integers(0, 700, n), 700 if dist == "all_null" else 3
+    null = rng.random(n) < 0.25
+    if dist == "all_null":
+        null[:] = True
+    if kind == "int":
+        vals = rng.integers(-10_000, 10_000, n).astype(np.float64)
+    else:
+        vals = rng.normal(0.0, 1e3, n)
+    return codes, u, SimpleNamespace(null=null, vals=vals,
+                                     is_int=kind == "int")
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("dist", ["one_group", "runs", "few_groups",
+                                  "all_null", "empty"])
+def test_group_partials_distributions_match_jax(rng, dist, kind):
+    """K2's main-path code distributions through both packages' partials:
+    counts, integer sums, min and max exactly; float sums of group g within
+    (n_g - 1) * 2^-52 * sum_g |v| (either order is within half that of the
+    exact sum), which chip_smoke.py holds the kernel to as well."""
+    codes, u, tv = _agg_dist(rng, dist, kind)
+    n = len(codes)
+    items = [("count", False, None, [], 0)] + [
+        (fn, False, "x", [], i + 1)
+        for i, fn in enumerate(["count", "sum", "min", "max"])]
+    ns = SimpleNamespace(agg_items=items)
+    atvs = [None] + [tv] * 4
+    j = JaxAggregate._device_partials(ns, codes, u, atvs, n)
+    t = Aggregate._device_partials(ns, codes, u, atvs, n, "cpu")
+    live = ~tv.null
+    cnt = np.bincount(codes[live], minlength=u)
+    absum = np.bincount(codes[live], np.abs(tv.vals[live]), minlength=u)
+    np.testing.assert_array_equal(t[0][1], np.bincount(codes, minlength=u))
+    for pj, pt in zip(j, t):
+        assert pj[0] == pt[0]
+        np.testing.assert_array_equal(pt[1], pj[1])
+        if pj[0] == "count":
+            continue
+        if pj[0] == "sum" and kind == "float":
+            lim = np.maximum(cnt - 1, 0) * 2.0 ** -52 * absum
+            assert (np.abs(pt[2] - pj[2]) <= lim).all()
+        else:
+            np.testing.assert_array_equal(pt[2], pj[2])
+    empty = cnt == 0
+    assert (t[2][2][empty] == 0).all()
+    assert (t[3][2][empty] == np.inf).all()
+    assert (t[4][2][empty] == -np.inf).all()
+    if dist in ("all_null", "empty"):
+        assert empty.all()
+
+
+def test_group_partials_form_choice():
+    """K2's form is the shared one up to SHARED_GROUPS groups, whatever n,
+    the global one above; the shared form takes a block for every max(4 u,
+    1,024) rows, at least one, at most 8 an SM."""
+    from falkordb_tpu_torch.runtime.ops import (SHARED_GROUPS,
+                                                group_partials_blocks)
+
+    sms = 132
+    assert group_partials_blocks(5_000_000, SHARED_GROUPS + 1, sms) == 0
+    assert group_partials_blocks(131_072, 65_536, sms) == 0
+    assert group_partials_blocks(0, SHARED_GROUPS, sms) == 1
+    assert group_partials_blocks(1024, 1, sms) == 1
+    assert group_partials_blocks(1025, 1, sms) == 2
+    assert group_partials_blocks(131_072, 16, sms) == 128
+    assert group_partials_blocks(5_000_000, 1, sms) == 8 * sms
+    assert group_partials_blocks(5_000_000, 16, sms) == 8 * sms
+    u = SHARED_GROUPS
+    assert group_partials_blocks(131_072, u, sms) == -(-131_072 // (4 * u))
+    for n in (0, 1, 131_072, 5_000_000):
+        for u in (1, 16, SHARED_GROUPS, SHARED_GROUPS + 1, 430_000):
+            assert (group_partials_blocks(n, u, sms) > 0) == \
+                (u <= SHARED_GROUPS)
+
+
 # -- K3 top-k -----------------------------------------------------------------
 
 

@@ -1,13 +1,28 @@
-"""K3 (top-k, csrc/topk.cu) on the card against its plain PyTorch version,
-`topk_smallest_plain` (a stable sort), with torch.equal: the radix select
-must give the same indices, ties to the lower index, at every k from 1 to
-n, with all keys equal, with keys that differ only in their lowest mantissa
-bits (every radix pass runs), with -0.0 beside +0.0 and +-inf, and at n
-that is no multiple of any block size.
+"""K2 (group partials, csrc/group_partials.cu) and K3 (top-k,
+csrc/topk.cu) on the card against their plain PyTorch versions.
 
-The kernel has no CPU mode, so these tests skip without a card.  This file
-imports neither JAX nor falkordb_tpu (the card's machine has no JAX), and
-tests/conftest.py does, so run it there with the conftest off:
+K2: both forms (the shared form up to SHARED_GROUPS groups, the global form
+above; a test forces either through runtime/ops.py's SHARED_GROUPS) at
+chip_smoke.py's five shapes (bench_port_compare.py `agg_shapes`: random
+codes at (131,072, 65,536) and (5 M, 430,000), one group, the KNOWS runs
+of an SF1-sized random graph, 16 groups) and at awkward ones: empty groups,
+out-of-range and negative codes, NaN in min and max (held to a numpy
+oracle: a NaN wins), u = 0, n = 0, ragged n and unaligned views (the
+scalar path), a shared form of one block and of many.  Counts, sums of
+integer values (below 2^53), min and max exactly; a float64 sum of group g
+within (n_g - 1) * 2^-52 * sum_g |v| of the plain one (atomics add in any
+order, and each order is within half that of the exact sum).  One kernel
+launch a call and no memset, by the profiler.
+
+K3: the radix select must give the same indices as `topk_smallest_plain`
+(a stable sort), ties to the lower index, at every k from 1 to n, with all
+keys equal, with keys that differ only in their lowest mantissa bits
+(every radix pass runs), with -0.0 beside +0.0 and +-inf, and at n that is
+no multiple of any block size.
+
+The kernels have no CPU mode, so these tests skip without a card.  This
+file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
+and tests/conftest.py does, so run it there with the conftest off:
 
     python -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_kernels_card.py
@@ -17,8 +32,12 @@ import numpy as np
 import pytest
 import torch
 
+import bench_port_compare as bpc
 from falkordb_tpu_torch.native import cuda
-from falkordb_tpu_torch.runtime.ops import (TOPK_MAX_K, topk_smallest,
+from falkordb_tpu_torch.runtime import ops
+from falkordb_tpu_torch.runtime.ops import (TOPK_MAX_K, group_partials,
+                                            group_partials_plain,
+                                            topk_smallest,
                                             topk_smallest_plain)
 
 
@@ -95,3 +114,163 @@ def test_card_topk_same_run_twice(dev):
     assert torch.equal(topk_smallest(c, 4096), topk_smallest(c, 4096))
     with pytest.raises(ValueError):
         topk_smallest(c, TOPK_MAX_K + 1)
+
+
+# -- K2 group partials ----------------------------------------------------------
+
+
+@pytest.fixture(params=["shared", "global"])
+def form(request, monkeypatch):
+    """Force K2's form: the shared one for every u its shared memory holds,
+    or the global one for every u."""
+    monkeypatch.setattr(ops, "SHARED_GROUPS",
+                        16_384 if request.param == "shared" else -1)
+    return request.param
+
+
+def sf1_knows(rng, persons=430_000):
+    """An SF1-sized KNOWS graph as chip_smoke.py's generator draws one:
+    ~6P random pairs a < b, deduplicated."""
+    a = rng.integers(0, persons, 6 * persons)
+    b = rng.integers(0, persons, 6 * persons)
+    keep = a != b
+    pair = np.unique(np.minimum(a[keep], b[keep]) * persons +
+                     np.maximum(a[keep], b[keep]))
+    return pair // persons, pair % persons
+
+
+@pytest.mark.cuda
+def test_card_group_partials_shapes(dev, form):
+    """chip_smoke.py's five shapes; the shared form takes the ones whose
+    groups fit its shared memory (one group, 16 groups)."""
+    persons = 430_000
+    shapes = bpc.agg_shapes(dev, np.random.default_rng(43),
+                            np.random.default_rng(55),
+                            sf1_knows(np.random.default_rng(7)), persons)
+    held = 0
+    for s in shapes:
+        if form == "shared" and s.u > ops.SHARED_GROUPS:
+            continue
+        bpc.hold_agg(s, group_partials, group_partials_plain)
+        held += 1
+    assert held == (2 if form == "shared" else 5)
+
+
+def _agg_oracle(codes, vals, live, u, op):
+    """numpy: counts, and the sum / min / max of each group's live values
+    (a NaN wins min and max), identities where a group has none."""
+    ok = live & (codes >= 0) & (codes < u)
+    cnt = np.bincount(codes[ok], minlength=u)
+    if op == "count":
+        return cnt, None
+    if op == "sum":
+        return cnt, np.bincount(codes[ok], vals[ok], minlength=u)
+    acc = np.full(u, np.inf if op == "min" else -np.inf)
+    (np.minimum if op == "min" else np.maximum).at(acc, codes[ok], vals[ok])
+    return cnt, acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["count", "sum", "min", "max"])
+@pytest.mark.parametrize("n,u", [(0, 5), (1, 1), (4099, 7), (131_075, 600),
+                                 (70_001, 16_384), (262_147, 70_000)])
+def test_card_group_partials_edges(dev, form, op, n, u):
+    """Out-of-range and negative codes drop, empty groups read the
+    identities, NaN wins min and max; a view one element in (the scalar
+    path) gives the same as the aligned tensors."""
+    rng = np.random.default_rng(n + u)
+    codes = rng.integers(-3, u + 3, n).astype(np.int32)
+    codes[codes == u // 2] = u // 3  # a group with no row
+    ints = rng.integers(-1000, 1000, n).astype(np.float64)
+    live = rng.random(n) >= 0.25
+    vals = np.where(rng.random(n) < 0.001, np.nan, ints) \
+        if op in ("min", "max") else ints
+    want_c, want_a = _agg_oracle(codes, vals, live, u, op)
+    c_t = torch.from_numpy(codes).to(dev)
+    v_t = None if op == "count" else torch.from_numpy(vals).to(dev)
+    m_t = torch.from_numpy(live).to(dev)
+    for shift in (0, 1):
+        if shift:  # the same data one element into their buffers
+            c_t, v_t, m_t = (None if t is None else
+                             torch.cat([t[:1], t])[1:] for t in
+                             (c_t, v_t, m_t))
+        cnt, acc = group_partials(c_t, v_t, m_t, u, op)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(cnt.cpu().numpy(), want_c)
+        if op == "count":
+            assert acc is None
+            continue
+        np.testing.assert_array_equal(acc.cpu().numpy(), want_a)
+        if op != "sum":  # the plain version on the card agrees off the NaNs
+            _, ap = group_partials_plain(c_t, v_t, m_t, u, op)
+            keep = ~np.isnan(want_a)
+            np.testing.assert_array_equal(acc.cpu().numpy()[keep],
+                                          ap.cpu().numpy()[keep])
+    assert cuda.KERNELS["group_partials"].launches == 2
+
+
+@pytest.mark.cuda
+def test_card_group_partials_count_star_and_u0(dev, form):
+    """count(*) (no mask, no values) over runs of equal codes, and u = 0:
+    empty outputs and no launch."""
+    rng = np.random.default_rng(11)
+    codes = np.repeat(np.arange(3000), rng.integers(0, 40, 3000))
+    c_t = torch.from_numpy(codes.astype(np.int32)).to(dev)
+    cnt, acc = group_partials(c_t, None, None, 3000, "count")
+    np.testing.assert_array_equal(cnt.cpu().numpy(),
+                                  np.bincount(codes, minlength=3000))
+    assert acc is None
+    cnt, acc = group_partials(c_t, c_t.double(), None, 0, "sum")
+    assert cnt.shape == (0,) and acc.shape == (0,)
+    assert cuda.KERNELS["group_partials"].launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,u", [(5_000_000, 1), (131_072, 65_536),
+                                 (5_000_000, 16), (0, 3)])
+def test_card_group_partials_one_launch(dev, n, u):
+    """One kernel launch a call, no memset: by the profiler (the CUDA API
+    calls of one call after a warm-up, and the kernels on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    codes = torch.randint(0, u, (n,), device=dev, generator=g,
+                          dtype=torch.int32)
+    vals = torch.randn(n, device=dev, generator=g, dtype=torch.float64)
+    mask = torch.rand(n, device=dev, generator=g) >= 0.2
+    for op in ("count", "sum", "min"):
+        v = None if op == "count" else vals
+        group_partials(codes, v, mask, u, op)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            group_partials(codes, v, mask, u, op)
+            torch.cuda.synchronize()
+        api = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.key.startswith("cuda")}
+        launches = sum(c for k, c in api.items() if "Launch" in k)
+        assert launches == 1, api
+        assert not any("Memset" in k or "Memcpy" in k for k in api), api
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+    assert cuda.KERNELS["group_partials"].launches == 6
+
+
+@pytest.mark.cuda
+def test_card_group_partials_refuses(dev):
+    c = torch.zeros(8, dtype=torch.int32, device=dev)
+    v = torch.ones(8, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        group_partials(c.long(), v, None, 2, "sum")
+    with pytest.raises(ValueError):
+        group_partials(c, v.float(), None, 2, "sum")
+    with pytest.raises(ValueError):
+        group_partials(c, v[::2].repeat_interleave(2)[:7], None, 2, "sum")
+    with pytest.raises(ValueError):
+        group_partials(c, v, torch.ones(8, dtype=torch.uint8, device=dev),
+                       2, "sum")
+    with pytest.raises(ValueError):
+        group_partials(c, v, None, 2, "median")
+    assert cuda.KERNELS["group_partials"].launches == 0

@@ -92,6 +92,21 @@ def test_card_stream(dev):
 
 
 @pytest.mark.cuda
+def test_card_double_lean_path(dev):
+    """K27's double through the lean launch path: probe_sanity's (8, 128)
+    and an empty input, one launch each; int64 and non-contiguous inputs
+    refused with no launch."""
+    x = _t(words(np.random.default_rng(4), (8, 128)), dev)
+    _same(P.double(x), P.double_plain(x), "double (8, 128)")
+    e = torch.empty(0, dtype=torch.int32, device=dev)
+    _same(P.double(e), P.double_plain(e), "double empty")
+    for bad in (x.long(), x.t()):
+        with pytest.raises(ValueError):
+            P.double(bad)
+    assert cuda.KERNELS["probe_stream"].launches == 2
+
+
+@pytest.mark.cuda
 def test_card_take_and_bittest(dev):
     rng = np.random.default_rng(1)
     for nwords in (1, 1 << 10, 1 << 19):
