@@ -11,6 +11,7 @@ card in one call.
     python3 bench_port_compare.py --rows probes      # K30 reps 1, K27 double
     python3 bench_port_compare.py --rows pagerank    # K5
     python3 bench_port_compare.py --rows agg         # K2's five shapes
+    python3 bench_port_compare.py --rows bfs         # K16
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -101,6 +102,22 @@ the lean launch path also its allocation, its ctypes call alone and with
 the launch), and a `ptxas` line per kernel function of
 csrc/group_partials.cu.  On a tree with K2's two forms, one `form {...}`
 line per (n, u) of a sweep over both, forced (`agg_forms`).
+
+The bfs rows are K16 at DIR/chip_smoke.py's `check_multi_bfs` shapes (64
+lanes over the SF1-class Person / KNOWS transpose, cached as for the
+pagerank rows, and RMAT-22's unsorted transpose from the stepped roots: one
+level at depth 3 and the run to the fixpoint each, as that function checks
+and times them), then a harmonic batch over Person / KNOWS: the batches of
+algo.harmonicCentrality's card loop over its first 4,096 sources, timed
+as one chain (`ms` a batch and a 4,096-source chain) and whole (the
+harmonic sums of every node, read back once, on the host clock).  Each
+shape has a `device {...}` line (device ms by kernel, the CUDA API calls
+of one call), a `host {...}` line (µs a call on the host clock, no
+synchronisation between calls) and the ptxas report of csrc/multi_bfs.cu.
+On a tree whose harmonic module has `CARD_LANES`, one `form {...}` line
+per width of its sweep (64, 128, 256 lanes a batch) and with its frontier
+map on and off (`bfs.FRONTIER_MAP`), and a `level {...}` line per level of
+a 64-lane run over Person / KNOWS.
 """
 
 import argparse
@@ -122,10 +139,10 @@ def main(argv=None):
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale")
     ap.add_argument("--rows", default=["all"], nargs="+",
                     choices=("all", "graph", "vector", "mesh", "probes",
-                             "pagerank", "agg"),
+                             "pagerank", "agg", "bfs"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
                          "K24 and K26; probes: K30's reps-1 forms and K27's "
-                         "double; pagerank: K5; agg: K2")
+                         "double; pagerank: K5; agg: K2; bfs: K16")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -158,6 +175,8 @@ def main(argv=None):
         probe_rows(smoke, root, dev)
     if {"all", "agg"} & set(args.rows):
         agg_rows(smoke, root, dev)
+    if {"all", "bfs"} & set(args.rows):
+        bfs_rows(smoke, root, args.scale, dev)
     return 0
 
 
@@ -628,6 +647,195 @@ def pagerank_rows(smoke, root, dev):
                 spmv()
 
         device_line(smoke, root, f"library: spmv x {ik} ({what})", lib)
+
+
+# -- K16: the k-lane CSR BFS behind harmonic centrality and stepped BFS -----
+
+HARMONIC_SOURCES = 4096  # the sources of a timed chain of harmonic batches
+
+
+def harmonic_batches(tbfs, at, lanes):
+    """algo.harmonicCentrality's card loop over the transpose `at` at
+    `lanes` a batch, from the root's package: (state, batch(lo), the (n,)
+    sums so far).  A tree with `multi_bfs_sums` queues its sums form; an
+    older one runs the loop of its harmonic_centrality (multi_bfs_level to
+    the fixpoint a batch)."""
+    import torch
+
+    n = at.n_rows
+    st = tbfs.multi_bfs_state(at, lanes, levels=False, hsum=True)
+    ids = torch.arange(n + lanes, dtype=torch.int32, device=at.device)
+    sums = getattr(tbfs, "multi_bfs_sums", None)
+
+    def batch(lo):
+        if sums is not None:
+            sums(at, st, ids[lo: lo + lanes])
+        else:
+            tbfs.multi_bfs_level(at, st, steps=None, seeds=ids[lo: lo + lanes])
+
+    def total():
+        return st.hsum.sum(1) if st.hsum.dim() == 2 else st.hsum
+
+    return st, batch, total
+
+
+def harmonic_chain(smoke, tbfs, at, lanes):
+    """ms a batch and a chain of the first HARMONIC_SOURCES sources (CUDA
+    events, median of 7), and the whole run's host-clock seconds with its
+    one read of the sums, at `lanes` a batch."""
+    import time
+    import torch
+
+    _st, batch, _total = harmonic_batches(tbfs, at, lanes)
+
+    def chain():
+        for lo in range(0, HARMONIC_SOURCES, lanes):
+            batch(lo)
+
+    chain_ms = smoke.cuda_ms(chain)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _st, batch, total = harmonic_batches(tbfs, at, lanes)
+    for lo in range(0, at.n_rows, lanes):
+        batch(lo)
+    h = total().cpu()
+    whole_s = time.perf_counter() - t0
+    assert bool(torch.isfinite(h).all())
+    return {"lanes": lanes, "chain_ms": chain_ms,
+            "batch_ms": chain_ms * lanes / HARMONIC_SOURCES,
+            "whole_s": whole_s, "score_sum": float(h.sum()),
+            "score_max": float(h.max())}
+
+
+def level_pool(tbfs, at, roots, count, d=3):
+    """`count` fresh states after d levels from `roots` (the reference's
+    layout through multi_bfs_state_at), for timing one level each."""
+    import torch
+
+    l3 = tbfs.bfs_multi_plain(at, roots, max_depth=d)
+    f3 = (l3 == d).to(torch.int8)
+    return [tbfs.multi_bfs_state_at(at, l3, f3, d) for _ in range(count)]
+
+
+def bfs_cases(smoke, knows, sprep):
+    """K16's two graphs as check_multi_bfs takes them: (what, transpose,
+    64 roots, host_us calls)."""
+    import numpy as np
+
+    roots = np.sort(np.random.default_rng(smoke.SEED + 1).choice(
+        knows.n_rows, 64, replace=False)).astype(np.int32)
+    return [("Person/KNOWS", knows, roots, 20),
+            ("RMAT stepped", sprep.at, sprep.roots, 6)]
+
+
+def bfs_shapes(tbfs, cases, calls=None):
+    """[(what, fn, calls)]: per graph the run to the fixpoint and one level
+    at depth 3, each level call on a fresh state (enough for `calls` timed
+    calls and the five untimed ones of a device line, its API count and a
+    host line's warm-up)."""
+    out = []
+    for what, at, r, c in cases:
+        c = calls or c
+        out.append((f"{what} to the fixpoint",
+                    lambda at=at, r=r: tbfs.bfs_multi(at, r), c))
+        pool = level_pool(tbfs, at, r, c + 5)
+        out.append((f"{what} one level at depth 3",
+                    lambda at=at, pool=pool: tbfs.multi_bfs_level(
+                        at, pool.pop()), c))
+    return out
+
+
+def bfs_rows(smoke, root, scale, dev):
+    """K16 from the root's package: chip_smoke.py's check_multi_bfs rows as
+    `compare` lines, then for each of its four shapes and a chain of
+    harmonic batches a `device` line (with the CUDA API calls of one call)
+    and a `host` line (µs a call), the harmonic chain's and whole run's
+    times at 64 lanes, the ptxas report of csrc/multi_bfs.cu, and on a tree
+    with the sweep's knobs its `form` lines."""
+    import torch
+
+    ptxas(smoke, root, ("multi_bfs.cu",))
+    tbfs = importlib.import_module("falkordb_tpu_torch.algos.bfs")
+    tharm = importlib.import_module("falkordb_tpu_torch.algos.harmonic")
+    knows = ldbc_transposes(smoke, dev)[1][1]
+    sprep = smoke.bench_port.prepare_stepped(
+        scale, smoke.bench_port.STEPPED_NBFS, CACHE, "cuda")
+    cases = bfs_cases(smoke, knows, sprep)
+    for r in smoke.check_multi_bfs([
+            ("Person/KNOWS transpose", knows, cases[0][2], False, 7),
+            (f"RMAT-{scale} unsorted transpose (stepped roots)", sprep.at,
+             sprep.roots, True, 3)]):
+        compare_line(root, r)
+    if hasattr(smoke, "check_multi_bfs_sums"):
+        for r in smoke.check_multi_bfs_sums(knows, cases[0][2]):
+            compare_line(root, r)
+    for what, fn, calls in bfs_shapes(tbfs, cases):
+        device_line(smoke, root, f"multi_bfs {what}", fn,
+                    host_api=api_counts(fn))
+        print("host " + json.dumps({"root": root, "call": f"multi_bfs {what}",
+                                    "wrapper_us": host_us(fn, calls)}),
+              flush=True)
+    _st, batch, _total = harmonic_batches(tbfs, knows, 64)
+
+    def chain():
+        for lo in range(0, HARMONIC_SOURCES, 64):
+            batch(lo)
+
+    device_line(smoke, root, f"harmonic chain of {HARMONIC_SOURCES // 64} "
+                "batches (64 lanes)", chain, host_api=api_counts(chain))
+    at = iter(range(0, 1 << 30, 64))
+    print("host " + json.dumps({
+        "root": root, "call": "harmonic batch (64 lanes)",
+        "wrapper_us": host_us(lambda: batch(next(at) % knows.n_rows),
+                              calls=200)}), flush=True)
+    torch.cuda.synchronize()
+    print("harmonic " + json.dumps({"root": root, **harmonic_chain(
+        smoke, tbfs, knows, 64)}), flush=True)
+    if hasattr(tharm, "CARD_LANES"):
+        bfs_forms(smoke, root, tbfs, knows, cases)
+
+
+def level_profile(smoke, root, tbfs, at, roots):
+    """One `level {...}` line per level of the 64-lane run from `roots`
+    over `at`: the frontier's rows, the rows and lanes it gains, and the
+    ms of that one level (multi_bfs_level from the state before it, CUDA
+    events, median of 5), which holds the launch and the read back."""
+    import torch
+
+    lp = tbfs.bfs_multi_plain(at, roots)
+    top = int(lp[lp != tbfs.UNREACHED].max())
+    for d in range(top + 1):
+        ld = torch.where(lp <= d, lp, torch.full_like(lp, tbfs.UNREACHED))
+        fd = (lp == d).to(torch.int8)
+        pool = [tbfs.multi_bfs_state_at(at, ld, fd, d) for _ in range(6)]
+        ms = smoke.cuda_ms(lambda: tbfs.multi_bfs_level(at, pool.pop()),
+                           reps=5)
+        print("level " + json.dumps({
+            "root": root, "depth": d, "frontier_rows": int(fd.any(1).sum()),
+            "gained_rows": int((lp == d + 1).any(1).sum()),
+            "fresh_lanes": int((lp == d + 1).sum()), "ms": ms}), flush=True)
+
+
+def bfs_forms(smoke, root, tbfs, knows, cases):
+    """The sweep of a tree with K16's knobs: the harmonic chain and whole
+    run at 64, 128 and 256 lanes a batch, then each shape and the chain at
+    64 lanes with the frontier map (in shared memory where it fits) and
+    without it."""
+    level_profile(smoke, root, tbfs, knows, cases[0][2])
+    for lanes in (64, 128, 256):
+        print("form " + json.dumps({"root": root, "form": "harmonic lanes",
+                                    **harmonic_chain(smoke, tbfs, knows,
+                                                     lanes)}), flush=True)
+    for name, on in (("frontier map", True), ("no map", False)):
+        tbfs.FRONTIER_MAP = on
+        try:
+            times = {what: smoke.cuda_ms(fn, reps=3)
+                     for what, fn, _c in bfs_shapes(tbfs, cases, calls=3)}
+            h = harmonic_chain(smoke, tbfs, knows, 64)
+        finally:
+            tbfs.FRONTIER_MAP = True
+        print("form " + json.dumps({"root": root, "form": name, "ms": times,
+                                    "harmonic": h}), flush=True)
 
 
 def mesh_update_rows(smoke, root, dev):

@@ -27,7 +27,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    K15's torch.mv over the same rows made contiguous.  K16 runs one level
    and a whole 64-lane BFS over Person / KNOWS (harmonic centrality's
    shape) and over the RMAT graph's unsorted transpose from the stepped
-   mode's roots (its hub rows take the block-per-row kernel); K10 with no
+   mode's roots (its hub rows cut into segments), then its harmonic-sums
+   form over Person / KNOWS, one batch and a queued chain of batches, each
+   with its CUDA API calls a call; K10 with no
    chunk, K17 (2048 int8 lanes, 64 int32 lanes) and
    K18 (one step, beside a CSR SpMV) run on the RMAT graph's sorted
    transpose ELL.  K19-K22 run at bench_kernels.py's shapes over the same
@@ -97,7 +99,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
       index (n = 5,000 < IVF_MIN) of integer vectors gives identical rows
       on FalkorDB() and FalkorDB(device="cpu").
    d. algo.harmonicCentrality over Person / KNOWS on the SF1-class graph
-      (K16, 6,719 batches of 64 lanes), its busy share, 64 sampled
+      (K16's sums form, batches of harmonic.CARD_LANES lanes queued with
+      nothing read between), its busy share, 64 sampled
       persons against a float64 scipy oracle (rel 1e-9); on the small
       graph of a., the card against the CPU database and an all-pairs
       oracle (within 1e-9).
@@ -166,8 +169,9 @@ from falkordb_tpu_torch.algos.bfs import (
     UNREACHED, UNREACHED8, bfs_levels, bfs_levels_plain, bfs_multi,
     bfs_multi_ell, bfs_multi_ell_packed, bfs_multi_ell_sorted,
     bfs_multi_plain, bfs_multi_stepped, bfs_parents, bfs_parents_plain,
-    ell_reach_parts, multi_bfs_level, multi_bfs_level_plain,
-    multi_bfs_state_at, packed_init, packed_levels, packed_levels_plain,
+    ell_reach_parts, multi_bfs_level, multi_bfs_level_plain, multi_bfs_plan,
+    multi_bfs_state, multi_bfs_state_at, multi_bfs_sums, multi_bfs_sums_plain,
+    packed_init, packed_levels, packed_levels_plain,
 )
 from falkordb_tpu_torch.algos.bfs_packed import (
     bfs_multi_gated, bfs_multi_gated_hostdriven, chunk_bounds, chunk_reach,
@@ -175,7 +179,7 @@ from falkordb_tpu_torch.algos.bfs_packed import (
     packed_seed, packed_seed_plain, packed_to, reach_plain, sparse_reach,
 )
 from falkordb_tpu_torch.algos.common import compact_adjacency
-from falkordb_tpu_torch.algos.harmonic import LANES as HARMONIC_LANES
+from falkordb_tpu_torch.algos.harmonic import CARD_LANES as HARMONIC_LANES
 from falkordb_tpu_torch.algos.pagerank import (
     ell_pagerank_step, ell_pagerank_step_plain, pagerank_ell_run, pagerank_plain, pagerank_transposed,
 )
@@ -730,7 +734,9 @@ TOLERANCE = {  # what each kernel is held to against its plain version
                      "scores within d * 2^-23 * (|m|^2 + |q|^2), the float32 "
                      "bound of the cancelling formula (sums in other "
                      "orders)",
-    "multi_bfs": "exact (levels, next frontier bits, the alive flag)",
+    "multi_bfs": "exact (levels, next frontier bits, the alive flag); the "
+                 "harmonic sums atol 1e-9 (float64 sums in another order), "
+                 "the same bits on a second run",
     "packed_levels": "exact",
     "ell_pagerank": "one step: scores rtol 1e-5 atol 1e-9, L1 change rtol "
                     "1e-4 (float32 sums in other orders), the same bits on "
@@ -1173,11 +1179,36 @@ def check_packed_words(dev):
 # -- the multi-source BFS family: K16-K18 and K10 with no chunk --------------
 
 
-def named_rows(at):
-    """The distinct source rows that a transpose CSR's edges before nnz
-    name: the frontier rows a pull level must read at least once."""
-    cols = at.cols[:int(at.nnz)].to(torch.int64)
-    return int((torch.bincount(cols, minlength=at.n_rows) > 0).sum())
+def level_bytes(at, lp, d, R):
+    """The bytes K16's level from depth d to d + 1 needs at least, from
+    the run's final levels lp ((n, k) int32) and R bytes of frontier words a
+    node: the cols of the rows some lane has not reached by depth d,
+    indptr, the frontier bit of each distinct source row those cols name and
+    the frontier words of those in the frontier (rows with a lane at depth
+    d), the visited words read and the next frontier written for every
+    node, and the visited words of the rows that gain lanes.  Returns
+    (bytes, rows gaining lanes, fresh lanes)."""
+    n, nnz = at.n_rows, int(at.nnz)
+    open_rows = (lp > d).any(1)
+    front = (lp == d).any(1)
+    e_open = open_rows[at.rows[:nnz].to(torch.int64)]
+    named = torch.bincount(
+        at.cols[:nnz].to(torch.int64).clamp(0, n - 1)[e_open],
+        minlength=n) > 0
+    fresh = lp == d + 1
+    gained = int(fresh.any(1).sum())
+    nbytes = (4 * int(e_open.sum()) + 4 * (n + 1) + -(-int(named.sum()) // 8)
+              + R * int((named & front).sum()) + 2 * R * n + R * gained)
+    return nbytes, gained, int(fresh.sum())
+
+
+def run_bytes(at, lp, R):
+    """level_bytes over every level of a run to the fixpoint (the last
+    finds nothing): (bytes, rows gaining lanes over the levels, the deepest
+    level reached)."""
+    top = int(lp[lp != UNREACHED].max())
+    per = [level_bytes(at, lp, d, R) for d in range(top + 1)]
+    return sum(b for b, _g, _f in per), sum(g for _b, g, _f in per), top
 
 
 def check_multi_bfs(cases):
@@ -1186,62 +1217,132 @@ def check_multi_bfs(cases):
     For each, one level from the state after 3 levels (levels, next
     frontier and alive flag against the plain level) and the run to the
     fixpoint (bfs_multi against the plain loop), exact; a case with hub
-    rows must hand some to the block-per-row kernel.  Bound per level: the
-    cols and indptr, the frontier words of each distinct source row once
-    (the gather's operand), per node the visited words read and the next
-    frontier written, and the visited words of the rows that gain lanes and
-    the fresh lanes' levels written; the run adds the (n, k) levels written
+    rows must cut some into segments.  Bound per level (`level_bytes`): the
+    cols of the rows not yet reached by every lane and indptr, a bit for
+    each distinct source row they name and the frontier words of those in
+    the frontier, per node the visited words read and the next frontier
+    written, and the visited words of the rows that gain lanes; one level
+    adds its fresh lanes' levels written, the run the (n, k) levels written
     once."""
     rows = []
     for what, at, roots, hubs, reps in cases:
         n, nnz, k = at.n_rows, int(at.nnz), len(roots)
         R = 4 * (-(-k // 32))  # bytes of a node's frontier words
-        per_level = 4 * nnz + 4 * (n + 1) + R * named_rows(at) + 2 * R * n
         d = 3
+        lp = bfs_multi_plain(at, roots)
         l3 = bfs_multi_plain(at, roots, max_depth=d)
         f3 = (l3 == d).to(torch.int8)
         want_l, want_f, want_any = multi_bfs_level_plain(
             at.rows, at.cols, at.nnz, n, f3, l3, d)
         st = [multi_bfs_state_at(at, l3, f3, d)]
-        n_wide = st[0].wide.numel()
-        assert n_wide > 0 or not hubs, f"multi_bfs {what}: no hub row"
+        n_hubs = multi_bfs_plan(at).n_hubs
+        assert n_hubs > 0 or not hubs, f"multi_bfs {what}: no hub row"
         multi_bfs_level(at, st[0])
         torch.cuda.synchronize()
         assert torch.equal(st[0].levels, want_l), f"multi_bfs {what}: levels"
         assert torch.equal(st[0].lanes(), want_f), \
             f"multi_bfs {what}: next frontier"
         assert st[0].alive == bool(want_any) and st[0].depth == d + 1
-        fresh = int(want_f.sum(dtype=torch.int64))
-        fresh_rows = int(want_f.any(1).sum())
+        one, fresh_rows, fresh = level_bytes(at, lp, d, R)
         del want_l, want_f
 
         def restore():
             st[0] = multi_bfs_state_at(at, l3, f3, d)
 
         rows.append(_row(
-            "multi_bfs", f"{what} n={n} nnz={nnz} k={k} hub rows={n_wide}: "
+            "multi_bfs", f"{what} n={n} nnz={nnz} k={k} hub rows={n_hubs}: "
             f"one level at depth {d} ({fresh} fresh lanes in {fresh_rows} "
             f"rows)", cuda_ms(lambda: multi_bfs_level(at, st[0]), reps=reps,
                               setup=restore),
             cuda_ms(lambda: multi_bfs_level_plain(at.rows, at.cols, at.nnz, n,
                                                   f3, l3, d), reps=reps),
-            None, per_level + R * fresh_rows + 4 * fresh, 0.0))
+            None, one + 4 * fresh, 0.0))
         del st, l3, f3
         lk = bfs_multi(at, roots)
-        lp = bfs_multi_plain(at, roots)
         torch.cuda.synchronize()
         assert torch.equal(lk, lp), f"multi_bfs {what}: to the fixpoint"
         del lk
-        top = int(lp[lp != UNREACHED].max())
-        gained = sum(int((lp == x).any(1).sum()) for x in range(1, top + 1))
+        nbytes, _gained, top = run_bytes(at, lp, R)
         reached = int((lp != UNREACHED).sum())
         del lp
         rows.append(_row(
-            "multi_bfs", f"{what} n={n} nnz={nnz} k={k} hub rows={n_wide} to "
+            "multi_bfs", f"{what} n={n} nnz={nnz} k={k} hub rows={n_hubs} to "
             f"the fixpoint: levels={top + 1} reached (node, lane) pairs="
             f"{reached}", cuda_ms(lambda: bfs_multi(at, roots), reps=reps),
             cuda_ms(lambda: bfs_multi_plain(at, roots), reps=reps), None,
-            (top + 1) * per_level + R * gained + 4 * n * k, 0.0))
+            nbytes + 4 * n * k, 0.0))
+    return rows
+
+
+def api_calls(fn):
+    """The CUDA API calls of one fn() on the host, by name (one
+    torch.profiler trace after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith("cuda")}
+
+
+HARMONIC_CHAIN = 4  # batches of the queued chain check_multi_bfs_sums holds
+
+
+def check_multi_bfs_sums(at, roots):
+    """K16's harmonic-sums form over the transpose `at` at
+    harmonic.CARD_LANES lanes: the first batch, and a chain of
+    HARMONIC_CHAIN batches queued with nothing read between, each against
+    the sum of its plain batches (atol 1e-9) and the same bits on a second
+    run; then the CUDA API calls a call of bfs_multi from `roots`, of one
+    level, and of a queued batch.  Bound of a batch: `run_bytes` of its
+    run, and the float64 sum read and written for each row gaining lanes
+    a level (no levels are written)."""
+    n, L = at.n_rows, HARMONIC_LANES
+    R = 4 * (-(-L // 32))
+    ids = torch.arange(n + L, dtype=torch.int32, device=at.device)
+    rows = []
+    for count in (1, HARMONIC_CHAIN):
+        st = multi_bfs_state(at, L, levels=False, hsum=True)
+
+        def chain(st=st, count=count):
+            for b in range(count):
+                multi_bfs_sums(at, st, ids[b * L: (b + 1) * L])
+
+        chain()
+        got = st.hsum.clone()
+        want = torch.zeros(n, dtype=torch.float64, device=at.device)
+        nbytes = 0
+        for b in range(count):
+            src = ids[b * L: (b + 1) * L]
+            want += multi_bfs_sums_plain(at, src)
+            b_bytes, gained, _top = run_bytes(at, bfs_multi_plain(at, src), R)
+            nbytes += b_bytes + 16 * gained
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-9)
+        st.hsum.zero_()
+        chain()
+        assert torch.equal(st.hsum, got), "multi_bfs sums: a second run"
+        rows.append(_row(
+            "multi_bfs", f"harmonic-sums form n={n} nnz={int(at.nnz)} "
+            f"k={L}: {count} batch(es) queued, sources 0..{count * L - 1}",
+            cuda_ms(chain), cuda_ms(lambda count=count: [
+                multi_bfs_sums_plain(at, ids[b * L: (b + 1) * L])
+                for b in range(count)], reps=3), None, nbytes,
+            _max_err(got, want)))
+    st = multi_bfs_state(at, L, levels=False, hsum=True)
+    l3 = bfs_multi_plain(at, roots, max_depth=3)
+    f3 = (l3 == 3).to(torch.int8)
+    pool = [multi_bfs_state_at(at, l3, f3, 3) for _ in range(2)]
+    calls = {"bfs_multi": api_calls(lambda: bfs_multi(at, roots)),
+             "one level": api_calls(lambda: multi_bfs_level(at, pool.pop())),
+             "sums batch": api_calls(lambda: multi_bfs_sums(at, st,
+                                                            ids[:L]))}
+    print(f"multi_bfs API calls a call: {json.dumps(calls)}", flush=True)
+    assert all(c.get("cudaLaunchCooperativeKernel") == 1
+               for c in calls.values()), calls
+    assert not calls["sums batch"].get("cudaStreamSynchronize"), calls
     return rows
 
 
@@ -3211,12 +3312,13 @@ def main(argv=None):
     check_packed_words(dev)
     results.update(check_packed(prep, dev))
     knows_t = compact_adjacency(store, "Person", ["KNOWS"], directed=True).at
+    knows_roots = np.sort(krng.choice(knows_t.n_rows, 64,
+                                      replace=False)).astype(np.int32)
     results["multi_bfs"] = check_multi_bfs([
-        ("Person/KNOWS transpose", knows_t,
-         np.sort(krng.choice(knows_t.n_rows, HARMONIC_LANES,
-                             replace=False)).astype(np.int32), False, 7),
+        ("Person/KNOWS transpose", knows_t, knows_roots, False, 7),
         (f"RMAT-{args.rmat_scale} unsorted transpose (stepped roots)",
          sprep.at, sprep.roots, True, 3)])
+    results["multi_bfs"] += check_multi_bfs_sums(knows_t, knows_roots)
     del knows_t
     results["packed_levels"], k10_no_chunk, results["ell_pagerank"] = \
         check_ell_kernels(pprep, at_sorted, dev)

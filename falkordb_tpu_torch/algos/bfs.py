@@ -9,7 +9,8 @@ _bfs_parents_jit, _bfs_multi_jit and _bfs_level_step, the ELL level
 functions); here CUDA tensors launch the hand-written kernels under csrc/
 (bfs_levels.cu, bfs_parents.cu, multi_bfs.cu, packed_levels.cu, and
 bfs_packed.py's K9, K10 and K12), each level driven by a host loop that
-reads one flag, and CPU tensors run the plain versions beside the wrappers
+reads one flag (K16: one cooperative launch a call, every level on the
+card), and CPU tensors run the plain versions beside the wrappers
 (`*_plain`).  The gated batched BFS is bfs_packed.py; the
 direction-optimising host BFS is native/bfsnative.cpp."""
 
@@ -30,8 +31,6 @@ from falkordb_tpu_torch.sparse.ell import as_tensor, ell_device
 
 UNREACHED = 2**30
 UNREACHED8 = 127  # the int8 levels' UNREACHED (bfs_multi_ell_sorted)
-# K16 hands rows with more in-edges than this to its block-per-row kernel
-WIDE_ROW = 1024
 
 
 def bfs_levels(at_csr: CSR, src: int, max_depth=None) -> torch.Tensor:
@@ -170,6 +169,20 @@ def bfs_parents_plain(indptr, rows, cols, nnz, n: int, src: int):
 
 
 # -- k-lane multi-source BFS over the transpose CSR (K16) -----------------------
+#
+# csrc/multi_bfs.cu runs a whole call in one cooperative launch over the plan
+# below: warp tiles of whole rows, a row weighing max(in-edges before nnz,
+# ROW_WEIGHT) and belonging to the tile of its first unit counted in steps
+# of TILE_EDGES (so a tile holds at most 32 rows and 2 * TILE_EDGES - 1
+# edges: a warp's item, a lane a row when it settles); rows of more than
+# HUB_ROW edges go in segments of SEG_EDGES edges.  FRONTIER_MAP keeps the
+# frontier's row map in each block's shared memory where it fits (Person /
+# KNOWS; not RMAT-22); tests turn it off to run the path RMAT-22 takes.
+TILE_EDGES = 256
+ROW_WEIGHT = 8
+HUB_ROW = 256
+SEG_EDGES = 512
+FRONTIER_MAP = True
 
 
 def _roots(sources, n: int, dev):
@@ -183,23 +196,31 @@ def _roots(sources, n: int, dev):
     return s[keep], lanes[keep]
 
 
+def lane_words(k: int) -> int:
+    """K16's words a node for k lanes: ceil(k / 32) rounded up to 1, 2, 4
+    or a multiple of 8 (a node's words are one vector load)."""
+    kw = -(-k // 32)
+    return kw if kw <= 2 else 4 if kw <= 4 else -(-kw // 8) * 8
+
+
 @dataclasses.dataclass
 class MultiBfsState:
     """The state of a k-lane BFS between levels.  On the card (K16):
-    `frontier`, `spare` and `visited` are (n, ceil(k/32)) int32 words, lane
-    l being bit l % 32 of word l // 32, and `levels` (or None) is (n, k)
-    int32; `hsum`, when kept, (n, ceil(k/32)) float64 sums of 1/level per
-    word (harmonic centrality).  On the CPU (the plain version) `frontier`
-    is the reference's (n, k) int8 frontier and `levels` (n, k) int32.
-    `lanes()` gives the frontier in the reference's layout either way."""
+    `frontier`, `spare` and `visited` are (n, lane_words(k)) int32 words,
+    lane l being bit l % 32 of word l // 32 (the words past ceil(k/32)
+    zero), `levels` (or None) is (n, k) int32, `hsum`, when kept, the (n,)
+    float64 sums of 1/level over the lanes (harmonic centrality), and
+    `scratch` the launch's frontier maps and hub words.  On the CPU (the
+    plain version) `frontier` is the reference's (n, k) int8 frontier and
+    `levels` (n, k) int32.  `lanes()` gives the frontier in the reference's
+    layout either way."""
     k: int
     frontier: torch.Tensor
     levels: torch.Tensor | None
     spare: torch.Tensor | None = None
     visited: torch.Tensor | None = None
     hsum: torch.Tensor | None = None
-    flag: torch.Tensor | None = None
-    wide: torch.Tensor | None = None  # rows of > WIDE_ROW edges (card only)
+    scratch: torch.Tensor | None = None
     depth: int = 0  # levels run since the roots were set
     alive: bool = True  # the last level found a fresh lane
 
@@ -214,10 +235,11 @@ class MultiBfsState:
             torch.int8)
 
 
-def _pack_lanes(bits: torch.Tensor) -> torch.Tensor:
-    """(n, k) bool lanes as (n, ceil(k/32)) int32 words, K16's layout."""
+def _pack_lanes(bits: torch.Tensor, words: int | None = None) -> torch.Tensor:
+    """(n, k) bool lanes as (n, words) int32 words (ceil(k/32) by
+    default), K16's layout."""
     n, k = bits.shape
-    kw = (k + 31) // 32
+    kw = words or (k + 31) // 32
     b = torch.zeros((n, kw * 32), dtype=torch.int64, device=bits.device)
     b[:, :k] = bits.to(torch.int64)
     w = (b.view(n, kw, 32) << torch.arange(32, device=bits.device)).sum(2)
@@ -227,27 +249,21 @@ def _pack_lanes(bits: torch.Tensor) -> torch.Tensor:
 def multi_bfs_state(at_csr: CSR, k: int, levels: bool = True,
                     hsum: bool = False) -> MultiBfsState:
     """An empty k-lane state on the CSR's device; the first
-    `multi_bfs_level` call sets its roots.  hsum (the card only) keeps
-    harmonic sums instead of, or beside, the levels."""
+    `multi_bfs_level` or `multi_bfs_sums` call sets its roots.  hsum keeps
+    harmonic sums (zero), instead of or beside the levels."""
     n, dev = at_csr.n_rows, at_csr.device
+    sums = torch.zeros(n, dtype=torch.float64, device=dev) if hsum else None
     if dev.type == "cpu":
-        return _plain_state(n, k, dev)
-    kw = (k + 31) // 32
+        st = _plain_state(n, k, dev)
+        st.hsum = sums
+        return st
+    kw = lane_words(k)
     i32 = dict(dtype=torch.int32, device=dev)
     return MultiBfsState(
         k, torch.empty((n, kw), **i32),
         torch.empty((n, k), **i32) if levels else None,
         spare=torch.empty((n, kw), **i32), visited=torch.empty((n, kw), **i32),
-        hsum=torch.zeros((n, kw), dtype=torch.float64, device=dev)
-        if hsum else None, flag=torch.empty(1, **i32))
-
-
-def wide_rows(at_csr: CSR) -> torch.Tensor:
-    """(rows,) int32 ids of the rows with more than WIDE_ROW edges before
-    nnz, on the CSR's device."""
-    ip = at_csr.indptr.to(torch.int64)
-    deg = ip[1:].clamp(max=at_csr.nnz.to(torch.int64)) - ip[:-1]
-    return torch.nonzero(deg > WIDE_ROW).flatten().to(torch.int32)
+        hsum=sums)
 
 
 def multi_bfs_state_at(at_csr: CSR, levels: torch.Tensor,
@@ -259,12 +275,120 @@ def multi_bfs_state_at(at_csr: CSR, levels: torch.Tensor,
     if at_csr.device.type == "cpu":
         return MultiBfsState(k, frontier.clone(), levels.clone(), depth=depth)
     st = multi_bfs_state(at_csr, k)
-    st.frontier.copy_(_pack_lanes(frontier > 0))
-    st.visited.copy_(_pack_lanes(levels != UNREACHED))
+    st.frontier.copy_(_pack_lanes(frontier > 0, lane_words(k)))
+    st.visited.copy_(_pack_lanes(levels != UNREACHED, lane_words(k)))
     st.levels.copy_(levels)
-    st.wide = wide_rows(at_csr)
     st.depth = depth
     return st
+
+
+def plan_arrays(ip: np.ndarray):
+    """K16's cut of the rows of a transpose CSR whose indptr, clamped at
+    nnz, is `ip` (int64): (tiles (n_tiles, 4) int32 (r0, r1, ip[r0],
+    ip[r1]), runs [r0, r1) of whole rows of at most HUB_ROW edges, in
+    order; segs (n_segs, 4) int32 (row, lo, hi, hub), each wider row's
+    edges in runs of at most SEG_EDGES, in order; hub_segs (n_hubs,) int32,
+    each hub's segments)."""
+    if 32 * ROW_WEIGHT > TILE_EDGES or HUB_ROW > TILE_EDGES:
+        raise ValueError("a tile would exceed the kernel's 32 rows")
+    deg = ip[1:] - ip[:-1]
+    hub = deg > HUB_ROW
+    weight = np.where(hub, 0, np.maximum(deg, ROW_WEIGHT))
+    tile = (np.cumsum(weight) - weight) // TILE_EDGES
+    rows = np.nonzero(~hub)[0]
+    cut = np.ones(len(rows), dtype=bool)
+    cut[1:] = (tile[rows[1:]] != tile[rows[:-1]]) | (rows[1:] != rows[:-1] + 1)
+    first = np.nonzero(cut)[0]
+    r0 = rows[first]
+    r1 = np.append(rows[first[1:] - 1], rows[-1:]) + 1
+    tiles = np.stack([r0, r1, ip[r0], ip[r1]], axis=1).astype(np.int32)
+    hubs = np.nonzero(hub)[0]
+    count = -(-deg[hubs] // SEG_EDGES)
+    start = np.zeros(len(hubs) + 1, dtype=np.int64)
+    np.cumsum(count, out=start[1:])
+    h = np.repeat(np.arange(len(hubs)), count)
+    lo = ip[hubs[h]] + (np.arange(start[-1]) - start[h]) * SEG_EDGES
+    hi = np.minimum(lo + SEG_EDGES, ip[hubs[h] + 1])
+    segs = np.stack([hubs[h], lo, hi, h], axis=1).astype(np.int32)
+    return tiles.reshape(-1, 4), segs.reshape(-1, 4), count.astype(np.int32)
+
+
+@dataclasses.dataclass(eq=False)
+class MultiBfsPlan:
+    """K16's plan of one transpose CSR on its device (`plan_arrays`)."""
+    tiles: torch.Tensor
+    segs: torch.Tensor
+    hub_segs: torch.Tensor
+
+    @property
+    def n_hubs(self) -> int:
+        return self.hub_segs.numel()
+
+
+def multi_bfs_plan(at: CSR) -> MultiBfsPlan:
+    """K16's plan of `at`, made once and cached on the snapshot."""
+    hit = at.__dict__.get("_multi_bfs_plan")
+    if hit is None:
+        ip = np.minimum(at.host_view()[0].astype(np.int64), int(at.nnz))
+        dev = at.device
+        hit = MultiBfsPlan(*(torch.from_numpy(a).to(dev)
+                             for a in plan_arrays(ip)))
+        at.__dict__["_multi_bfs_plan"] = hit
+    return hit
+
+
+_MULTI_BFS = _cuda.Entry("fk_multi_bfs", "multi_bfs")
+
+
+def _launch(at: CSR, st: MultiBfsState, max_depth, steps, seeds,
+            read: bool):
+    """One K16 launch on the card (the lean launch path): with `seeds` the
+    state is first reset to those roots.  Returns (levels run, alive) when
+    `read`, else None, reading nothing back."""
+    n, k = at.n_rows, st.k
+    indptr, cols, nnz = at.indptr, at.cols, at.nnz
+    for name, t, size in (("indptr", indptr, n + 1), ("cols", cols, None)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
+                or (size is not None and t.numel() != size):
+            raise _cuda.input_error("multi_bfs", name, t, torch.int32, size)
+    if nnz.dtype != torch.int32 or nnz.numel() != 1:
+        raise _cuda.input_error("multi_bfs", "nnz", nnz, torch.int32, 1, None)
+    srcs = None
+    if seeds is not None:
+        srcs = seeds if isinstance(seeds, torch.Tensor) else \
+            torch.as_tensor(np.asarray(seeds, dtype=np.int32).reshape(-1))
+        if srcs.device != indptr.device:
+            srcs = srcs.to(indptr.device)
+        if srcs.dtype != torch.int32 or srcs.dim() != 1 or \
+                not srcs.is_contiguous() or srcs.numel() != k:
+            raise _cuda.input_error("multi_bfs", "seeds", srcs, torch.int32, k)
+        st.depth = 0
+    if n == 0 or k == 0:  # a level that finds nothing, as the plain loop
+        return (1, 0) if read else None
+    plan = multi_bfs_plan(at)
+    kw = st.frontier.shape[1]
+    mw = -(-n // 128) * 4  # map words: a bit a row, 16-byte rows
+    if st.scratch is None:
+        st.scratch = torch.empty(3 * mw + plan.n_hubs * (kw + 1),
+                                 dtype=torch.int32, device=indptr.device)
+    dev = indptr.get_device()
+    ctl, staging = _cuda.control("multi_bfs", dev,
+                                 "fk_multi_bfs_control_bytes")
+    p = _cuda.ptr
+    n_levels, alive = ctypes.c_int64(0), ctypes.c_int32(0)
+    _MULTI_BFS.launch(
+        dev, indptr.data_ptr(), cols.data_ptr(), nnz.data_ptr(), n, k, kw,
+        plan.tiles.data_ptr(), plan.tiles.shape[0], plan.segs.data_ptr(),
+        plan.segs.shape[0], plan.hub_segs.data_ptr(), plan.n_hubs, p(srcs),
+        st.frontier.data_ptr(), st.spare.data_ptr(), st.visited.data_ptr(),
+        p(st.levels), p(st.hsum), st.scratch.data_ptr(), mw,
+        int(FRONTIER_MAP), st.depth,
+        -1 if steps is None else steps,
+        -1 if max_depth is None else max(int(max_depth), 0), ctl,
+        staging if read else None,
+        ctypes.byref(n_levels) if read else None,
+        ctypes.byref(alive) if read else None)
+    return (n_levels.value, alive.value) if read else None
 
 
 def multi_bfs_level(at_csr: CSR, st: MultiBfsState, max_depth=None,
@@ -274,37 +398,35 @@ def multi_bfs_level(at_csr: CSR, st: MultiBfsState, max_depth=None,
     frontier lanes and giving each fresh lane depth + 1.  It stops at the
     first level with no fresh lane, or once the depth reaches max_depth (the
     first level always runs).  `seeds` ((k,) ids) first resets the state to
-    those roots, in the same launch."""
-    n = at_csr.n_rows
-    if not _cuda.on_cuda(at_csr.indptr, at_csr.cols, at_csr.nnz, st.frontier):
+    those roots, in the same launch; the host reads the levels run and the
+    alive flag once, after it."""
+    if not _cuda.on_card(at_csr.indptr, at_csr.cols, at_csr.nnz,
+                         st.frontier):
         return _multi_bfs_plain_levels(at_csr, st, max_depth, steps, seeds)
-    _cuda.check_input("multi_bfs", "indptr", at_csr.indptr, torch.int32,
-                      n + 1)
-    _cuda.check_input("multi_bfs", "cols", at_csr.cols, torch.int32)
-    srcs = None
-    if seeds is not None:
-        srcs = torch.as_tensor(seeds, dtype=torch.int32,
-                               device=st.frontier.device).contiguous()
-        _cuda.check_input("multi_bfs", "seeds", srcs, torch.int32, st.k)
-        st.depth = 0
-    n_levels, alive = ctypes.c_int64(0), ctypes.c_int32(0)
-    p = _cuda.ptr
-    if st.wide is None:
-        st.wide = wide_rows(at_csr)
-    rc = _cuda.lib().fk_multi_bfs(
-        p(at_csr.indptr), p(at_csr.cols), p(at_csr.nnz), n, st.k, p(st.wide),
-        st.wide.numel(), WIDE_ROW, p(srcs),
-        p(st.frontier), p(st.spare), p(st.visited), p(st.levels), p(st.hsum),
-        st.depth, -1 if steps is None else steps,
-        -1 if max_depth is None else max(int(max_depth), 0), p(st.flag),
-        ctypes.byref(n_levels), ctypes.byref(alive),
-        _cuda.stream_ptr(st.frontier))
-    _cuda.check(rc, "multi_bfs")
-    _cuda.count_launch("multi_bfs")
-    if n_levels.value % 2:  # the buffers swap each level
+    n_levels, alive = _launch(at_csr, st, max_depth, steps, seeds, True)
+    if n_levels % 2:  # the buffers swap each level
         st.frontier, st.spare = st.spare, st.frontier
-    st.depth += n_levels.value
-    st.alive = bool(alive.value)
+    st.depth += n_levels
+    st.alive = bool(alive)
+    return st
+
+
+def multi_bfs_sums(at_csr: CSR, st: MultiBfsState, seeds) -> MultiBfsState:
+    """K16's harmonic-sums form: a BFS from `seeds` ((k,) ids, one lane
+    each, the state reset to them) to the fixpoint over the TRANSPOSE
+    adjacency, adding for each node the fresh lanes' 1/level to st.hsum.
+    On the card it is one launch that reads nothing back, so calls queue
+    behind one another; st.depth and st.alive are then not kept, and the
+    frontier words are scratch."""
+    if not _cuda.on_card(at_csr.indptr, at_csr.cols, at_csr.nnz,
+                         st.frontier):
+        st.hsum += multi_bfs_sums_plain(at_csr, seeds)
+        return st
+    if st.hsum is None or st.levels is not None:
+        raise ValueError("multi_bfs_sums: the state must keep harmonic sums "
+                         "and no levels (multi_bfs_state(..., levels=False, "
+                         "hsum=True))")
+    _launch(at_csr, st, None, None, seeds, False)
     return st
 
 
@@ -360,9 +482,24 @@ def multi_bfs_level_plain(rows, cols, nnz, n: int, frontier, levels,
 def bfs_multi_plain(at_csr: CSR, sources, max_depth=None) -> torch.Tensor:
     """Plain PyTorch version of bfs_multi on the CSR's device: the
     reference's level loop on its (n, k) int8 frontier."""
+    if isinstance(sources, torch.Tensor):
+        sources = sources.cpu()
     srcs = np.asarray(sources, dtype=np.int32).reshape(-1)
     st = _plain_state(at_csr.n_rows, len(srcs), at_csr.device)
     return _multi_bfs_plain_levels(at_csr, st, max_depth, None, srcs).levels
+
+
+def multi_bfs_sums_plain(at_csr: CSR, sources) -> torch.Tensor:
+    """Plain PyTorch version of K16's harmonic-sums form for one batch, on
+    the CSR's device: (n,) float64, each node's sum over the lanes of
+    1/level where the lane reached it at level > 0 (falkordb_tpu's
+    harmonic_centrality batch: `bfs_multi`, then the masked reciprocal
+    summed over the lanes)."""
+    levels = bfs_multi_plain(at_csr, sources)
+    mask = (levels > 0) & (levels < UNREACHED)
+    return torch.where(mask, 1.0 / levels.clamp(min=1).double(),
+                       torch.zeros((), dtype=torch.float64,
+                                   device=levels.device)).sum(1)
 
 
 def bfs_multi(at_csr: CSR, sources, max_depth=None) -> torch.Tensor:

@@ -1,24 +1,27 @@
 """Harmonic centrality: batched multi-source BFS (kernel K16).
 
 h(v) = sum over u != v of 1/d(u -> v) over INCOMING paths (LAGraph's
-harmonic role).  As in falkordb_tpu (algos/harmonic.py), the sources run
-64 at a time as the lanes of one multi-source BFS over the transpose.  On
-the card the (n, 64) levels are never written: K16 adds 1/(depth + 1) for
-each fresh lane into float64 sums on the card, and only the (n,) result
-comes back.  On the CPU each batch's levels are reduced as the reference
-does."""
+harmonic role).  As in falkordb_tpu (algos/harmonic.py), the sources run in
+batches as the lanes of one multi-source BFS over the transpose.  On the
+card each batch is one K16 launch in its harmonic-sums form: the (n, k)
+levels are never written, each fresh lane adds 1/(depth + 1) into an (n,)
+float64 sum on the card, the batches queue behind one another with nothing
+read back between them, and only the (n,) result comes back.  On the CPU
+each batch of the reference's 64 lanes is reduced as the reference does
+(`multi_bfs_sums_plain`)."""
 
 from __future__ import annotations
 
 import torch
 
 from falkordb_tpu_torch.algos.bfs import (
-    UNREACHED, bfs_multi, multi_bfs_level, multi_bfs_state,
+    multi_bfs_state, multi_bfs_sums, multi_bfs_sums_plain,
 )
 from falkordb_tpu_torch.native import cuda as _cuda
 from falkordb_tpu_torch.sparse.csr import CSR
 
-LANES = 64
+LANES = 64  # the reference's batch, kept on the CPU
+CARD_LANES = 256  # a batch on the card: the fastest of 64, 128, 256 (PERF.md §6)
 
 
 def harmonic_centrality(a_csr: CSR) -> torch.Tensor:
@@ -29,17 +32,22 @@ def harmonic_centrality(a_csr: CSR) -> torch.Tensor:
     if n == 0:
         return torch.zeros(0, dtype=torch.float64, device=dev)
     at = a_csr.transpose_host()
-    if not _cuda.on_cuda(at.indptr, at.cols, at.nnz):
+    if not _cuda.on_card(at.indptr, at.cols, at.nnz):
         out = torch.zeros(n, dtype=torch.float64)
         for lo in range(0, n, LANES):
-            levels = bfs_multi(at, range(lo, min(lo + LANES, n)))
-            mask = (levels > 0) & (levels < UNREACHED)
-            out += torch.where(mask, 1.0 / levels.clamp(min=1).double(),
-                               torch.zeros((), dtype=torch.float64)).sum(1)
+            out += multi_bfs_sums_plain(at, range(lo, min(lo + LANES, n)))
         return out
-    st = multi_bfs_state(at, LANES, levels=False, hsum=True)
-    # a lane past the last node is rooted at an id >= n: it reaches nothing
-    ids = torch.arange(n + LANES, dtype=torch.int32, device=dev)
-    for lo in range(0, n, LANES):
-        multi_bfs_level(at, st, steps=None, seeds=ids[lo: lo + LANES])
-    return st.hsum.sum(1)
+    return harmonic_sums(at, CARD_LANES)
+
+
+def harmonic_sums(at: CSR, lanes: int) -> torch.Tensor:
+    """(n,) float64 harmonic sums over the TRANSPOSE `at`, `lanes` sources
+    a batch, on its device: one `multi_bfs_sums` call a batch, all queued
+    (a lane past the last node is rooted at an id >= n: it reaches
+    nothing)."""
+    n = at.n_rows
+    st = multi_bfs_state(at, lanes, levels=False, hsum=True)
+    ids = torch.arange(n + lanes, dtype=torch.int32, device=at.device)
+    for lo in range(0, n, lanes):
+        multi_bfs_sums(at, st, ids[lo: lo + lanes])
+    return st.hsum

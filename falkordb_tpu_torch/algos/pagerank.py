@@ -102,23 +102,6 @@ def pagerank_plan(at: CSR) -> PagerankPlan:
 
 
 _PAGERANK = _cuda.Entry("fk_pagerank", "pagerank")
-_CONTROL: dict = {}  # CUDA device index -> K5's control words, staging
-
-
-def _control(dev: int):
-    """The addresses of K5's control words on CUDA device `dev` (csrc/
-    pagerank.cu `Control`: the grid barrier, a ticket, the sums, the
-    result), zeroed once at their first use there, and of the pinned host
-    words the result is copied to.  Calls share them in stream order."""
-    hit = _CONTROL.get(dev)
-    if hit is None:
-        words = -(-_cuda.lib().fk_pagerank_control_bytes() // 4)
-        ctl = torch.zeros(words, dtype=torch.int32,
-                          device=torch.device("cuda", dev))
-        staging = torch.zeros(8, dtype=torch.int32, pin_memory=True)
-        hit = _CONTROL[dev] = (ctl, staging, ctl.data_ptr(),
-                               staging.data_ptr())
-    return hit[2], hit[3]
 
 
 def pagerank(a_csr: CSR, damping=0.85, tol=1e-4, max_iters=100):
@@ -161,7 +144,8 @@ def pagerank_transposed(at: CSR, damping=0.85, tol=1e-4, max_iters=100):
         return torch.empty(0, **f32), 0, 0.0
     plan = pagerank_plan(at)
     r0, d, tol32, base = _scalars(n, damping, tol)
-    ctl, staging = _control(dev)
+    ctl, staging = _cuda.control("pagerank", dev,
+                                 "fk_pagerank_control_bytes")
     r_a, r_b = torch.empty(n, **f32), torch.empty(n, **f32)
     n_tasks = plan.tasks.shape[0]
     scratch = torch.empty(4 * n + 4 * (MAX_BLOCKS + plan.n_long) + n_tasks,

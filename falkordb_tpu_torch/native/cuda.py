@@ -17,8 +17,10 @@ The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
 kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
-one.  K2, K5, K24, K26, K27's `double` and K30 take it; the other
+one.  K2, K5, K16, K24, K26, K27's `double` and K30 take it; the other
 wrappers still take `on_cuda`, `check_input` and a `lib()` lookup a call.
+K5 and K16, one persistent cooperative launch a call, keep their grid
+barrier's words and their result's pinned staging per card (`control`).
 """
 
 from __future__ import annotations
@@ -167,8 +169,10 @@ _SIGNATURES = {
     "fk_kmeans_assign_scratch": [_I64, _I64],
     "fk_kmeans_update": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
     "fk_vector_scores": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _P, _P],
-    "fk_multi_bfs": [_P, _P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P,
-                     _P, _P, _I64, _I64, _I64, _P, _OUT_I64, _OUT_I32, _P],
+    "fk_multi_bfs_control_bytes": [],
+    "fk_multi_bfs": [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _P, _I64, _P,
+                     _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                     _I64, _P, _P, _OUT_I64, _OUT_I32, _P],
     "fk_packed_levels": [_P, _I64, _I64, _P, _I64, _I64, _I64, _P],
     "fk_ell_pagerank_prep": [_P, _P, _P, _I64, _P, _P, _I64, _P, _I64, _P,
                              _P],
@@ -214,6 +218,7 @@ _SIGNATURES = {
 
 _RESTYPES = {"fk_kmeans_assign_scratch": _I64,
              "fk_pagerank_control_bytes": _I64,
+             "fk_multi_bfs_control_bytes": _I64,
              "fk_mesh_scratch_bytes": _I64}  # the rest return an error
 
 _lock = threading.Lock()
@@ -384,6 +389,26 @@ class Entry:
         if rc:
             check(rc, self.kernel.name)
         self.kernel.launches += 1
+
+
+_CONTROL: dict = {}  # (kernel, CUDA device index) -> control words, staging
+
+
+def control(kernel: str, dev: int, size_symbol: str):
+    """The addresses of a persistent kernel's control words on CUDA device
+    `dev` (its grid barrier and result; `size_symbol` names the C function
+    that gives their bytes), zeroed once at their first use there, and of
+    the 32 bytes of pinned host memory its result is copied to.  Calls of
+    the kernel share them in stream order."""
+    hit = _CONTROL.get((kernel, dev))
+    if hit is None:
+        words = -(-getattr(lib(), size_symbol)() // 4)
+        ctl = torch.zeros(words, dtype=torch.int32,
+                          device=torch.device("cuda", dev))
+        staging = torch.zeros(8, dtype=torch.int32, pin_memory=True)
+        hit = _CONTROL[(kernel, dev)] = (ctl, staging, ctl.data_ptr(),
+                                         staging.data_ptr())
+    return hit[2], hit[3]
 
 
 def stream_ptr(t: torch.Tensor) -> int:

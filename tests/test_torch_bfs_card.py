@@ -1,4 +1,20 @@
-"""K18 on the card: one ELL PageRank step (falkordb_tpu_torch/algos/pagerank.py
+"""K16 and K18 on the card, each against its plain PyTorch version on the
+same CUDA tensors.
+
+K16 (falkordb_tpu_torch/algos/bfs.py `multi_bfs_level`, `bfs_multi`,
+`bfs_multi_stepped`, `multi_bfs_sums`; csrc/multi_bfs.cu) over a transpose
+whose rows fall in every kind of item of its plan (hub rows cut into
+segments; tiles of one wide row, of many narrow ones, of rows of degree
+0), with a capacity past nnz whose columns lie out of range,
+columns out of range before nnz, at k = 1, 5, 33, 64, 100, 256 and 300 (a
+node's words in two chunks), with the frontier map in shared memory and
+without it: levels, next frontier, alive and depth exact; max_depth 0 and 1, a
+one-level continuation from `multi_bfs_state_at`, n = 0 and nnz = 0, roots
+outside the graph; the harmonic-sums form against its plain version (atol
+1e-9: float64 sums in another order), the same bits on a second run, many
+batches queued with nothing read between; one cooperative launch a call.
+
+K18: one ELL PageRank step (falkordb_tpu_torch/algos/pagerank.py
 `ell_pagerank_step`, csrc/ell_pagerank.cu) against its plain PyTorch
 version on the same CUDA tensors, over the transpose ELL forms the port
 builds of a small RMAT-like graph with a hub row wider than 131,072: the raw
@@ -25,9 +41,12 @@ import numpy as np
 import pytest
 import torch
 
+from falkordb_tpu_torch.algos import bfs as tbfs
+from falkordb_tpu_torch.algos import harmonic as tharm
 from falkordb_tpu_torch.algos import pagerank as tpr
 from falkordb_tpu_torch.algos.bfs import ell_reach_parts
 from falkordb_tpu_torch.native import cuda
+from falkordb_tpu_torch.sparse.csr import CSR
 from falkordb_tpu_torch.sparse.ell import (build_blocked_ell,
                                            build_blocked_ell_sorted)
 
@@ -129,3 +148,177 @@ def test_card_ell_pagerank_step(dev):
         assert torch.equal(rk, rk2) and torch.equal(ek, ek2), name
         calls += 2
     assert cuda.KERNELS["ell_pagerank"].launches == calls
+
+
+# -- K16 ------------------------------------------------------------------------
+
+K16_HUB = 5000  # in-edges of node 7: five segments of at most 1,024
+
+
+def k16_graph(dev, seed=4, n=20_000, m=120_000, pad=37):
+    """A transpose CSR (rows = destinations) with rows of every kind of
+    K16's plan: Zipf destinations (hubs, tiles of one row of up to 256
+    in-edges and of many narrow rows), node 7 a hub, nodes n/2 .. n/2 + n/20 with no in-edge, 20 columns out
+    of range before nnz and `pad` entries past nnz (columns n + 9)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, m + K16_HUB)
+    dst = np.concatenate([np.minimum(rng.zipf(1.3, m) - 1, n - 1),
+                          np.full(K16_HUB, 7)])
+    dst = np.where((dst >= n // 2) & (dst < n // 2 + n // 20), dst + n // 10,
+                   dst)
+    order = np.argsort(dst, kind="stable")
+    indptr = np.concatenate([[0], np.bincount(dst, minlength=n).cumsum()])
+    cols = src[order].astype(np.int64)
+    cols[rng.choice(len(cols), 20, replace=False)] = rng.choice(
+        [-3, n, n + 40], 20)
+    rows = np.concatenate([dst[order], np.full(pad, n - 1)]).astype(np.int32)
+    cols = np.concatenate([cols, np.full(pad, n + 9)]).astype(np.int32)
+    at = CSR.from_host(indptr.astype(np.int32), rows, cols, None, len(src),
+                       (n, n), device=dev)
+    deg = np.diff(indptr)
+    assert deg.max() > 4 * tbfs.SEG_EDGES and (deg > tbfs.HUB_ROW).sum() > 1
+    assert ((deg > 32) & (deg <= tbfs.HUB_ROW)).any() and (deg == 0).any()
+    return at
+
+
+def k16_roots(k, n, seed=0):
+    roots = np.random.default_rng(seed + k).integers(0, n, k).astype(np.int32)
+    roots[0] = 7  # the hub
+    return roots
+
+
+@pytest.fixture(params=["map", "no map"])
+def map_mode(request, monkeypatch):
+    monkeypatch.setattr(tbfs, "FRONTIER_MAP", request.param == "map")
+    return request.param
+
+
+def hold_level(at, levels, frontier, d, what):
+    """One K16 level from the reference-layout state after d levels against
+    multi_bfs_level_plain: levels, next frontier, alive and depth."""
+    want_l, want_f, want_any = tbfs.multi_bfs_level_plain(
+        at.rows, at.cols, at.nnz, at.n_rows, frontier, levels, d)
+    st = tbfs.multi_bfs_state_at(at, levels, frontier, d)
+    tbfs.multi_bfs_level(at, st)
+    torch.cuda.synchronize()
+    assert torch.equal(st.levels, want_l), what
+    assert torch.equal(st.lanes(), want_f), what
+    assert st.alive == bool(want_any) and st.depth == d + 1, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 33, 64, 100, 256, 300])
+def test_card_multi_bfs(dev, map_mode, k):
+    at = k16_graph(dev)
+    n = at.n_rows
+    roots = k16_roots(k, n)
+    want = tbfs.bfs_multi_plain(at, roots)
+    got = tbfs.bfs_multi(at, roots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (map_mode, k)
+    assert (want != tbfs.UNREACHED).sum() > 4 * k  # the lanes travel
+    assert torch.equal(tbfs.bfs_multi_stepped(at, roots), want)
+    top = int(want[want != tbfs.UNREACHED].max())
+    for d in (1, 3, top):  # a live level, and the last (it finds nothing)
+        ld = torch.where(want <= d, want, torch.full_like(want,
+                                                          tbfs.UNREACHED))
+        hold_level(at, ld, (want == d).to(torch.int8), d, (map_mode, k, d))
+    for md in (0, 1, 2):
+        assert torch.equal(tbfs.bfs_multi(at, roots, max_depth=md),
+                           tbfs.bfs_multi_plain(at, roots, max_depth=md)), md
+
+
+@pytest.mark.cuda
+def test_card_multi_bfs_steps_from_a_state(dev, map_mode):
+    """steps=1 from multi_bfs_state_at, then the rest of the run in one
+    call, equal to the plain run; the depth and alive flag as the plain
+    loop's."""
+    at = k16_graph(dev, seed=6)
+    roots = k16_roots(64, at.n_rows, seed=3)
+    want = tbfs.bfs_multi_plain(at, roots)
+    l2 = tbfs.bfs_multi_plain(at, roots, max_depth=2)
+    st = tbfs.multi_bfs_state_at(at, l2, (l2 == 2).to(torch.int8), 2)
+    tbfs.multi_bfs_level(at, st, steps=1)
+    assert st.depth == 3 and st.alive
+    tbfs.multi_bfs_level(at, st, steps=None)
+    assert torch.equal(st.levels, want)
+    assert st.depth == int(want[want != tbfs.UNREACHED].max()) + 1
+    assert not st.alive and not bool(st.lanes().any())
+
+
+@pytest.mark.cuda
+def test_card_multi_bfs_edge_cases(dev):
+    """n = 0, k = 0, nnz = 0, and roots outside the graph (negative ids
+    count from the end, ids past either end set nothing)."""
+    e = np.zeros(0, np.int32)
+    empty = CSR.from_host(np.zeros(1, np.int32), e, e, None, 0, (0, 0),
+                          device=dev)
+    assert tbfs.bfs_multi(empty, [0, 3]).shape == (0, 2)
+    n = 50
+    bare = CSR.from_host(np.zeros(n + 1, np.int32), np.zeros(4, np.int32),
+                         np.full(4, 3, np.int32), None, 0, (n, n), device=dev)
+    roots = np.array([0, -1, n + 3, -n - 2, 13], np.int32)
+    got = tbfs.bfs_multi(bare, roots)
+    assert torch.equal(got, tbfs.bfs_multi_plain(bare, roots))
+    assert tbfs.bfs_multi(bare, np.zeros(0, np.int32)).shape == (n, 0)
+    at = k16_graph(dev)
+    roots = np.array([7, -1, at.n_rows, -at.n_rows - 1, 3], np.int32)
+    assert torch.equal(tbfs.bfs_multi(at, roots),
+                       tbfs.bfs_multi_plain(at, roots))
+    st = tbfs.multi_bfs_state(bare, 3)
+    tbfs.multi_bfs_level(bare, st, seeds=[1, 2, 60])
+    assert st.depth == 1 and not st.alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [64, 128, 256])
+def test_card_harmonic_sums(dev, map_mode, lanes):
+    """The sums form against its plain version batch by batch and queued:
+    many batches with nothing read between, the same bits on a second
+    run, one cooperative launch a batch."""
+    at = k16_graph(dev, n=6000, m=30_000)
+    n = at.n_rows
+    ids = torch.arange(n + lanes, dtype=torch.int32, device=dev)
+    st = tbfs.multi_bfs_state(at, lanes, levels=False, hsum=True)
+    tbfs.multi_bfs_sums(at, st, ids[:lanes])
+    first = tbfs.multi_bfs_sums_plain(at, ids[:lanes])
+    torch.testing.assert_close(st.hsum, first, rtol=0, atol=1e-9)
+    assert float(first.sum()) > 0
+    cuda.reset_launches()
+    got = tharm.harmonic_sums(at, lanes)
+    batches = -(-n // lanes)
+    assert cuda.KERNELS["multi_bfs"].launches == batches
+    want = sum(tbfs.multi_bfs_sums_plain(at, ids[lo: lo + lanes])
+               for lo in range(0, n, lanes))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-9)
+    assert torch.equal(tharm.harmonic_sums(at, lanes), got)
+
+
+@pytest.mark.cuda
+def test_card_multi_bfs_one_launch_a_call(dev):
+    """bfs_multi makes one cooperative launch, the seeds' upload and one
+    read of the result; a queued harmonic batch one launch and nothing
+    else (no copy, no synchronisation)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    at = k16_graph(dev)
+    roots = k16_roots(64, at.n_rows)
+    st = tbfs.multi_bfs_state(at, 64, levels=False, hsum=True)
+    ids = torch.arange(128, dtype=torch.int32, device=dev)
+    for fn, most in ((lambda: tbfs.bfs_multi(at, roots), 2),
+                     (lambda: tbfs.multi_bfs_sums(at, st, ids[:64]), 0)):
+        fn()
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+        calls = {e.key: e.count for e in prof.key_averages()
+                 if e.key.startswith("cuda")}
+        torch.cuda.synchronize()
+        assert cuda.KERNELS["multi_bfs"].launches == 1
+        assert calls.get("cudaLaunchCooperativeKernel") == 1, calls
+        assert not calls.get("cudaLaunchKernel"), calls
+        copies = sum(v for key, v in calls.items()
+                     if key.startswith("cudaMemcpy"))
+        assert copies <= most and calls.get("cudaStreamSynchronize",
+                                            0) <= most, calls

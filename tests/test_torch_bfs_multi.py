@@ -10,8 +10,9 @@ kernels are held to on the card (chip_smoke.py).  Tolerances:
 
   * levels, visited bits, level counts, per-lane counts: exact (integers,
     bits; the counts are integer sums below 2^24).
-  * harmonic centrality: abs 1e-9 (float64 sums of 1/level in other
-    orders).
+  * harmonic centrality, the harmonic-sums form batch by batch and at
+    64, 128 and 256 lanes a batch: abs 1e-9 (float64 sums of 1/level in
+    other orders).
   * pagerank_ell: rtol 1e-5, atol 1e-9 per score and the same number of
     steps (float32 row sums in other orders).  The L1 changes around the
     stop at tol 1e-4 and 2e-5 are 5% above and 12% below tol, clear of
@@ -34,7 +35,8 @@ from falkordb_tpu.sparse import ell as jell
 from falkordb_tpu.sparse.csr import CSR as JaxCSR
 from falkordb_tpu_torch.algos import bfs as tbfs
 from falkordb_tpu_torch.algos import pagerank as tpr
-from falkordb_tpu_torch.algos.harmonic import harmonic_centrality
+from falkordb_tpu_torch.algos.harmonic import (harmonic_centrality,
+                                               harmonic_sums)
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.sparse import ell as tell
 from falkordb_tpu_torch.sparse.csr import CSR, bucket_cap
@@ -197,6 +199,92 @@ def test_harmonic_centrality_matches_jax(n, p, seed):
     oracle = nx.harmonic_centrality(G)
     np.testing.assert_allclose(got.numpy(), [oracle[i] for i in range(n)],
                                rtol=0, atol=1e-9)
+
+
+def test_multi_bfs_sums_plain_matches_reference_batches():
+    """The plain harmonic-sums form against the body of the reference's
+    harmonic_centrality loop, batch by batch, and their total against it."""
+    n = 200
+    G, src, dst = _gnp(n, 0.02, 3)
+    jat, tat = _transposes(src, dst, n)
+    total = np.zeros(n)
+    for lo in range(0, n, 64):
+        srcs = list(range(lo, min(lo + 64, n)))
+        levels = np.asarray(jbfs.bfs_multi(jat, srcs))
+        mask = (levels > 0) & (levels < 2**30)
+        want = np.where(mask, 1.0 / np.maximum(levels, 1), 0.0).sum(axis=1)
+        got = tbfs.multi_bfs_sums_plain(tat, srcs)
+        assert got.dtype == torch.float64 and got.shape == (n,)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-9)
+        total += want
+    assert total.max() > 1
+    np.testing.assert_allclose(total, np.asarray(jax_harmonic(
+        JaxCSR.from_coo_numpy(src, dst, None, shape=(n, n), dedup=False))),
+        rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("lanes", [64, 128, 256])
+def test_harmonic_sums_lanes_match_jax(lanes):
+    """The card's loop (a batch of `lanes` sources a call, the last batch's
+    lanes past the last node reaching nothing) over the plain sums form,
+    against the JAX package's 64-lane harmonic centrality."""
+    n = 600
+    G, src, dst = _gnp(n, 0.005, 9)
+    want = np.asarray(jax_harmonic(
+        JaxCSR.from_coo_numpy(src, dst, None, shape=(n, n), dedup=False)))
+    at = CSR.from_coo_numpy(src, dst, None, shape=(n, n),
+                            dedup=False).transpose_host()
+    got = harmonic_sums(at, lanes)
+    assert got.dtype == torch.float64 and got.shape == (n,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("thresholds", [None, (32, 1, 4, 3)])
+def test_multi_bfs_plan_covers_the_csr(monkeypatch, thresholds):
+    """K16's plan against the CSR it was cut from: every row in exactly one
+    warp tile (a run of at most 32 whole rows, its edges before nnz
+    (ip[r0], ip[r1]), fewer than 2 * TILE_EDGES, no hub) or a hub, and each
+    hub's segments covering its edges before nnz in order, none wider than
+    SEG_EDGES.  With the default thresholds a hub of 2,100 in-edges takes
+    five segments; with small ones most rows are hubs or share tiles."""
+    if thresholds is not None:
+        for name, v in zip(("TILE_EDGES", "ROW_WEIGHT", "HUB_ROW",
+                            "SEG_EDGES"), thresholds):
+            monkeypatch.setattr(tbfs, name, v)
+    src, dst, n = _digraph(seed=6)
+    hub = 2100 if thresholds is None else 30
+    src = np.concatenate([src, np.random.default_rng(1).integers(0, 70, hub)])
+    dst = np.concatenate([dst, np.full(hub, 11)])
+    _jat, tat = _transposes(src, dst, n)
+    plan = tbfs.multi_bfs_plan(tat)
+    assert tbfs.multi_bfs_plan(tat) is plan  # cut once a snapshot
+    ip = np.minimum(tat.indptr.numpy().astype(np.int64), int(tat.nnz))
+    deg = np.diff(ip)
+    tiles = plan.tiles.numpy().astype(np.int64)
+    r0, r1 = tiles[:, 0], tiles[:, 1]
+    assert ((r1 > r0) & (r1 - r0 <= 32)).all() and (r0[1:] >= r1[:-1]).all()
+    np.testing.assert_array_equal(tiles[:, 2], ip[r0])
+    np.testing.assert_array_equal(tiles[:, 3], ip[r1])
+    assert (tiles[:, 3] - tiles[:, 2] < 2 * tbfs.TILE_EDGES).all()
+    rows = np.concatenate([np.arange(a, b) for a, b in zip(r0, r1)])
+    assert (deg[rows] <= tbfs.HUB_ROW).all()
+    segs, counts = plan.segs.numpy(), plan.hub_segs.numpy()
+    hubs = segs[np.r_[True, segs[1:, 3] != segs[:-1, 3]], 0]
+    assert len(hubs) == plan.n_hubs == len(counts) > 0
+    assert (deg[hubs] > tbfs.HUB_ROW).all()
+    np.testing.assert_array_equal(np.sort(np.concatenate([rows, hubs])),
+                                  np.arange(n))
+    for h, v in enumerate(hubs):
+        mine = segs[segs[:, 3] == h]
+        assert (mine[:, 0] == v).all() and len(mine) == counts[h]
+        assert mine[0, 1] == ip[v] and mine[-1, 2] == ip[v + 1]
+        np.testing.assert_array_equal(mine[1:, 1], mine[:-1, 2])
+        assert ((mine[:, 2] - mine[:, 1] > 0) &
+                (mine[:, 2] - mine[:, 1] <= tbfs.SEG_EDGES)).all()
+    if thresholds is None:
+        assert counts.tolist() == [5]
+    else:
+        assert len(hubs) > 1 and (r1 - r0 > 1).any()
 
 
 # -- the blocked-ELL family ----------------------------------------------------------
