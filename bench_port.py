@@ -62,6 +62,7 @@ from falkordb_tpu_torch.algos.bfs import (
 )
 from falkordb_tpu_torch.algos.bfs_packed import (
     bfs_multi_gated_hostdriven, build_packed_ell, build_sparse_level,
+    sparse_plan,
 )
 from falkordb_tpu_torch.native import cuda as _cuda
 from falkordb_tpu_torch.sparse.csr import CSR, bucket_cap
@@ -230,6 +231,7 @@ class Prepared:
     gen_s: float
     upload_s: float
     prep_s: float
+    sparse_plan: object = None  # K9's plan of `sparse`, cut once
 
 
 def prepare(scale, nbfs=2048, chunk_edges=32 << 20, cache_dir=CACHE_DIR,
@@ -268,7 +270,9 @@ def prepare(scale, nbfs=2048, chunk_edges=32 << 20, cache_dir=CACHE_DIR,
         f"sparse_buckets={len(sparse) if sparse is not None else 0}")
     return Prepared(scale, n, len(src), packed, roots, nbr_indptr, nbr_cols,
                     outdeg_sorted, (fip, fcols), sparse, pad_ratio, gen_s,
-                    upload_s, prep_s)
+                    upload_s, prep_s,
+                    None if sparse is None else sparse_plan(
+                        [(ids, colsT) for ids, colsT, _w, _v in sparse]))
 
 
 @dataclasses.dataclass
@@ -297,7 +301,8 @@ def bfs_once(prep: Prepared, nbfs=2048, max_levels=24, word="int16",
     return bfs_multi_gated_hostdriven(
         roots, prep.packed, fwd_indptr=prep.nbr_indptr,
         fwd_cols=prep.nbr_cols, word_dtype=word, max_levels=max_levels,
-        seed_arrays=seeds, sparse_first=prep.sparse if sparse_l2 else None,
+        seed_arrays=seeds, sparse_first=None if not sparse_l2 else
+        prep.sparse if prep.sparse_plan is None else prep.sparse_plan,
         device=prep.fwd[0].device)
 
 
@@ -372,6 +377,7 @@ class SteppedPrep:
     gen_s: float
     upload_s: float
     prep_s: float
+    sparse_plan: object = None  # K9's plan of `sparse`, cut once
 
 
 def prepare_stepped(scale, nbfs=STEPPED_NBFS, cache_dir=CACHE_DIR,
@@ -440,6 +446,7 @@ class PackedPrep:
     gen_s: float
     upload_s: float
     prep_s: float
+    sparse_plan: object = None  # K9's plan of `sparse`, cut once
 
 
 def prepare_packed(scale, nbfs=NBFS_MAX, cache_dir=CACHE_DIR,

@@ -12,6 +12,9 @@ card in one call.
     python3 bench_port_compare.py --rows pagerank    # K5
     python3 bench_port_compare.py --rows agg         # K2's five shapes
     python3 bench_port_compare.py --rows bfs         # K16
+    python3 bench_port_compare.py --rows expand      # K23
+    python3 bench_port_compare.py --rows reach       # K9
+    python3 bench_port_compare.py --rows queries     # path g's read mix
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -118,6 +121,40 @@ On a tree whose harmonic module has `CARD_LANES`, one `form {...}` line
 per width of its sweep (64, 128, 256 lanes a batch) and with its frontier
 map on and off (`bfs.FRONTIER_MAP`), and a `level {...}` line per level of
 a 64-lane run over Person / KNOWS.
+
+The expand rows are K23 over shard 0 of 4 of the SF1-class edge table
+(the dataset built once by the root's generator and loader, its edge
+columns cached under this checkout's .bench_cache/port/), as
+DIR/chip_smoke.py's `check_shard_expand` runs it, at frontiers of the
+first 64, 4,096 and 65,536 Persons and each endpoint: a `compare` row (on
+a tree with `qdist.frontier_map` a call is the map and the scan, as
+expand_rows launches them for a shard), a `device` line with the CUDA API
+calls of one call, and a `host` line: milliseconds of one whole
+`qdist.expand_rows` call over 4 shards on the card (join and sort on the
+host included) for each frontier and direction; then the ptxas report of
+csrc/shard_expand.cu.
+
+The reach rows are K9 at DIR/chip_smoke.py's `check_packed` shapes
+(RMAT-`--scale`, 2048 lanes: the mini-ELL level, the full level, the hub
+chunk, as `compare` rows), then one `level {...}` line per level of a
+gated BFS from the first 2048 roots run level by level as the root's
+bench_port.py runs them: the share of gathered column slots whose
+frontier row is zero, K9's ms on CUDA events (the host's launch path
+included), its device ms from one more traced call and its launches, and
+on a tree with
+the level form whether `bitmap_pays` chose the bitmap and K9's ms with the
+bitmap forced on and off (median of 5 events each); on a tree with
+`bfs_packed.LEVEL_SEGMENT` one `form {...}` line per segment width of the
+full level; and the ptxas report of csrc/packed_reach.cu,
+packed_epilogue.cu and packed_seed.cu.  Past `--scale 22` only the level
+lines and the ptxas report run (check_packed's copies of the state would
+not fit).
+
+The queries rows are path g's LDBC read mix as DIR/chip_smoke.py's
+`mesh_path` runs it under FALKOR_DIST_QUERY=force (the SF1-class graph on
+the card, 4 shards on the one card): each query's first run (checked) and 5
+more, each on the host clock (`query {...}` lines, with the last run's
+kernel launches).
 """
 
 import argparse
@@ -139,10 +176,13 @@ def main(argv=None):
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale")
     ap.add_argument("--rows", default=["all"], nargs="+",
                     choices=("all", "graph", "vector", "mesh", "probes",
-                             "pagerank", "agg", "bfs"),
+                             "pagerank", "agg", "bfs", "expand", "reach",
+                             "queries"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
                          "K24 and K26; probes: K30's reps-1 forms and K27's "
-                         "double; pagerank: K5; agg: K2; bfs: K16")
+                         "double; pagerank: K5; agg: K2; bfs: K16; expand: "
+                         "K23; reach: K9; queries: path g's forced LDBC "
+                         "read mix")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -159,7 +199,10 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full
-    print(f"build: {smoke.cuda.build():.2f} s ({root})", flush=True)
+    if smoke.cuda._stale():  # a tree's second run keeps its first's build
+        print(f"build: {smoke.cuda.build():.2f} s ({root})", flush=True)
+    else:
+        print(f"build: kept from an earlier run ({root})", flush=True)
     smoke.cuda.lib()
     dev = torch.device("cuda", 0)
     if {"all", "vector"} & set(args.rows):
@@ -177,6 +220,12 @@ def main(argv=None):
         agg_rows(smoke, root, dev)
     if {"all", "bfs"} & set(args.rows):
         bfs_rows(smoke, root, args.scale, dev)
+    if {"all", "expand"} & set(args.rows):
+        expand_rows(smoke, root, dev)
+    if {"all", "reach"} & set(args.rows):
+        reach_rows(smoke, root, args.scale, dev)
+    if {"all", "queries"} & set(args.rows):
+        query_rows(smoke, root, dev)
     return 0
 
 
@@ -1027,7 +1076,12 @@ def ptxas(smoke, root, sources):
     registers, shared memory (bytes) and spills of its sm_90a code."""
     section = None
     fn = None
-    for line in smoke.cuda.build_log.splitlines():
+    log = smoke.cuda.build_log
+    saved = os.path.join(smoke.cuda.BUILD_DIR, "build_log.txt")
+    if not log and os.path.exists(saved):  # a build kept from an earlier run
+        with open(saved) as f:
+            log = f.read()
+    for line in log.splitlines():
         if line.startswith("== "):
             section = line[3:].strip()
             continue
@@ -1291,6 +1345,352 @@ class K18Bench:
         buckets(self.smoke, root, "ell_pagerank step",
                 [(i, c.t()) for i, c in self.parts], self.n,
                 lambda part: self.step([(part[0], part[1].t())]))
+
+
+
+# -- K23: the edge-table shard scan -------------------------------------------
+
+EXPAND_FRONTIERS = (64, 4096, 65_536)
+
+
+def expand_store(smoke):
+    """The SF1-class graph's edge columns, node count and Person ids, built
+    once by the root's generator and loader on the CPU and cached under
+    this checkout's .bench_cache/port/, as the attributes qdist.edge_table,
+    _type_lut and check_shard_expand read."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    path = os.path.join(CACHE, f"k23_ldbc_{smoke.SF1_PERSONS}.npz")
+    if not os.path.exists(path):
+        t = smoke.gen_dataset(smoke.SF1_PERSONS,
+                              np.random.default_rng(smoke.SEED))
+        db = smoke.FalkorDB(device="cpu")
+        smoke.load_ldbc(db.select_graph("ldbc"), t)
+        st = db._get_or_create("ldbc").store
+        m = int(st.edge_max)
+        lid = st.schema.label_id("Person")
+        os.makedirs(CACHE, exist_ok=True)
+        np.savez(path + ".tmp.npz", e_src=st.e_src[:m], e_dst=st.e_dst[:m],
+                 e_type=st.e_type[:m], e_deleted=st.e_deleted[:m],
+                 persons=np.nonzero(st.label_masks[lid][:st.node_max])[0],
+                 node_max=np.int64(st.node_max),
+                 reltypes=np.array(st.schema.reltypes.names),
+                 knows=np.int64(st.schema.reltype_id("KNOWS")))
+        os.replace(path + ".tmp.npz", path)
+    z = np.load(path)
+    reltypes = [str(x) for x in z["reltypes"]]
+    node_max = int(z["node_max"])
+    mask = np.zeros(node_max, bool)
+    mask[z["persons"]] = True
+    schema = SimpleNamespace(
+        reltypes=reltypes, label_id=lambda name: 0,
+        reltype_id=lambda name: reltypes.index(name))
+    return SimpleNamespace(
+        edge_max=len(z["e_src"]), e_src=z["e_src"], e_dst=z["e_dst"],
+        e_type=z["e_type"], e_deleted=z["e_deleted"], node_max=node_max,
+        label_masks=[mask], schema=schema, _dev={})
+
+
+def expand_rows(smoke, root, dev):
+    """K23 from the root's package: check_shard_expand's rows at 65,536
+    Persons, then each frontier size and endpoint as a `compare` row, a
+    `device` line (with the CUDA API calls of one call) and a `host` line
+    (ms of one expand_rows call over 4 shards on the card), and the
+    ptxas report of csrc/shard_expand.cu."""
+    import time
+
+    import numpy as np
+    import torch
+
+    ptxas(smoke, root, ("shard_expand.cu",))
+    qdist = importlib.import_module("falkordb_tpu_torch.parallel.qdist")
+    pdist = importlib.import_module("falkordb_tpu_torch.parallel.dist")
+    store = expand_store(smoke)
+    for r in smoke.check_shard_expand(store, dev):
+        compare_line(root, r)
+    mesh = pdist.make_mesh([dev] * smoke.MESH_SHARDS)
+    tbl = qdist.edge_table(store, mesh)[0]
+    persons = np.nonzero(store.label_masks[0])[0]
+    knows = store.schema.reltype_id("KNOWS")
+    tlut = torch.from_numpy(qdist._type_lut(store, [knows])).to(dev)
+    mapped = hasattr(qdist, "frontier_map")
+    for size in EXPAND_FRONTIERS:
+        front = persons[:size].astype(np.int32)
+        pad = np.full(1 << max(0, (size - 1).bit_length()), 2**31 - 1,
+                      np.int32)
+        pad[:size] = front
+        uniq = torch.from_numpy(pad).to(dev)
+        for endpoint in (0, 1, 2):
+            hits = max(int(f[4].item()) for f in qdist.shard_expand(
+                *tbl, uniq, tlut, cap=2048, endpoint=endpoint))
+            cap = 2048
+            while cap < hits:
+                cap *= 2
+
+            def run(ep=endpoint, c=cap, front=front, uniq=uniq):
+                if not mapped:
+                    return qdist.shard_expand(*tbl, uniq, tlut, cap=c,
+                                              endpoint=ep)
+                m = qdist.frontier_map(uniq, len(front), int(front[0]),
+                                       int(front[-1]))
+                return qdist.shard_expand(*tbl, uniq, tlut, cap=c,
+                                          endpoint=ep, fmap=m)
+
+            got = run()
+            want = qdist.shard_expand_plain(*tbl, uniq, tlut, cap=cap,
+                                            endpoint=endpoint)
+            torch.cuda.synchronize()
+            for fg, fp in zip(got, want):
+                for g, p in zip(fg, fp):
+                    assert torch.equal(g, p), (size, endpoint)
+            what = (f"shard_expand {size} Persons endpoint={endpoint} "
+                    f"hits={hits} cap={cap}")
+            print("compare " + json.dumps({
+                "root": root, "name": "shard_expand", "shape": what,
+                "ms": smoke.cuda_ms(run), "plain_ms": None,
+                "library_ms": None, "bound_ms": None}), flush=True)
+            device_line(smoke, root, what, run, host_api=api_counts(run))
+        srcs = persons[:size].astype(np.int64)
+        valid = np.ones(size, bool)
+        for direction in ("out", "in", "both"):
+            calls = 20 if size > 4096 else 100
+            qdist.expand_rows(store, mesh, srcs, valid, [knows], direction)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                row, _d, _e = qdist.expand_rows(store, mesh, srcs, valid,
+                                                [knows], direction)
+            ms = (time.perf_counter() - t0) / calls * 1e3
+            api = api_counts(lambda: qdist.expand_rows(
+                store, mesh, srcs, valid, [knows], direction))
+            print("host " + json.dumps({
+                "root": root, "call": f"expand_rows {size} Persons "
+                f"{direction} over {smoke.MESH_SHARDS} shards",
+                "rows": len(row), "ms": ms, "host_api": api}), flush=True)
+
+
+# -- K9: the packed gather-OR -------------------------------------------------
+
+
+def reach_rows(smoke, root, scale, dev):
+    """K9 from the root's package: check_packed's rows as `compare` lines,
+    the per-level profile of a gated BFS (`level` lines), on a tree with
+    the level form a sweep of its unit and segment (`form` lines), and the
+    ptxas reports of K9-K11."""
+    import torch
+
+    ptxas(smoke, root, ("packed_reach.cu", "packed_epilogue.cu",
+                        "packed_seed.cu"))
+    tbp = importlib.import_module("falkordb_tpu_torch.algos.bfs_packed")
+    prep = smoke.bench_port.prepare(scale, smoke.BFS_LANES, 32 << 20, CACHE,
+                                    True, "cuda")
+    # check_packed's state at RMAT-24 is ~10 copies of a 4.3 GB frontier
+    rows = smoke.check_packed(prep, dev) if scale <= 22 else {}
+    for name in rows and ("packed_sparse_reach", "packed_chunk_reach"):
+        for r in rows[name]:
+            compare_line(root, r)
+            print("gathered " + json.dumps({
+                "root": root, "shape": r["shape"],
+                **{k: r.get(k) for k in ("gathered_bytes", "padded_bytes",
+                                         "zero_row_share")}}), flush=True)
+    reach_levels(smoke, root, tbp, prep, dev)
+    if hasattr(tbp, "LEVEL_SEGMENT") and scale <= 22:
+        reach_forms(smoke, root, tbp, prep, dev)
+    torch.cuda.synchronize()
+
+
+def _seed_state(smoke, tbp, prep, dev, nonzero):
+    import numpy as np
+    import torch
+
+    bits = 16
+    W = smoke.BFS_LANES // bits
+    ri, rm, ni, nm = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                      for a in smoke.bench_port.seed_arrays(
+                          prep.roots[:smoke.BFS_LANES], prep.nbr_indptr,
+                          prep.nbr_cols, bits))
+    visited, frontier = tbp.packed_seed(prep.n, W, torch.int16, 0, True,
+                                        ri, rm, ni, nm)
+    if nonzero is not None:  # the first level's bitmap, for its forced form
+        nonzero.copy_(tbp.nonzero_rows(frontier))
+    return visited, frontier
+
+
+def reach_levels(smoke, root, tbp, prep, dev):
+    """The root's gated BFS (K11, then each level K9 and K10, the flags read
+    once a level), run level by level with K9 timed alone on CUDA events:
+    one `level` line each, with the share of the gathered column slots
+    (active chunks' or the mini-ELL buckets', sentinels included) whose
+    frontier row is zero."""
+    import numpy as np
+    import torch
+
+    n = prep.n
+    level_form = hasattr(tbp, "level_reach")
+    nz = (torch.empty(-(-(n + 1) // 32), dtype=torch.int32, device=dev)
+          if level_form else None)
+    visited, frontier = _seed_state(smoke, tbp, prep, dev, nz)
+    reach = torch.zeros_like(visited)
+    bounds = tbp.chunk_bounds(prep.packed, dev)
+    chunks = prep.packed.chunks
+    sparse = [(i, c) for i, c, _w, _v in prep.sparse]
+    plan = tbp.chunk_plan(prep.packed) if level_form else None
+    splan = tbp.sparse_plan(sparse) if level_form else None
+    active = np.ones(len(chunks), bool)
+    flags_dev = None
+    name = "packed_sparse_reach"
+    for level in range(2, smoke.BFS_MAX_LEVELS + 1):
+        nzrow = (frontier != 0).any(1)
+        cols = ([c for _i, c in sparse] if level == 2 else
+                [c.colsT for c, a in zip(chunks, active) if a])
+        slots = sum(c.numel() for c in cols)
+        zero = sum(int((~nzrow[c.flatten().to(torch.int64).clamp(0, n)])
+                       .sum()) for c in cols)
+
+        pays = level > 2 and level_form and tbp.bitmap_pays(active)
+
+        def k9(bitmap=pays):
+            if level == 2:
+                if level_form:
+                    tbp.level_reach(splan, frontier, reach,
+                                    nz if bitmap else None)
+                else:
+                    for i, c in sparse:
+                        tbp.sparse_reach(i, c, frontier, reach)
+            elif level_form:
+                tbp.level_reach(plan, frontier, reach,
+                                nz if bitmap else None, flags_dev)
+            else:
+                for c, a in zip(chunks, active):
+                    if a:
+                        tbp.chunk_reach(c, frontier, reach)
+
+        def event_ms(fn):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b)
+
+        before = smoke.cuda.KERNELS[name].launches
+        k9_ms = event_ms(k9)
+        launches = smoke.cuda.KERNELS[name].launches - before
+        # K9 again (the same reach): each form forced, median of 5 events
+        forced = {} if not level_form else {
+            f"k9_ms_{key}": sorted(event_ms(lambda: k9(on))
+                                   for _ in range(5))[2]
+            for key, on in (("bitmap", True), ("no_bitmap", False))}
+        trace = smoke.bench_port.device_times(k9)
+        extra = {} if nz is None else {"nonzero": nz}
+        flags_dev = tbp.packed_epilogue(reach, visited, frontier, bounds,
+                                        True, **extra)
+        flags = flags_dev.cpu().numpy()
+        print("level " + json.dumps({
+            "root": root, "level": level, "kernel": name,
+            "chunks": "sparse" if level == 2 else int(active.sum()),
+            "column_slots": slots, "zero_row_share": zero / max(slots, 1),
+            "frontier_rows": int(nzrow.sum()), "k9_ms": k9_ms,
+            "k9_device_ms": trace.total_ms, "trace_problem": trace.problem,
+            "k9_launches": launches, "bitmap_chosen": pays, **forced}),
+            flush=True)
+        name = "packed_chunk_reach"
+        if not flags[0]:
+            break
+        active = ~flags[1:]
+
+
+def reach_forms(smoke, root, tbp, prep, dev):
+    """The full level of check_packed (every chunk, after the mini-ELL
+    level) as one launch at three segment widths: one `form` line each (ms
+    on CUDA events with and without the bitmap, held to the plain
+    version)."""
+    import torch
+
+    n = prep.n
+    nz = torch.empty(-(-(n + 1) // 32), dtype=torch.int32, device=dev)
+    visited, frontier = _seed_state(smoke, tbp, prep, dev, nz)
+    reach = torch.zeros_like(visited)
+    tbp.level_reach(tbp.sparse_plan([(i, c) for i, c, _w, _v in
+                                     prep.sparse]), frontier, reach, nz)
+    tbp.packed_epilogue(reach, visited, frontier,
+                        tbp.chunk_bounds(prep.packed, dev), True, nz)
+    want = tbp.level_reach_plain(tbp.chunk_plan(prep.packed), frontier,
+                                 reach.clone())
+    seg0 = tbp.LEVEL_SEGMENT
+    try:
+        for seg in (1024, 2048, 8192):
+            tbp.LEVEL_SEGMENT = seg
+            plan = tbp.reach_plan([(c.colsT, c.rows, c.row_offset, None,
+                                    1 + i)
+                                   for i, c in enumerate(prep.packed.chunks)])
+            out = reach.clone()
+            tbp.level_reach(plan, frontier, out, nz)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), seg
+            ms = smoke.cuda_ms(lambda: tbp.level_reach(plan, frontier, out,
+                                                       nz))
+            nonz = smoke.cuda_ms(lambda: tbp.level_reach(plan, frontier,
+                                                         out))
+            print("form " + json.dumps({
+                "root": root, "segment": seg, "hub_rows": plan.hub_rows,
+                "tasks": plan.tasks, "ms": ms, "ms_without_bitmap": nonz}),
+                flush=True)
+    finally:
+        tbp.LEVEL_SEGMENT = seg0
+
+
+# -- path g's LDBC read mix ---------------------------------------------------
+
+
+QUERY_RUNS = 5
+
+
+def query_rows(smoke, root, dev):
+    """Path g's LDBC read mix from the root's package, as DIR/chip_smoke.py
+    runs it: the SF1-class graph on the card, the mesh route with 4 shards
+    on the one card and FALKOR_DIST_QUERY=force; each query once (its
+    first run, checked against its oracle), then QUERY_RUNS times, each on
+    the host clock and ended by a device sync: one `query` line each, with
+    the kernel launches of the last run."""
+    import time
+
+    import numpy as np
+    import torch
+
+    t = smoke.gen_dataset(smoke.SF1_PERSONS,
+                          np.random.default_rng(smoke.SEED))
+    db = smoke.FalkorDB()
+    smoke.load_ldbc(db.select_graph("ldbc"), t)
+    g = db.select_graph("ldbc")
+    env = {**smoke.MESH_ENV, "FALKOR_DIST_QUERY": "force"}
+    with smoke._environ(env):
+        smoke.router._cached_mesh = None
+        for qq in smoke.ldbc_queries(t):
+            with smoke._environ(qq.env):
+                t0 = time.perf_counter()
+                rows = g.query(qq.cypher, qq.params).result_set
+                torch.cuda.synchronize()
+                first = (time.perf_counter() - t0) * 1e3
+                qq.check(rows)
+                ms = []
+                for _ in range(QUERY_RUNS):
+                    before = {k: v.launches
+                              for k, v in smoke.cuda.KERNELS.items()}
+                    t0 = time.perf_counter()
+                    g.query(qq.cypher, qq.params)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            print("query " + json.dumps({
+                "root": root, "query": qq.name, "env": env,
+                "first_ms": first, "ms": ms,
+                "launches": {k: v.launches - before[k]
+                             for k, v in smoke.cuda.KERNELS.items()
+                             if v.launches > before[k]}}), flush=True)
+    smoke.router._cached_mesh = None
 
 
 if __name__ == "__main__":

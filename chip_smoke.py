@@ -20,6 +20,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    at (131,072, 65,536) and (5 M, 430,000), one group (an aggregate with no
    key), the KNOWS runs that persons_by_knows_degree groups (the dataset's
    out-rows then in-rows, codes in first-seen order) and 16 groups.
+   K9 runs each level as one launch from its plan, the full level also
+   with the nonzero-row bitmap that K10 writes (held to one computed from
+   the frontier) and in the chunk form (a launch a chunk, the ELL
+   family's).
    The packed-BFS kernels also run a whole small BFS for every word type
    (int8, int16, int32) against the same BFS on the host.  The vector
    kernels run at SIFT1M's build and query shapes (below); K13's library
@@ -42,8 +46,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    host oracle (float64 scipy sums; min-plus, any-pair and np.isin exactly).
    The mesh kernels: K23 over one shard of the SF1-class graph's edge table
    cut into 4 (3.87M edges, the first 65,536 Person ids, KNOWS) for each
-   endpoint; K24 over one shard of RMAT-22 cut into 4 (16.8M edges) in all
-   four forms, beside one scatter_reduce; K25 at the shapes of path g's
+   endpoint, its frontier map and scan as expand_rows launches them; K24
+   over one shard of RMAT-22 cut into 4 (16.8M edges) in all four forms,
+   beside one scatter_reduce; K25 at the shapes of path g's
    bitmap drivers (1D over 4 shards and 2D over (2, 2) at n = 2 **
    --mesh-scale); K26 at n = 4,194,304, the dangling sum beside torch.dot.
    The gather probes at every shape of bench_port_gather.py (the reference
@@ -176,7 +181,8 @@ from falkordb_tpu_torch.algos.bfs import (
 from falkordb_tpu_torch.algos.bfs_packed import (
     bfs_multi_gated, bfs_multi_gated_hostdriven, chunk_bounds, chunk_reach,
     packed_counts, packed_counts_plain, packed_epilogue, packed_epilogue_plain,
-    packed_seed, packed_seed_plain, packed_to, reach_plain, sparse_reach,
+    packed_seed, packed_seed_plain, packed_to, reach_plain,
+    chunk_plan, level_reach, level_reach_plain, nonzero_rows, sparse_plan,
 )
 from falkordb_tpu_torch.algos.common import compact_adjacency
 from falkordb_tpu_torch.algos.harmonic import CARD_LANES as HARMONIC_LANES
@@ -1018,20 +1024,18 @@ BFS_WORD = "int16"
 BFS_MAX_LEVELS = 24
 
 
-def distinct_rows(colsTs):
-    """The frontier rows a set of ELL column arrays names: what a gather-OR
-    over them must read at least (the sentinel row n included)."""
-    return int(torch.unique(torch.cat([c.flatten() for c in colsTs])).numel())
-
-
 def check_packed(prep, dev):
     """K9-K12 against their plain versions on the card, at the shapes the
     batched BFS gives them on the RMAT graph: the seed of 2048 roots, the
-    first device level over the mini-ELL buckets, its epilogue, the next
-    level over every chunk (the widest, hub, chunk also on its own) and the
-    counts.  All bit-exact but K12 (rtol 1e-6).  The byte bounds count what
-    this run's data needs: K9 reads its columns, the distinct frontier rows
-    they name and writes its rows; K10 reads reach and visited, writes
+    first device level over the mini-ELL buckets, its epilogue (with the
+    nonzero-row bitmap that K10 writes, held to one computed from the
+    frontier), the next level over every chunk (each level as one launch
+    from its plan; the full level also with the bitmap and a launch a
+    chunk; the widest, hub, chunk also on its own) and the counts.  All
+    bit-exact but K12 (rtol 1e-6).  The byte bounds count what this run's
+    data needs: K9 reads its columns, the distinct frontier rows they name
+    (with the bitmap: its words and the nonzero rows alone) and writes its
+    rows; K10 reads reach and visited, writes
     frontier, and writes visited only in rows that gained bits; K11 writes
     both arrays and reads 12 bytes a pair (an int64 index, a uint32 mask);
     K12 reads visited and the weights."""
@@ -1054,38 +1058,58 @@ def check_packed(prep, dev):
         f"level-1 pairs={ni.numel()}", cuda_ms(lambda: packed_seed(*seed_args)),
         cuda_ms(lambda: packed_seed_plain(*seed_args)), None,
         2 * R * (n + 1) + 12 * (ri.numel() + ni.numel()), 0.0)]}
+    nz_words = -(-(n + 1) // 32)
 
-    # the first device level: the mini-ELL buckets of the level-1 union
+    def needs(colsTs, frontier, rows, bitmap):
+        """K9's bytes and gathers at this frontier: the columns, the
+        distinct frontier rows they name (with the bitmap: its words and
+        the nonzero rows alone), the rows written; and the share of columns
+        (sentinels included) naming a zero row."""
+        nzrow = (frontier != 0).any(1)
+        cols = torch.cat([c.flatten() for c in colsTs]).to(torch.int64)
+        cols = cols.clamp_(0, n)
+        live = nzrow[cols]
+        named = int(torch.unique(cols[live] if bitmap else cols).numel())
+        zero_share = 1.0 - int(live.sum()) / max(cols.numel(), 1)
+        return (4 * cols.numel() + (4 * nz_words if bitmap else 0) +
+                R * named + R * rows, zero_share, int(live.sum()))
+
+    # the first device level: the mini-ELL buckets of the level-1 union, as
+    # one launch from their plan (no bitmap: they name level-1 rows alone)
+    sparse = [(ids, colsT) for ids, colsT, _w, _v in prep.sparse]
+    splan = sparse_plan(sparse)
     reach_k = torch.zeros_like(vk)
     reach_p = torch.zeros_like(vk)
-    for ids, colsT, _w, _v in prep.sparse:
-        sparse_reach(ids, colsT, fk, reach_k)
-        reach_plain(colsT, ids.numel(), fk, reach_p, 0, ids)
+    level_reach(splan, fk, reach_k)
+    level_reach_plain(splan, fk, reach_p)
     torch.cuda.synchronize()
     assert torch.equal(reach_k, reach_p), "packed_sparse_reach"
     del reach_p
-    rows = sum(ids.numel() for ids, *_ in prep.sparse)
-    padded = sum(c.numel() for _i, c, *_ in prep.sparse)
-    named = distinct_rows([c for _i, c, *_ in prep.sparse])
+    rows = sum(ids.numel() for ids, _c in sparse)
+    padded = sum(c.numel() for _i, c in sparse)
+    nbytes, zero_share, _live = needs([c for _i, c in sparse], fk, rows,
+                                      False)
     out["packed_sparse_reach"] = [_row(
-        "packed_sparse_reach", f"first device level: {len(prep.sparse)} "
-        f"mini-ELL buckets, {rows} rows, {padded} padded edges, widest "
-        f"{max(w for *_x, w, _v in prep.sparse)}",
-        cuda_ms(lambda: [sparse_reach(i, c, fk, reach_k)
-                         for i, c, _w, _v in prep.sparse]),
-        cuda_ms(lambda: [reach_plain(c, i.numel(), fk, reach_k, 0, i)
-                         for i, c, _w, _v in prep.sparse]), None,
-        4 * padded + R * rows + R * named, 0.0,
-        gathered_bytes=R * padded)]
+        "packed_sparse_reach", f"first device level, one launch: "
+        f"{len(sparse)} mini-ELL buckets, {rows} rows, {padded} padded "
+        f"edges, widest {max(w for *_x, w, _v in prep.sparse)}, "
+        f"{splan.hub_rows} hub rows",
+        cuda_ms(lambda: level_reach(splan, fk, reach_k)),
+        cuda_ms(lambda: level_reach_plain(splan, fk, reach_k)), None,
+        nbytes, 0.0, gathered_bytes=R * padded, zero_row_share=zero_share)]
 
     # its epilogue, each timed call on a fresh copy of the state
     bounds = chunk_bounds(prep.packed, dev)
     vp, fp = vk.clone(), fk.clone()
-    flags_k = packed_epilogue(reach_k, vk, fk, bounds)
-    flags_p = packed_epilogue_plain(reach_k, vp, fp, bounds)
+    nz = torch.empty(nz_words, dtype=torch.int32, device=dev)
+    nzp = torch.empty_like(nz)
+    flags_k = packed_epilogue(reach_k, vk, fk, bounds, nonzero=nz)
+    flags_p = packed_epilogue_plain(reach_k, vp, fp, bounds, nonzero=nzp)
     torch.cuda.synchronize()
     assert torch.equal(vk, vp) and torch.equal(fk, fp) and \
         torch.equal(flags_k, flags_p), "packed_epilogue"
+    assert torch.equal(nz, nzp) and torch.equal(nz, nonzero_rows(fk)), \
+        "packed_epilogue nonzero rows"
     state = [vp, fp]  # scratch copies for the timed calls
 
     def restore():
@@ -1093,44 +1117,72 @@ def check_packed(prep, dev):
         state[1].copy_(fk)
 
     fresh_rows = int((fk[:n] != 0).any(1).sum())
+    nz2 = torch.empty_like(nz)
     out["packed_epilogue"] = [_row(
         "packed_epilogue", f"n={n} W={W} int16 chunks={bounds.shape[0]} "
-        f"after the first device level ({fresh_rows} rows with fresh bits)",
-        cuda_ms(lambda: packed_epilogue(reach_k, state[0], state[1], bounds),
-                setup=restore),
+        f"after the first device level ({fresh_rows} rows with fresh bits), "
+        f"with the nonzero-row bitmap",
+        cuda_ms(lambda: packed_epilogue(reach_k, state[0], state[1], bounds,
+                                        nonzero=nz2), setup=restore),
         cuda_ms(lambda: packed_epilogue_plain(reach_k, state[0], state[1],
-                                              bounds), setup=restore),
-        None, 3 * R * (n + 1) + R * fresh_rows, 0.0)]
-    del vp, fp, state
+                                              bounds, nonzero=nz2),
+                setup=restore),
+        None, 3 * R * (n + 1) + R * fresh_rows + 4 * nz_words, 0.0)]
+    del vp, fp, state, nz2
 
-    # the next level over every chunk, and the widest chunk alone
+    # the next level over every chunk, as one launch from the chunk plan
+    # (no chunk gated: the main path tests no bitmap, bitmap_pays), with
+    # the bitmap, and a launch a chunk (chunk_reach, the ELL family's form),
+    # and the widest chunk alone
     chunks = prep.packed.chunks
+    plan = chunk_plan(prep.packed)
     reach_p = reach_k.clone()
-    for c in chunks:
-        chunk_reach(c, fk, reach_k)
-        reach_plain(c.colsT, c.rows, fk, reach_p, c.row_offset)
+    level_reach(plan, fk, reach_k)
+    level_reach_plain(plan, fk, reach_p)
     torch.cuda.synchronize()
     assert torch.equal(reach_k, reach_p), "packed_chunk_reach"
-    del reach_p
+    level_reach(plan, fk, reach_k, nz)
+    torch.cuda.synchronize()
+    assert torch.equal(reach_k, reach_p), "packed_chunk_reach, bitmap"
+    reach_c = reach_p.clone()
+    for c in chunks:
+        chunk_reach(c, fk, reach_c)
+    torch.cuda.synchronize()
+    assert torch.equal(reach_c, reach_p), "packed_chunk_reach, chunk form"
+    del reach_p, reach_c
     hub = max(chunks, key=lambda c: c.width)
     rows = sum(c.rows for c in chunks)
     pe = prep.packed.padded_edges
-    named = distinct_rows([c.colsT for c in chunks])
+    nbytes, zero_share, live = needs([c.colsT for c in chunks], fk, rows,
+                                     True)
+    hub_bytes = needs([hub.colsT], fk, hub.rows, False)[0]
     out["packed_chunk_reach"] = [_row(
-        "packed_chunk_reach", f"one full level: {len(chunks)} chunks, {rows} "
-        f"rows, {pe} padded edges", cuda_ms(lambda: [chunk_reach(
-            c, fk, reach_k) for c in chunks]),
-        cuda_ms(lambda: [reach_plain(c.colsT, c.rows, fk, reach_k,
-                                     c.row_offset) for c in chunks]), None,
-        4 * pe + R * rows + R * named, 0.0, gathered_bytes=R * pe),
-        _row("packed_chunk_reach", f"widest (hub) chunk: rows={hub.rows} "
-             f"width={hub.width}", cuda_ms(lambda: chunk_reach(hub, fk,
-                                                               reach_k)),
+        "packed_chunk_reach", f"one full level, one launch: {len(chunks)} "
+        f"chunks, {rows} rows, {pe} padded edges, {plan.hub_rows} hub rows, "
+        f"no bitmap",
+        cuda_ms(lambda: level_reach(plan, fk, reach_k)),
+        cuda_ms(lambda: level_reach_plain(plan, fk, reach_k)), None,
+        needs([c.colsT for c in chunks], fk, rows, False)[0], 0.0,
+        gathered_bytes=R * pe),
+        _row("packed_chunk_reach", f"one full level, one launch, with the "
+             f"bitmap ({zero_share:.3f} of the slots name a zero row)",
+             cuda_ms(lambda: level_reach(plan, fk, reach_k, nz)),
+             cuda_ms(lambda: level_reach_plain(plan, fk, reach_k)), None,
+             nbytes, 0.0, gathered_bytes=R * live, padded_bytes=R * pe,
+             zero_row_share=zero_share),
+        _row("packed_chunk_reach", f"widest (hub) chunk, chunk form: "
+             f"rows={hub.rows} width={hub.width}",
+             cuda_ms(lambda: chunk_reach(hub, fk, reach_k)),
              cuda_ms(lambda: reach_plain(hub.colsT, hub.rows, fk, reach_k,
                                          hub.row_offset)), None,
-             4 * hub.rows * hub.width + R * hub.rows
-             + R * distinct_rows([hub.colsT]), 0.0,
-             gathered_bytes=R * hub.rows * hub.width)]
+             hub_bytes, 0.0, gathered_bytes=R * hub.rows * hub.width),
+        _row("packed_chunk_reach", f"one full level, chunk form (a launch a "
+             f"chunk): {len(chunks)} chunks",
+             cuda_ms(lambda: [chunk_reach(c, fk, reach_k) for c in chunks]),
+             cuda_ms(lambda: [reach_plain(c.colsT, c.rows, fk, reach_k,
+                                          c.row_offset) for c in chunks]),
+             None, needs([c.colsT for c in chunks], fk, rows, False)[0], 0.0,
+             gathered_bytes=R * pe)]
 
     w = torch.from_numpy(prep.outdeg_sorted).to(dev)
     ck = packed_counts(vk, BFS_LANES, w)
@@ -2641,14 +2693,28 @@ def check_shard_expand(store, dev):
     """K23 over the SF1-class graph's edge table cut into 4 shards (shard
     0, as qdist.edge_table cuts it), the first 65,536 Person ids as the
     frontier and the KNOWS type, once for each endpoint, with the frame
-    sized to hold every hit.  Exact."""
+    sized to hold every hit.  A call is what expand_rows launches for one
+    shard: the frontier map (its span known on the host) and the scan.
+    Exact; the map too against one computed on the host."""
     mesh = pdist.make_mesh([dev] * MESH_SHARDS)
     tbl = qdist.edge_table(store, mesh)[0]
     lid = store.schema.label_id("Person")
     persons = np.nonzero(store.label_masks[lid][:store.node_max])[0]
-    uniq = torch.from_numpy(persons[:65_536].astype(np.int32)).to(dev)
+    front = persons[:65_536].astype(np.int32)
+    uniq = torch.from_numpy(front).to(dev)
+    lo, hi = int(front[0]), int(front[-1])
     tlut = torch.from_numpy(qdist._type_lut(
         store, [store.schema.reltype_id("KNOWS")])).to(dev)
+    fmap = qdist.frontier_map(uniq, len(front), lo, hi)
+    torch.cuda.synchronize()
+    d = front.astype(np.int64) - lo
+    bits = np.zeros(fmap.words.shape[0], np.uint32)
+    np.bitwise_or.at(bits, d >> 5, (1 << (d & 31)).astype(np.uint32))
+    first = np.where(bits != 0, np.searchsorted(
+        d, np.arange(fmap.words.shape[0]) * 32), 0)
+    words = fmap.words.cpu().numpy()
+    assert np.array_equal(words[:, 0].view(np.uint32), bits) and \
+        np.array_equal(words[:, 1], first), "shard_expand frontier map"
     es, ed, et, alive, eid = tbl
     per = es.numel()
     # the alive edges whose type the LUT admits: their key endpoints are read
@@ -2657,13 +2723,15 @@ def check_shard_expand(store, dev):
     rows = []
     for endpoint in (0, 1, 2):
         hits = max(int(f[4].item()) for f in qdist.shard_expand(
-            *tbl, uniq, tlut, cap=2048, endpoint=endpoint))
+            *tbl, uniq, tlut, cap=2048, endpoint=endpoint, fmap=fmap))
         cap = 2048
         while cap < hits:
             cap *= 2
 
         def run(ep=endpoint, c=cap):
-            return qdist.shard_expand(*tbl, uniq, tlut, cap=c, endpoint=ep)
+            m = qdist.frontier_map(uniq, len(front), lo, hi)
+            return qdist.shard_expand(*tbl, uniq, tlut, cap=c, endpoint=ep,
+                                      fmap=m)
 
         def plain(ep=endpoint, c=cap):
             return qdist.shard_expand_plain(*tbl, uniq, tlut, cap=c,
@@ -2687,7 +2755,8 @@ def check_shard_expand(store, dev):
                          f"SF1 edge table shard 0 of {MESH_SHARDS} per={per} "
                          f"admitted={admitted} frontier=65,536 Persons KNOWS "
                          f"endpoint={endpoint} hits={hits} "
-                         f"hit_edges={hit_edges} cap={cap}", cuda_ms(run),
+                         f"hit_edges={hit_edges} cap={cap} map words="
+                         f"{fmap.words.shape[0]}", cuda_ms(run),
                          cuda_ms(plain), None, nbytes, 0.0))
     return rows
 

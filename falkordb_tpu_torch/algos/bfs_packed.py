@@ -11,12 +11,17 @@ what the sentinel column n gathers.  One level is
 
 over a degree-sorted blocked-ELL transpose split into row chunks
 (`build_packed_ell`).  A chunk whose rows are visited in every lane still
-alive can produce no fresh bit, so the host skips it from the next level on
+alive can produce no fresh bit, so it is skipped from the next level on
 (chunk gating); the level's flags (any lane alive, per-chunk saturation)
-come from the same pass as the epilogue.  Level 1 is seeded from the roots'
-out-neighbour lists (K11), and the first device level can gather only the
-out-edges of the level-1 union (`build_sparse_level`, the mini-ELL).  The
-Graph500 kernel-2 edge count reads the packed visited bits afterwards (K12).
+come from the same pass as the epilogue.  K9 runs a level in one launch
+from a plan cut once (`chunk_plan`), reading those flags on the card, and,
+once most chunks are gated (`bitmap_pays`), gathers only the frontier rows
+that are nonzero, by a bitmap of one bit a node that K10 writes beside the
+frontier.
+Level 1 is seeded from the roots' out-neighbour lists (K11), and the first
+device level can gather only the out-edges of the level-1 union
+(`build_sparse_level`, the mini-ELL).  The Graph500 kernel-2 edge count
+reads the packed visited bits afterwards (K12).
 
 falkordb_tpu (algos/bfs_packed.py) runs these as jitted functions; here CUDA
 tensors launch the hand-written kernels under csrc/ (packed_reach.cu,
@@ -62,6 +67,8 @@ class PackedEll:
     n: int
     chunks: list
     padded_edges: int
+    # K9's level plan over the chunks (`chunk_plan`), cut at first use
+    plan: object = dataclasses.field(default=None, compare=False, repr=False)
 
 
 def build_packed_ell(ell, chunk_edges: int = 4 << 20,
@@ -261,30 +268,41 @@ MIN_SEGMENT = 64  # columns a warp gathers at least, when rows are split
 
 def chunk_reach(chunk: PackedChunk, frontier: torch.Tensor,
                 reach: torch.Tensor) -> torch.Tensor:
-    """K9, chunk form: reach[row_offset + r] = OR of frontier over row r's
-    ELL columns, for the chunk's rows; other rows of reach keep their bits."""
+    """K9, chunk form (the single-part kernel; the ELL family's calls):
+    reach[row_offset + r] = OR of frontier over row r's ELL columns, for
+    the chunk's rows; other rows of reach keep their bits."""
     return _reach(chunk.colsT, chunk.rows, frontier, reach, chunk.row_offset,
                   None, "packed_chunk_reach")
 
 
 def sparse_reach(ids: torch.Tensor, colsT: torch.Tensor,
                  frontier: torch.Tensor, reach: torch.Tensor) -> torch.Tensor:
-    """K9, mini-ELL form: reach[ids[r]] = OR of frontier over row r's ELL
-    columns (the ids of one bucket are distinct; ids outside 0..n are
-    dropped)."""
+    """K9, mini-ELL form (the single-part kernel): reach[ids[r]] = OR of
+    frontier over row r's ELL columns (the ids of one bucket are distinct;
+    ids outside 0..n are dropped)."""
     return _reach(colsT, ids.numel(), frontier, reach, 0, ids,
                   "packed_sparse_reach")
+
+
+def _check_colsT(name, colsT, rows):
+    if (colsT.dtype != torch.int32 or colsT.dim() != 2
+            or not colsT.is_contiguous() or rows <= 0
+            or colsT.shape[1] % rows):
+        raise ValueError(f"{name}: colsT must be a contiguous (w, rows) or "
+                         f"(VW, rows*w/VW) int32 tensor, got {colsT.dtype} "
+                         f"{tuple(colsT.shape)} for {rows} rows")
+
+
+def _check_nonzero(name, nonzero, frontier):
+    _cuda.check_input(name, "nonzero", nonzero, torch.int32,
+                      -(-frontier.shape[0] // 32))
 
 
 def _reach(colsT, rows, frontier, reach, row_offset, ids, name):
     if not _cuda.on_cuda(colsT, frontier, reach, ids):
         return reach_plain(colsT, rows, frontier, reach, row_offset, ids)
     _check_state(name, ("frontier", frontier), ("reach", reach))
-    if (colsT.dtype != torch.int32 or colsT.dim() != 2
-            or not colsT.is_contiguous() or colsT.shape[1] % rows):
-        raise ValueError(f"{name}: colsT must be a contiguous (w, rows) or "
-                         f"(VW, rows*w/VW) int32 tensor, got {colsT.dtype} "
-                         f"{tuple(colsT.shape)} for {rows} rows")
+    _check_colsT(name, colsT, rows)
     _cuda.check_input(name, "ids", ids, torch.int32, rows)
     n = frontier.shape[0] - 1
     if ids is None and not 0 <= row_offset <= row_offset + rows <= n:
@@ -329,6 +347,165 @@ def reach_plain(colsT, rows: int, frontier, reach, row_offset: int = 0,
     return reach
 
 
+# K9's level form: columns a warp task gathers at most (wider rows are cut
+# into segments that combine through an accumulator row)
+LEVEL_SEGMENT = 2048
+_PART_WORDS = 16  # csrc/packed_reach.cu `Part`
+
+
+def bitmap_pays(active) -> bool:
+    """Whether a chunk level should test the nonzero-row bitmap: once fewer
+    than half the chunks are active.  While most are, the frontier is dense
+    (at RMAT-22 and RMAT-24 0.11-0.12 of the gathered rows are zero) and
+    the test, a random word a column, costs more than the gathers it saves
+    (5-8%); once gating has set most chunks aside, 0.42-1.0 of the rows
+    left are zero and it saves 11-54%.  Measured level by level at both
+    scales with the bitmap forced on and off (`bench_port_compare.py
+    --rows reach`).  The mini-ELL level (0.19-0.20 zero, its padding)
+    takes no bitmap: 3% slower with it."""
+    return 2 * int(np.count_nonzero(active)) < len(active)
+
+
+@dataclasses.dataclass
+class ReachPlan:
+    """K9's plan for one launch over a level's chunks or mini-ELL buckets:
+    `parts` (colsT, rows, row_offset, ids, gate) each, gate the index of
+    the part's saturation flag in K10's flags (1 + chunk) or -1; on the
+    card `table`, their (parts, 16) int64 `Part` rows (hub parts first),
+    `tasks` the warp tasks (32 rows of a narrow part, or a row's segment),
+    `hub_rows` the rows cut into segments; the accumulator rows and
+    tickets of those, per row width, in `scratch`."""
+    parts: list
+    name: str
+    table: torch.Tensor | None = None  # (parts, 16) int64
+    tasks: int = 0
+    hub_rows: int = 0
+    scratch: dict = dataclasses.field(default_factory=dict)
+
+    def hub_scratch(self, row_bytes: int, dev):
+        """(accumulator rows, tickets) for rows of row_bytes, zero at first
+        use: every launch leaves them zero."""
+        hit = self.scratch.get(row_bytes)
+        if hit is None:
+            hit = self.scratch[row_bytes] = (
+                torch.zeros(max(self.hub_rows, 1) * row_bytes + 16,
+                            dtype=torch.uint8, device=dev),
+                torch.zeros(max(self.hub_rows, 1), dtype=torch.int32,
+                            device=dev))
+        return hit
+
+
+def reach_plan(parts, name: str = "packed_chunk_reach") -> ReachPlan:
+    """The level plan of `parts`, (colsT, rows, row_offset, ids, gate)
+    each: rows wider than LEVEL_SEGMENT columns cut into segments, and the
+    `Part` table written once where the parts lie."""
+    plan = ReachPlan(list(parts), name)
+    if not plan.parts:
+        return plan
+    dev = plan.parts[0][0].device
+    rows_of = []
+    for colsT, rows, off, ids, gate in plan.parts:
+        _check_colsT(name, colsT, rows)
+        _cuda.check_input(name, "ids", ids, torch.int32, rows)
+        vpr = colsT.shape[1] // rows
+        width = colsT.shape[0] * vpr
+        tiled = vpr == 1 and width <= VW  # narrow: 32 rows a task
+        spr = 1 if tiled else max(1, -(-width // LEVEL_SEGMENT))
+        seg = -(-width // spr)
+        rows_of.append((colsT, ids, rows, off, gate, vpr, width, spr, seg,
+                        tiled))
+    table, task, hub = [], 0, 0
+    for hubs in (True, False):  # hub parts first: they start early
+        for colsT, ids, rows, off, gate, vpr, width, spr, seg, tiled in \
+                rows_of:
+            if (spr > 1) != hubs:
+                continue
+            table.append([colsT.data_ptr(), 0 if ids is None
+                          else ids.data_ptr(), colsT.shape[1], rows, off,
+                          task, hub if spr > 1 else -1, gate, vpr, width,
+                          spr, seg, int(tiled)] + [0] * (_PART_WORDS - 13))
+            task += -(-rows // 32) if tiled else rows * spr
+            hub += rows if spr > 1 else 0
+    plan.table = torch.tensor(table, dtype=torch.int64, device=dev)
+    plan.tasks, plan.hub_rows = task, hub
+    return plan
+
+
+def chunk_plan(pe: PackedEll) -> ReachPlan:
+    """The level plan of every chunk of pe, each gated by its flag, cached
+    on pe."""
+    if pe.plan is None:
+        pe.plan = reach_plan([(c.colsT, c.rows, c.row_offset, None, 1 + i)
+                              for i, c in enumerate(pe.chunks)])
+    return pe.plan
+
+
+def sparse_plan(buckets) -> ReachPlan:
+    """The level plan of the mini-ELL buckets, [(ids, colsT)] on one
+    device: one launch for the first device level."""
+    return reach_plan([(colsT, ids.numel(), 0, ids, -1)
+                       for ids, colsT in buckets], "packed_sparse_reach")
+
+
+_LEVEL = {name: _cuda.Entry("fk_packed_reach_level", name)
+          for name in ("packed_chunk_reach", "packed_sparse_reach")}
+
+
+def level_reach(plan: ReachPlan, frontier, reach, nonzero=None,
+                flags=None) -> torch.Tensor:
+    """K9 over a whole level in one launch: reach_plain over every part of
+    the plan whose gate flag (K10's flags of the last level, None for
+    none) is not set, the hub rows in segments.  `nonzero` (the bitmap of
+    nonzero frontier rows) lets it skip the zero rows."""
+    if not plan.parts:
+        return reach
+    if not _cuda.on_cuda(plan.parts[0][0], frontier, reach, nonzero, flags):
+        return level_reach_plain(plan, frontier, reach, flags)
+    _check_state(plan.name, ("frontier", frontier), ("reach", reach))
+    _check_nonzero(plan.name, nonzero, frontier)
+    if flags is not None and (flags.dim() != 1 or not flags.is_contiguous()
+                              or flags.element_size() != 1):
+        raise ValueError(f"{plan.name}: flags must be K10's contiguous bool "
+                         f"flags, got {flags.dtype} {tuple(flags.shape)}")
+    n = frontier.shape[0] - 1
+    R = _row_bytes(frontier)
+    for colsT, rows, off, ids, _g in plan.parts:
+        if ids is None and not 0 <= off <= off + rows <= n:
+            raise ValueError(f"{plan.name}: rows {off}..{off + rows} "
+                             f"outside 0..{n}")
+    dev = reach.get_device()
+    hub, tickets = plan.hub_scratch(R, reach.device)
+    _LEVEL[plan.name].launch(
+        dev, plan.table.data_ptr(), plan.table.shape[0], plan.tasks,
+        None if flags is None else flags.data_ptr(), frontier.data_ptr(), n,
+        R, reach.data_ptr(), None if nonzero is None else nonzero.data_ptr(),
+        hub.data_ptr(), tickets.data_ptr())
+    return reach
+
+
+def level_reach_plain(plan: ReachPlan, frontier, reach, flags=None):
+    """Plain PyTorch version of K9's level form: reach_plain over each part
+    whose gate flag is not set (a zero frontier row adds nothing, so the
+    bitmap of nonzero rows changes no bit)."""
+    for colsT, rows, off, ids, gate in plan.parts:
+        if flags is not None and gate >= 0 and bool(flags[gate]):
+            continue
+        reach_plain(colsT, rows, frontier, reach, off, ids)
+    return reach
+
+
+def nonzero_rows(state: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the bitmap that K10 writes: bit r
+    (bit r % 32 of int32 word r // 32) set where row r of the (n+1, W)
+    state is nonzero; ceil((n+1) / 32) words."""
+    rows = state.shape[0]
+    nz = (state != 0).any(1).to(torch.int64)
+    nz = torch.cat([nz, nz.new_zeros(-rows % 32)]).view(-1, 32)
+    words = (nz << torch.arange(32, device=state.device)).sum(1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
 def chunk_bounds(pe: PackedEll, device) -> torch.Tensor:
     """(chunks, 2) int64 (row_offset, rows) of each chunk, for K10."""
     return torch.tensor([[c.row_offset, c.rows] for c in pe.chunks],
@@ -336,18 +513,20 @@ def chunk_bounds(pe: PackedEll, device) -> torch.Tensor:
 
 
 def packed_epilogue(reach, visited, frontier, bounds,
-                    corrected: bool = True) -> torch.Tensor:
+                    corrected: bool = True, nonzero=None) -> torch.Tensor:
     """K10: fresh = reach & ~visited; visited |= fresh; frontier = fresh
     (rows < n, in place) and frontier[n] = 0.  Returns the level's flags, a
     (1 + chunks,) bool tensor: [any lane alive, chunk 0 saturated, ...].
     A chunk is saturated when every bit of its visited rows is set, or
     (corrected=True, the host-driven form) set in every lane still alive,
-    alive being the OR of the rows of fresh."""
-    if not _cuda.on_cuda(reach, visited, frontier, bounds):
+    alive being the OR of the rows of fresh.  `nonzero`, when given, gets
+    `nonzero_rows(frontier)`: K9's bitmap for the next level."""
+    if not _cuda.on_cuda(reach, visited, frontier, bounds, nonzero):
         return packed_epilogue_plain(reach, visited, frontier, bounds,
-                                     corrected)
+                                     corrected, nonzero)
     _check_state("packed_epilogue", ("reach", reach), ("visited", visited),
                  ("frontier", frontier))
+    _check_nonzero("packed_epilogue", nonzero, frontier)
     if bounds.dtype != torch.int64 or bounds.dim() != 2 or \
             bounds.shape[1] != 2 or not bounds.is_contiguous():
         raise ValueError("packed_epilogue: bounds must be a contiguous "
@@ -362,14 +541,16 @@ def packed_epilogue(reach, visited, frontier, bounds,
     p = _cuda.ptr
     rc = _cuda.lib().fk_packed_epilogue(
         p(reach), p(visited), p(frontier), n, R, p(bounds), nchunks,
-        p(scratch), wpr, int(corrected), p(flags), _cuda.stream_ptr(visited))
+        p(scratch), wpr, int(corrected), p(flags), p(nonzero),
+        _cuda.stream_ptr(visited))
     _cuda.check(rc, "packed_epilogue")
     _cuda.count_launch("packed_epilogue")
     return flags.view(torch.bool)
 
 
 def packed_epilogue_plain(reach, visited, frontier, bounds,
-                          corrected: bool = True) -> torch.Tensor:
+                          corrected: bool = True,
+                          nonzero=None) -> torch.Tensor:
     """Plain PyTorch version of K10: falkordb_tpu's `_epilogue_jit` then
     `_flags_jit` (corrected) or `_make_step`'s flags (not corrected)."""
     n = visited.shape[0] - 1
@@ -377,6 +558,8 @@ def packed_epilogue_plain(reach, visited, frontier, bounds,
     visited[:n] |= fresh
     frontier[:n] = fresh
     frontier[n] = 0
+    if nonzero is not None:
+        nonzero.copy_(nonzero_rows(frontier))
     alive = or_reduce(fresh, 0)
     cov = ~alive if corrected else torch.zeros_like(alive)
     flags = [bool((alive != 0).any())]
@@ -549,6 +732,10 @@ def _gated(sources, pe, fwd_indptr, fwd_cols, word_dtype, max_levels,
         np.asarray(a).astype(np.int64) if not isinstance(a, torch.Tensor)
         else a, dev).to(torch.int64) for a in seed_arrays)
     levels = 1 if level1 else 0
+    # bit r set where frontier row r is nonzero (K10 writes it each level):
+    # K9 gathers only those rows where bitmap_pays, never at the first
+    # device level (the mini-ELL names only level-1 rows; every chunk runs)
+    nonzero = torch.empty(-(-(n + 1) // 32), dtype=torch.int32, device=dev)
     visited, frontier = packed_seed(n, W, tdt, padmask, level1, ri, rm, ni,
                                     nm)
     reach = torch.zeros((n + 1, W), dtype=tdt, device=dev)
@@ -556,27 +743,27 @@ def _gated(sources, pe, fwd_indptr, fwd_cols, word_dtype, max_levels,
            for c in pe.chunks):
         pe = packed_to(pe, dev)
     bounds = chunk_bounds(pe, dev)
-    sparse_dev = None
-    if sparse_first:
-        sparse_dev = [(as_tensor(ids, dev), as_tensor(colsT, dev))
-                      for ids, colsT, _w, _v in sparse_first]
+    plan = chunk_plan(pe)
+    first = sparse_first
+    if first is not None and not isinstance(first, ReachPlan):
+        first = sparse_plan([(as_tensor(ids, dev), as_tensor(colsT, dev))
+                             for ids, colsT, _w, _v in first])
     active = np.ones(len(pe.chunks), dtype=bool)
-    first_level = True
+    flags_dev = None  # the last level's flags, on the device
     level_chunks = []
     while levels < max_levels:
-        if first_level and sparse_dev is not None:
-            for ids, colsT in sparse_dev:
-                sparse_reach(ids, colsT, frontier, reach)
-            level_chunks.append(f"sparse:{len(sparse_dev)}")
-        else:
-            for ci, c in enumerate(pe.chunks):
-                if active[ci]:
-                    chunk_reach(c, frontier, reach)
+        if first is not None:
+            level_reach(first, frontier, reach)
+            level_chunks.append(f"sparse:{len(first.parts)}")
+            first = None
+        else:  # one launch: the saturated chunks skipped on the card
+            level_reach(plan, frontier, reach,
+                        nonzero if bitmap_pays(active) else None, flags_dev)
             level_chunks.append(int(active.sum()))
-        first_level = False
+        flags_dev = packed_epilogue(reach, visited, frontier, bounds,
+                                    corrected, nonzero)
         # the flags' copy to the host is the level's only sync
-        flags = packed_epilogue(reach, visited, frontier, bounds,
-                                corrected).cpu().numpy()
+        flags = flags_dev.cpu().numpy()
         levels += 1
         if not flags[0]:
             break
@@ -593,8 +780,10 @@ def bfs_multi_gated_hostdriven(sources, packed, fwd_indptr=None,
     `sparse_first` mini-ELL buckets of build_sparse_level), then K10, whose
     flags the host reads to stop or to gate chunks (saturation corrected
     for finished lanes).  `sparse_first` needs level-1 seeding (fwd_indptr,
-    or level-1 seed_arrays).  Runs where the chunks' colsT lie, or on
-    `device` (the card when the chunks are numpy)."""
+    or level-1 seed_arrays); a caller that runs it more than once passes
+    its `sparse_plan`, cut once on the run's device.  Runs where the
+    chunks' colsT lie, or on `device` (the card when the chunks are
+    numpy)."""
     return _gated(sources, packed, fwd_indptr, fwd_cols, word_dtype,
                   max_levels, seed_arrays, sparse_first, True, device)
 

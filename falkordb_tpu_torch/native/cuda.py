@@ -17,8 +17,9 @@ The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
 kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
-one.  K2, K5, K16, K24, K26, K27's `double` and K30 take it; the other
-wrappers still take `on_cuda`, `check_input` and a `lib()` lookup a call.
+one.  K2, K5, K9's level form, K16, K23, K24, K26, K27's `double` and K30
+take it; the other wrappers still take `on_cuda`, `check_input` and a
+`lib()` lookup a call.
 K5 and K16, one persistent cooperative launch a call, keep their grid
 barrier's words and their result's pinned staging per card (`control`).
 """
@@ -160,8 +161,10 @@ _SIGNATURES = {
     "fk_bfs_parents": [_P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _P],
     "fk_packed_reach": [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _P, _I64,
                         _P, _I64, _I64, _P],
+    "fk_packed_reach_level": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _P,
+                              _P, _P],
     "fk_packed_epilogue": [_P, _P, _P, _I64, _I64, _P, _I64, _P, _I64, _INT,
-                           _P, _P],
+                           _P, _P, _P],
     "fk_packed_seed": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P, _P, _I64,
                        _I64, _INT, _P],
     "fk_packed_counts": [_P, _I64, _I64, _I64, _P, _P, _P, _P],
@@ -190,11 +193,10 @@ _SIGNATURES = {
                          _P, _I64, _P],
     "fk_semiring_scalar": [_I64, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "fk_ewise_mask": [_P, _P, _I64, _P, _P, _I64, _P, _P, _INT, _P, _P],
-    "fk_shard_expand_count": [_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64,
-                              _INT, _INT, _P, _P],
-    "fk_shard_expand_write": [_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64,
-                              _INT, _INT, _P, _P, _I64, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _P, _P, _P],
+    "fk_shard_map": [_P, _I64, _I64, _I64, _P, _P],
+    "fk_shard_scan": [_P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _I64,
+                      _P, _I64, _INT, _INT, _P, _P, _P, _P, _P, _I64, _P,
+                      _P],
     "fk_shard_offsets": [_P, _I64, _I64, _P, _P],
     "fk_shard_reduce": [_INT, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P],
     "fk_mesh_pack": [_P, _I64, _P, _P],
@@ -271,6 +273,8 @@ def build() -> float:
         if p.returncode != 0:
             failed.append(os.path.basename(src))
     build_log = "\n".join(logs)
+    with open(os.path.join(BUILD_DIR, "build_log.txt"), "w") as f:
+        f.write(build_log)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"

@@ -322,3 +322,151 @@ def test_card_multi_bfs_one_launch_a_call(dev):
                      if key.startswith("cudaMemcpy"))
         assert copies <= most and calls.get("cudaStreamSynchronize",
                                             0) <= most, calls
+
+
+# -- K9 (the packed gather-OR) and K10 with the nonzero-row bitmap ---------------
+
+
+def k9_prep(dev, scale=12):
+    """bench_port.py's gated preparation at RMAT-12 on `dev`: 22 chunks of
+    ~16K padded edges (13 rows in hub segments), 12 mini-ELL buckets."""
+    import bench_port
+
+    return bench_port.prepare(scale, 64, 1 << 14, None, True, dev)
+
+
+def _random_state(n, W, density, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randint(-2**15, 2**15, (n + 1, W), dtype=torch.int32,
+                      generator=g).to(torch.int16)
+    a[torch.rand(n + 1, generator=g) > density] = 0
+    a[n] = 0
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [3, 128])
+@pytest.mark.parametrize("frontier_kind", ["sparse", "all zero"])
+@pytest.mark.parametrize("bitmap", [False, True])
+def test_card_level_reach_one_launch(dev, bitmap, frontier_kind, W,
+                                     monkeypatch):
+    """K9 as one launch over the chunk plan (every third chunk gated off by
+    K10-style flags: their rows keep reach's bits) and over the mini-ELL
+    plan, against level_reach_plain on the CPU, bit for bit, with the
+    bitmap null and set, at 6-byte rows (2-byte units) and 256-byte rows
+    (8-byte units), rows past 256 columns in segments; twice, the hub
+    rows' accumulators left zero."""
+    from falkordb_tpu_torch.algos import bfs_packed as tbp
+
+    monkeypatch.setattr(tbp, "LEVEL_SEGMENT", 256)
+    prep = k9_prep(dev)
+    n = prep.n
+    front = _random_state(n, W, 0.0 if frontier_kind == "all zero" else 0.1,
+                          1)
+    reach0 = _random_state(n, W, 0.5, 2)
+    nz = tbp.nonzero_rows(front).to(dev) if bitmap else None
+    flags = torch.zeros(1 + len(prep.packed.chunks), dtype=torch.bool)
+    flags[1::3] = True
+    cpu_pe = tbp.packed_to(prep.packed, "cpu")
+    for plan, cpu_plan, fl in (
+            (tbp.chunk_plan(prep.packed), tbp.chunk_plan(cpu_pe), flags),
+            (tbp.sparse_plan([(i, c) for i, c, _w, _v in prep.sparse]),
+             tbp.sparse_plan([(i.cpu(), c.cpu())
+                              for i, c, _w, _v in prep.sparse]), None)):
+        assert plan.hub_rows > 0
+        want = tbp.level_reach_plain(cpu_plan, front, reach0.clone(), fl)
+        for _ in range(2):
+            cuda.reset_launches()
+            got = reach0.to(dev)
+            tbp.level_reach(plan, front.to(dev), got, nz,
+                            None if fl is None else fl.to(dev))
+            assert torch.equal(got.cpu(), want), plan.name
+            assert cuda.KERNELS[plan.name].launches == 1
+        scratch = plan.scratch[2 * W]
+        assert not scratch[0].any() and not scratch[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse_l2", [True, False])
+def test_card_gated_bfs_one_launch_a_level(dev, sparse_l2):
+    """The whole gated BFS (bench_port.bfs_once: the seed with its bitmap,
+    then K9 once a level, chunks gated on the card, and K10) against the
+    same BFS through the plain versions on the CPU: visited, levels and
+    chunks a level equal; each lane's reached set against scipy's BFS."""
+    import bench_port
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import breadth_first_order
+
+    prep = k9_prep(dev)
+    cuda.reset_launches()
+    got = bench_port.bfs_once(prep, 64, 24, "int16", sparse_l2)
+    torch.cuda.synchronize()
+    device_levels = got.nlevels - 1  # level 1 is the seed
+    assert cuda.KERNELS["packed_sparse_reach"].launches == int(sparse_l2)
+    assert cuda.KERNELS["packed_chunk_reach"].launches == \
+        device_levels - int(sparse_l2)
+    assert cuda.KERNELS["packed_epilogue"].launches == device_levels
+    cpu = bench_port.Prepared(**{**prep.__dict__,
+                                 "packed": tbp_cpu(prep.packed),
+                                 "fwd": tuple(t.cpu() for t in prep.fwd),
+                                 "sparse": [(i.cpu(), c.cpu(), w, v)
+                                            for i, c, w, v in prep.sparse],
+                                 "sparse_plan": None})
+    want = bench_port.bfs_once(cpu, 64, 24, "int16", sparse_l2)
+    assert torch.equal(got.visited.cpu(), want.visited)
+    assert got.nlevels == want.nlevels
+    assert got.level_chunks == want.level_chunks
+    n = prep.n
+    fip, fcols = (t.cpu().numpy() for t in prep.fwd)
+    A = sp.csr_matrix((np.ones(len(fcols), np.int8), fcols, fip),
+                      shape=(n, n))
+    vis = got.visited[:n].cpu().to(torch.int64) & 0xFFFF
+    for lane in range(0, 64, 7):
+        want_set = np.sort(breadth_first_order(
+            A, int(prep.roots[lane]), directed=True,
+            return_predecessors=False))
+        col = vis[:, lane // 16]
+        reached = torch.nonzero((col >> (lane % 16)) & 1).flatten().numpy()
+        np.testing.assert_array_equal(reached, want_set)
+
+
+def tbp_cpu(pe):
+    from falkordb_tpu_torch.algos import bfs_packed as tbp
+
+    return tbp.packed_to(pe, "cpu")
+
+
+@pytest.mark.cuda
+def test_card_epilogue_bitmap(dev):
+    """K10's nonzero-row bitmap against its plain version and against one
+    computed from the frontier, after K11's seed, at int8, int16 and int32
+    words and at rows whose units split across warps."""
+    from falkordb_tpu_torch.algos import bfs_packed as tbp
+
+    n = 70_001
+    for W, dtype in ((3, torch.int8), (5, torch.int16), (128, torch.int16),
+                     (600, torch.int32)):
+        g = torch.Generator().manual_seed(W)
+        bits = torch.iinfo(dtype).bits
+        nb = 4000  # distinct elements: the plain version adds the masks
+        ni = torch.randperm((n + 1) * W, generator=g)[:nb]
+        nm = torch.randint(1, 1 << min(bits, 31), (nb,), generator=g)
+        ri, rm = ni[:40].clone(), nm[:40].clone()
+        nz_p = torch.full((-(-(n + 1) // 32),), 7, dtype=torch.int32)
+        vp, fp = tbp.packed_seed_plain(n, W, dtype, 0, True, ri, rm, ni, nm)
+        nz = nz_p.to(dev)
+        vk, fk = tbp.packed_seed(n, W, dtype, 0, True, ri.to(dev),
+                                 rm.to(dev), ni.to(dev), nm.to(dev))
+        assert torch.equal(vk.cpu(), vp) and torch.equal(fk.cpu(), fp)
+        reach = torch.randint(-2**31, 2**31 - 1, ((n + 1) * W,),
+                              generator=g, dtype=torch.int64).to(
+                                  torch.int32).view(dtype)[:(n + 1) * W]
+        reach = reach.reshape(n + 1, W).clone()
+        reach[torch.rand(n + 1, generator=g) > 0.01] = 0
+        bounds = torch.tensor([[0, n // 2], [n // 2, n - n // 2]])
+        fl_p = tbp.packed_epilogue_plain(reach, vp, fp, bounds, True, nz_p)
+        fl_k = tbp.packed_epilogue(reach.to(dev), vk, fk, bounds.to(dev),
+                                   True, nz)
+        assert torch.equal(fl_k.cpu(), fl_p) and torch.equal(vk.cpu(), vp)
+        assert torch.equal(nz.cpu(), nz_p), (W, dtype)
+        assert torch.equal(nz_p, tbp.nonzero_rows(fp))

@@ -303,6 +303,140 @@ def test_reach_plain_matches_sparse_step_jit(dtype, k):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
+def _bitmap(frontier):
+    """The nonzero-row bitmap of a (n+1, W) frontier, in numpy: bit r % 32
+    of int32 word r // 32 set where row r is nonzero."""
+    nz = (np.asarray(frontier) != 0).any(1)
+    nz = np.concatenate([nz, np.zeros(-len(nz) % 32, bool)]).reshape(-1, 32)
+    return (nz.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+        1).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype,k", WORDS)
+def test_level_reach_plain_matches_chunk_reach_jit(dtype, k, gated,
+                                                   monkeypatch):
+    """K9's level form over every chunk of a plan (some gated off by K10's
+    flags: their rows keep what reach held; the widest rows cut into
+    segments) against the reference's chunk gathers over the active
+    chunks."""
+    monkeypatch.setattr(tbp, "LEVEL_SEGMENT", 256)
+    _s, _d, n, indptr, cols, *_ = _rmat_case()
+    pe = jbp.build_packed_ell(
+        jell.build_blocked_ell_sorted(indptr, cols, n, widths=(4, 16, 64),
+                                      device=False), 2048, device=False)
+    dt = np.dtype(dtype)
+    W = -(-k // (8 * dt.itemsize))
+    rng = np.random.default_rng(4)
+    frontier = _state(rng, n, W, dtype)
+    reach0 = _state(rng, n, W, dtype, density=0.5)
+    flags = np.zeros(1 + len(pe.chunks), bool)
+    if gated:
+        flags[1::3] = True
+    want = jnp.asarray(reach0)
+    cache = {}
+    for i, c in enumerate(pe.chunks):
+        if flags[1 + i]:
+            continue
+        fn = jbp._chunk_reach_jit(cache, c.width, c.colsT.shape[1], c.rows,
+                                  c.virtual, W, dt.name)
+        want = fn(jnp.asarray(c.colsT), jnp.asarray(c.row_offset, jnp.int32),
+                  want, jnp.asarray(frontier))
+    tpe = tbp.packed_to(tbp.PackedEll(pe.n, [tbp.PackedChunk(
+        c.row_offset, c.rows, c.width, c.colsT, c.virtual)
+        for c in pe.chunks], pe.padded_edges), "cpu")
+    plan = tbp.chunk_plan(tpe)
+    assert tbp.chunk_plan(tpe) is plan and plan.hub_rows > 0
+    got = torch.from_numpy(reach0.copy())
+    tbp.level_reach(plan, torch.from_numpy(frontier), got,
+                    torch.from_numpy(_bitmap(frontier)),
+                    torch.from_numpy(flags) if gated else None)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("segment", [8, 64, 4096])
+def test_reach_plan_tasks_cover_every_column(segment, monkeypatch):
+    """The `Part` table the card walks: each warp task, found by its part's
+    first task, gathers its row's segment of columns; emulated here (the
+    zero rows skipped by the bitmap, the segments OR-ed), every level of
+    parts gives reach_plain's reach, hub parts first in the table."""
+    monkeypatch.setattr(tbp, "LEVEL_SEGMENT", segment)
+    src, _d, n, _i, _c, fip, fcols, inv, _ = _rmat_case()
+    roots = _roots(src, n, inv, 37, 8)
+    union = np.unique(np.concatenate([fcols[fip[r]: fip[r + 1]]
+                                      for r in roots]))
+    buckets = tbp.build_sparse_level(fip, fcols, union, n,
+                                     widths=(2, 8, 32, 128), device="cpu")
+    plan = tbp.sparse_plan([(i, c) for i, c, _w, _v in buckets])
+    rng = np.random.default_rng(6)
+    frontier = torch.from_numpy(_state(rng, n, 3, np.int16, density=0.02))
+    bits = _bitmap(frontier.numpy()).view(np.uint32)
+    tab = plan.table.numpy()
+    spr, tiled, rows = tab[:, 10], tab[:, 12] == 1, tab[:, 3]
+    assert list(spr > 1) == sorted(spr > 1, reverse=True)
+    assert (tiled == (tab[:, 8] == 1)).all() and (spr[tiled] == 1).all()
+    assert plan.tasks == int(np.where(tiled, -(-rows // 32),
+                                      rows * spr).sum())
+    assert plan.hub_rows == int(tab[spr > 1, 3].sum())
+    by_ptr = {c.data_ptr(): (c, ids) for c, _r, _o, ids, _g in plan.parts}
+    got = torch.zeros_like(frontier)
+    acc = torch.zeros((max(plan.hub_rows, 1), 3), dtype=torch.int16)
+    for task in range(plan.tasks):
+        p = tab[np.searchsorted(tab[:, 5], task, side="right") - 1]
+        colsT, ids = by_ptr[int(p[0])]
+        vpr, seg, width = int(p[8]), int(p[11]), int(p[9])
+        local = task - int(p[5])
+        if p[12]:  # 32 rows, every column
+            jobs = [(r, 0) for r in range(32 * local,
+                                          min(32 * local + 32, int(p[3])))]
+        else:
+            jobs = [divmod(local, int(p[10]))]
+        for r, s in jobs:
+            cs = np.arange(s * seg, min(s * seg + seg, width))
+            col = colsT.numpy()[cs // vpr, r * vpr + cs % vpr].clip(0, n)
+            col = col[(bits[col >> 5] >> (col & 31)) & 1 == 1]
+            row = tbp.or_reduce(frontier[torch.from_numpy(col)], 0)
+            if int(p[10]) > 1:
+                acc[int(p[6]) + r] |= row
+                row = acc[int(p[6]) + r]
+            got[int(ids[r])] = row
+    want = tbp.level_reach_plain(plan, frontier, torch.zeros_like(frontier))
+    np.testing.assert_array_equal(want.numpy(), got.numpy())
+    assert (spr > 1).any() == (segment < 128)
+
+
+@pytest.mark.parametrize("dtype,k", WORDS)
+def test_nonzero_rows_match_reference_frontier(dtype, k):
+    """The bitmap of nonzero frontier rows, plain (`nonzero_rows`) after
+    K11's seed and from K10's epilogue, against one computed from the JAX
+    package's frontier after its seed and its epilogue, on the same seeded
+    inputs."""
+    src, _d, n, _i, _c, fip, fcols, inv, _ = _case(seed=13)
+    roots = _roots(src, n, inv, k, 3)
+    dt = np.dtype(dtype)
+    bits = 8 * dt.itemsize
+    W = -(-k // bits)
+    ri, rm, ni, nm = jbp.build_seed_arrays(roots, fip, fcols, bits, W)
+    vj, fj = jbp._seed_jit(n, W, dt.name, 0, True, jnp.asarray(ri),
+                           jnp.asarray(rm), jnp.asarray(ni), jnp.asarray(nm))
+    t = [torch.from_numpy(np.asarray(a).astype(np.int64))
+         for a in (ri, rm, ni, nm)]
+    vt, ft = tbp.packed_seed(n, W, tbp._DTYPES[dt], 0, True, *t)
+    nz = tbp.nonzero_rows(ft)
+    np.testing.assert_array_equal(nz.numpy(), _bitmap(fj))
+    assert nz.numpy().any()
+    nz.fill_(7)
+    rng = np.random.default_rng(9)
+    reach = _state(rng, n, W, dtype, density=0.05)
+    _vj2, fj2 = jbp._epilogue_jit({}, n, W, dt.name)(
+        jnp.asarray(reach), vj, fj)
+    bounds = torch.tensor([[0, n]], dtype=torch.int64)
+    tbp.packed_epilogue(torch.from_numpy(reach), vt, ft, bounds, nonzero=nz)
+    np.testing.assert_array_equal(nz.numpy(), _bitmap(fj2))
+    np.testing.assert_array_equal(tbp.nonzero_rows(ft).numpy(),
+                                  _bitmap(fj2))
+
+
 @pytest.mark.parametrize("saturate", [False, True])
 @pytest.mark.parametrize("dtype,k", WORDS)
 def test_epilogue_plain_matches_epilogue_and_flags(dtype, k, saturate):

@@ -504,6 +504,67 @@ def test_shard_expand_plain_matches_expand_kernel(endpoint, drop, cap):
         (cap == 16)
 
 
+def _map_member(fmap, keys):
+    """(hit, uid) of int64 keys through the map, as K23's scan tests them:
+    a key inside the span hits where its bit is set, its uid the word's
+    first index plus the set bits below; the 2^31-1 padding hits at
+    `sentinel_uid` where there is one."""
+    d = keys.to(torch.int64) - fmap.lo
+    inside = (d >= 0) & (d < fmap.nbits)
+    hit = torch.zeros_like(inside)
+    uid = torch.full_like(d, -1)
+    if fmap.words is not None:
+        w = fmap.words[(d.clamp(0, fmap.nbits - 1) >> 5)].to(torch.int64)
+        bits = w[:, 0] & 0xFFFFFFFF
+        b = d.clamp(0, fmap.nbits - 1) & 31
+        hit = inside & (((bits >> b) & 1) == 1)
+        below = bits & ((torch.ones_like(b) << b) - 1)
+        count = torch.zeros_like(below)
+        for j in range(32):
+            count += (below >> j) & 1
+        uid = torch.where(hit, w[:, 1] + count, uid)
+    pad = (keys.to(torch.int64) == 2**31 - 1) & (fmap.sentinel_uid >= 0)
+    hit = hit | pad
+    uid = torch.where(pad, torch.full_like(uid, fmap.sentinel_uid), uid)
+    return hit, uid
+
+
+@pytest.mark.parametrize("case", ["padded", "unpadded", "one id",
+                                  "only padding", "sparse span"])
+def test_frontier_map_matches_searchsorted(case):
+    """K23's frontier map (its plain version, emulated as the scan tests
+    it) against the reference's membership: searchsorted, clip and compare
+    over the padded frontier, for every key in and around the span and
+    the padding value itself."""
+    rng = np.random.default_rng(17)
+    S = 2**31 - 1
+    uniq = {"padded": np.unique(rng.integers(0, 5000, 900)),
+            "unpadded": np.unique(rng.integers(3, 5000, 1024))[:512],
+            "one id": np.array([4097]),
+            "only padding": np.zeros(0, np.int64),
+            "sparse span": np.array([2, 70_000, 1_000_000])}[case]
+    pad = uniq
+    if case != "unpadded":
+        pad = np.full(max(2, 1 << int(np.ceil(np.log2(max(len(uniq), 1))))),
+                      S)
+        pad[:len(uniq)] = uniq
+    pad = pad.astype(np.int32)
+    keys = np.concatenate([np.arange(-40, 5100), [69_999, 70_000, 999_999,
+                                                  1_000_000, S]])
+    pos = np.asarray(jnp.clip(jnp.searchsorted(jnp.asarray(pad),
+                                               jnp.asarray(keys, jnp.int32)),
+                              0, len(pad) - 1))
+    want_hit = pad[pos] == keys
+    fmap = pqdist.frontier_map(torch.from_numpy(pad), len(uniq),
+                               int(uniq[0]) if len(uniq) else 0,
+                               int(uniq[-1]) if len(uniq) else -1)
+    hit, uid = _map_member(fmap, torch.from_numpy(keys))
+    np.testing.assert_array_equal(hit.numpy(), want_hit)
+    np.testing.assert_array_equal(uid.numpy()[want_hit], pos[want_hit])
+    assert fmap.nbits == (int(uniq[-1]) - int(uniq[0]) + 1 if len(uniq)
+                          else 0)
+
+
 def test_step_builders_match_jax():
     """dist_bfs_level, dist_pagerank_step and dist_sssp_step: one step each
     over the 8 shards, from the same state."""

@@ -309,6 +309,141 @@ def test_shard_expand_matches_plain_and_overflows(endpoint, dev):
         assert (int(got[0][4].item()) > cap) == (cap == 2048)
 
 
+S = 2**31 - 1  # expand_rows' padding of the frontier
+
+
+def _k23_case(case, rng):
+    """(es, ed, et, alive, eid, padded uniq, tlut) for one of K23's cases."""
+    per, n = 50_003, 3000
+    front = np.unique(rng.integers(0, n, 700))
+    if case == "one id":
+        front = np.array([17])
+    elif case == "span past shared memory":
+        # 1,500 ids over 2.5 M: the map (78,125 words) stays in L2
+        n = 2_500_000
+        front = np.unique(np.concatenate([[0, n - 1], rng.integers(
+            0, n, 1500)]))
+    es = rng.integers(0, n, per)
+    ed = rng.integers(0, n, per)
+    if case == "span past shared memory":
+        es[::3] = rng.choice(front, len(es[::3]))
+        ed[1::3] = rng.choice(front, len(ed[1::3]))
+    if case == "node 0 and node_max":
+        front = np.unique(np.concatenate([[0, n], front]))
+        es[::7], ed[::5] = 0, n
+        es[3::11], ed[3::13] = n, 0
+    if case == "self-loops":
+        ed[::3] = es[::3]
+    if case == "sentinel padding":  # keys equal to the padding hit it
+        es[::101], ed[::97] = S, S
+    et = rng.integers(-1, 4, per)
+    alive = rng.random(per) > (1.0 if case == "every edge dead" else 0.15)
+    eid = np.arange(7, 7 + per)
+    pad = np.full(max(2, 1 << int(np.ceil(np.log2(len(front))))), S)
+    pad[:len(front)] = front
+    if case == "sentinel padding" and len(pad) == len(front):
+        pad = np.concatenate([pad, np.full(len(pad), S)])
+    tlut = np.array([True, False, True])
+    return ([a.astype(np.int32) for a in (es, ed, et)]
+            + [alive, eid.astype(np.int32), pad.astype(np.int32), tlut])
+
+
+def _hold_frames(got, ins, cap, endpoint):
+    plain = qdist.shard_expand_plain(*(t.cpu() for t in ins), cap=cap,
+                                     endpoint=endpoint)
+    torch.cuda.synchronize()
+    assert len(got) == len(plain) == (2 if endpoint == 2 else 1)
+    for fg, fp in zip(got, plain):
+        for g, p in zip(fg, fp):
+            assert g.dtype == p.dtype and torch.equal(g.cpu(), p)
+    return max(int(f[4]) for f in plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("endpoint", [0, 1, 2])
+@pytest.mark.parametrize("case", ["one id", "span past shared memory",
+                                  "node 0 and node_max", "sentinel padding",
+                                  "every edge dead", "self-loops"])
+def test_shard_expand_cases(case, endpoint, dev):
+    """K23 with its map built from uniq and from the host's span, at a cap
+    that overflows (count past it) and one that holds every hit, twice (the
+    control area left zero between launches)."""
+    ins = [_t(a, dev) for a in _k23_case(case, np.random.default_rng(23))]
+    front = ins[5].cpu().numpy()
+    real = front[front < S]
+    built = qdist.frontier_map(ins[5], len(real), int(real[0]),
+                               int(real[-1]))
+    plain = qdist.frontier_map_plain(ins[5].cpu(), len(real), int(real[0]),
+                                     int(real[-1]))
+    assert (built.lo, built.nbits, built.sentinel_uid) == \
+        (plain.lo, plain.nbits, plain.sentinel_uid)
+    assert torch.equal(built.words.cpu(), plain.words)
+    for fmap in (None, built):
+        hits = None
+        for cap in (64, 65_536, 65_536):
+            got = qdist.shard_expand(*ins, cap=cap, endpoint=endpoint,
+                                     fmap=fmap)
+            hits = _hold_frames(got, ins, cap, endpoint)
+        if case == "every edge dead":
+            assert hits == 0
+        elif case == "one id":
+            assert 0 < hits < 64
+        else:
+            assert hits > 64
+
+
+@pytest.mark.cuda
+def test_shard_expand_two_shards_share_one_map(dev):
+    rng = np.random.default_rng(31)
+    ins = [_t(a, dev) for a in _k23_case("self-loops", rng)]
+    front = ins[5].cpu().numpy()
+    real = front[front < S]
+    cuda.reset_launches()
+    fmap = qdist.frontier_map(ins[5], len(real), int(real[0]), int(real[-1]))
+    half = ins[0].numel() // 2
+    for lo, hi in ((0, half), (half, ins[0].numel())):
+        part = [t[lo:hi].contiguous() for t in ins[:5]] + ins[5:]
+        got = qdist.shard_expand(*part, cap=32_768, endpoint=2, fmap=fmap)
+        _hold_frames(got, part, 32_768, 2)
+    assert cuda.KERNELS["shard_expand"].launches == 3  # one map, two scans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["out", "in", "both"])
+def test_expand_rows_retries_on_the_card(direction, dev):
+    """expand_rows over 4 shards on the card, each shard's frame past the
+    first cap of 2,048 (a retry), against the same call over 4 CPU shards
+    (the plain scans): the same rows, dsts and edge ids in (row, eid)
+    order."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(7)
+    n, m = 400, 40_000
+    src = rng.integers(0, n, m)
+    dst = np.where(rng.random(m) < 0.05, src, rng.integers(0, n, m))
+
+    def store():
+        return SimpleNamespace(
+            edge_max=m, e_src=src.astype(np.int32),
+            e_dst=dst.astype(np.int32),
+            e_type=(np.arange(m) % 3).astype(np.int32),
+            e_deleted=np.arange(m) % 17 == 0, _dev={},
+            schema=SimpleNamespace(reltypes=["A", "B", "C"]))
+
+    srcs = rng.integers(-1, n, 3000)
+    valid = rng.random(3000) > 0.1
+    cuda.reset_launches()
+    got = qdist.expand_rows(store(), dist.make_mesh([dev] * 4), srcs, valid,
+                            [0, 2], direction)
+    want = qdist.expand_rows(store(), dist.make_mesh([torch.device("cpu")] * 4),
+                             srcs, valid, [0, 2], direction)
+    assert len(got[0]) > 4 * 2048
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    # one map, then 4 scans at cap 2,048 and 4 again at the doubled caps
+    assert cuda.KERNELS["shard_expand"].launches == 9
+
+
 def _graph(db, n=300, m=3000, seed=9):
     rng = np.random.default_rng(seed)
     src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
