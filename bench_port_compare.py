@@ -15,6 +15,8 @@ card in one call.
     python3 bench_port_compare.py --rows expand      # K23
     python3 bench_port_compare.py --rows reach       # K9
     python3 bench_port_compare.py --rows queries     # path g's read mix
+    python3 bench_port_compare.py --rows levels      # K17
+    python3 bench_port_compare.py --rows bc          # K7 (betweenness)
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -155,6 +157,34 @@ The queries rows are path g's LDBC read mix as DIR/chip_smoke.py's
 the card, 4 shards on the one card): each query's first run (checked) and 5
 more, each on the host clock (`query {...}` lines, with the last run's
 kernel launches).
+
+The levels rows are K17 at every level of a sorted-ELL BFS at RMAT-
+`--scale` from bench_port.py's 2048 packed roots, run level by level with
+the root's K9 and K10 (`_ell_level`), into the int8 levels of the 2048
+lanes and the int32 levels of the first 64 (the unsorted family's width):
+one `level {...}` line per level and width with K17's ms (CUDA events,
+median of 5, the levels restored untimed before each call), the levels it
+set, the nonzero fresh words among the real lanes' and both bounds (the
+table's, 2 B a set int8 lane; the sector bound, the fresh words and a
+32-byte sector read and written for each 32 B of levels under a nonzero
+word); then `bfs_multi_ell_sorted` fused and stepped on the host clock (3
+runs each) with a `device` line each, and the ptxas report of
+csrc/packed_levels.cu.
+
+The bc rows are `betweenness(comp.csr, sampling_size=8, seed=7)` over the
+SF1-class Person / KNOWS CSR (the forward CSR made from the pagerank rows'
+cached transpose): a `bc {...}` line with its first call and 3 more on
+the host clock, and the split of one call from a trace: device ms by
+kernel and copy, the CUDA API calls with the host ms spent in them (a
+copy's includes its wait for the kernels before it), and the rest, host
+Python and numpy; then one source's sweep in CUDA events: the root's
+`bc_sweeps` where it has one, and on every tree the former host level
+loop over K7's level kernel (`host_loop_delta`), from the one of the 8
+sources that reaches the most rows; then the algo_betweenness query as
+chip_smoke.py runs it, through the root's database on the card over the
+SF1-class graph (a `query` line: its first run and 2 more on the host
+clock); and the ptxas reports of csrc/brandes.cu and
+csrc/segment_sum_pull.cu.
 """
 
 import argparse
@@ -177,12 +207,12 @@ def main(argv=None):
     ap.add_argument("--rows", default=["all"], nargs="+",
                     choices=("all", "graph", "vector", "mesh", "probes",
                              "pagerank", "agg", "bfs", "expand", "reach",
-                             "queries"),
+                             "queries", "levels", "bc"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
                          "K24 and K26; probes: K30's reps-1 forms and K27's "
                          "double; pagerank: K5; agg: K2; bfs: K16; expand: "
                          "K23; reach: K9; queries: path g's forced LDBC "
-                         "read mix")
+                         "read mix; levels: K17; bc: K7")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -226,6 +256,10 @@ def main(argv=None):
         reach_rows(smoke, root, args.scale, dev)
     if {"all", "queries"} & set(args.rows):
         query_rows(smoke, root, dev)
+    if {"all", "levels"} & set(args.rows):
+        levels_rows(smoke, root, args.scale, dev)
+    if {"all", "bc"} & set(args.rows):
+        bc_rows(smoke, root, dev)
     return 0
 
 
@@ -1691,6 +1725,247 @@ def query_rows(smoke, root, dev):
                              for k, v in smoke.cuda.KERNELS.items()
                              if v.launches > before[k]}}), flush=True)
     smoke.router._cached_mesh = None
+
+
+# -- K17: the per-lane level unpack --------------------------------------------
+
+
+def k17_counts(fresh, n, k, elt):
+    """(nonzero words, bytes) of one K17 call's sector bound: the fresh
+    words read once (4 W n), and for each nonzero word among the first
+    ceil(k / 32) of a row its levels' 32-byte sectors read and written
+    (int8: 64 B a word, int32: 256 B).  chip_smoke.py reports it too."""
+    import torch
+
+    kw = -(-k // 32)
+    nonzero = sum(int(torch.count_nonzero(fresh[i:min(i + (1 << 20), n), :kw]))
+                  for i in range(0, n, 1 << 20))
+    return nonzero, 4 * fresh.shape[1] * n + nonzero * 2 * 32 * elt
+
+
+def changed(a, b):
+    import torch
+
+    return sum(int(torch.count_nonzero(a[i:i + (1 << 16)] != b[i:i + (1 << 16)]))
+               for i in range(0, a.shape[0], 1 << 16))
+
+
+def levels_rows(smoke, root, scale, dev):
+    """K17 from the root's package at every level of a 2048-lane sorted-ELL
+    BFS (int8 levels) and of its first 64 lanes (int32 levels); then the
+    fused and stepped BFS walls; the ptxas report of packed_levels.cu."""
+    import time
+
+    import torch
+
+    ptxas(smoke, root, ("packed_levels.cu",))
+    tbfs = importlib.import_module("falkordb_tpu_torch.algos.bfs")
+    pprep = smoke.bench_port.prepare_packed(scale, smoke.BFS_LANES, CACHE,
+                                            str(dev))
+    ell, k = pprep.ell, len(pprep.roots)
+    n = ell.n
+    _W, visited, frontier, lv8 = tbfs.packed_init(n, pprep.roots, dev,
+                                                  torch.int8)
+    lv32 = torch.where(lv8[:, :64] == tbfs.UNREACHED8,
+                       torch.full((), tbfs.UNREACHED, dtype=torch.int32,
+                                  device=dev), lv8[:, :64].to(torch.int32))
+    lk8, lk32 = torch.empty_like(lv8), torch.empty_like(lv32)
+    parts = tbfs.ell_reach_parts(ell, dev, by_range=True)
+    reach = torch.zeros_like(visited)
+    depth = 0
+    while tbfs._ell_level(parts, frontier, visited, reach, None, depth):
+        f32 = frontier[:, :2].contiguous()
+        for what, fresh, base, lk, lanes in (
+                ("int8", frontier, lv8, lk8, k),
+                ("int32", f32, lv32, lk32, 64)):
+            elt = base.element_size()
+            nonzero, sector = k17_counts(fresh, n, lanes, elt)
+            ms = smoke.cuda_ms(
+                lambda: tbfs.packed_levels(fresh, lk, depth),
+                reps=5, setup=lambda: lk.copy_(base))
+            set_ = changed(lk, base)
+            base.copy_(lk)
+            print("level " + json.dumps({
+                "root": root, "level": depth + 1, "lanes": lanes,
+                "levels": what, "n": n, "words": fresh.shape[1],
+                "ms": ms, "levels_set": set_, "nonzero_words": nonzero,
+                "bound_ms": smoke.bound_ms(4 * fresh.shape[1] * n +
+                                           2 * elt * set_),
+                "sector_bound_ms": smoke.bound_ms(sector)}), flush=True)
+        depth += 1
+    del lv8, lv32, lk8, lk32, visited, frontier, reach, parts
+    for fused in (True, False):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tbfs.bfs_multi_ell_sorted(ell, pprep.roots, fused=fused)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            del out
+        print("bfs " + json.dumps({
+            "root": root, "call": "bfs_multi_ell_sorted", "fused": fused,
+            "wall_ms": walls}), flush=True)
+        device_line(smoke, root, f"bfs_multi_ell_sorted fused={fused}",
+                    lambda: tbfs.bfs_multi_ell_sorted(ell, pprep.roots,
+                                                      fused=fused))
+
+
+# -- K7: betweenness over Person / KNOWS ------------------------------------------
+
+
+def host_loop_delta(tbc, a, at, s):
+    """Source s's dependencies by the port's former host level loop (numpy,
+    each level's row sums from K7's `segment_sum_pull`), as an (n,) float64
+    array."""
+    import numpy as np
+    import torch
+
+    n = a.n_rows
+    levels = np.full(n, -1, dtype=np.int64)
+    sigma = np.zeros(n, dtype=np.float64)
+    levels[s] = 0
+    sigma[s] = 1.0
+    frontier = np.zeros(n, dtype=np.float32)
+    frontier[s] = 1.0
+    depth = 0
+    while True:
+        counts = tbc.segment_sum_pull(at, torch.from_numpy(frontier).to(
+            at.device), "bc_push_counts").cpu().numpy()
+        fresh = (levels < 0) & (counts > 0)
+        if not fresh.any():
+            break
+        depth += 1
+        levels[fresh] = depth
+        sigma[fresh] = counts[fresh]
+        frontier = np.where(fresh, counts, 0.0).astype(np.float32)
+    delta = np.zeros(n, dtype=np.float64)
+    for lvl in range(depth, 0, -1):
+        coef = np.where(levels == lvl, (1.0 + delta) / np.maximum(sigma, 1e-300),
+                        0.0).astype(np.float32)
+        acc = tbc.segment_sum_pull(a, torch.from_numpy(coef).to(a.device),
+                                   "bc_pull_deps").cpu().numpy()
+        prev = levels == lvl - 1
+        delta[prev] += sigma[prev] * acc[prev]
+    delta[s] = 0.0
+    return delta
+
+
+def api_times(fn):
+    """One traced fn(): ({CUDA API call: [count, host ms in it]}, {device
+    kernel or copy: ms})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    api, dev = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith("cuda"):
+            api[e.key] = [e.count, e.self_cpu_time_total / 1e3]
+        elif e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            dev[e.key] = e.self_device_time_total / 1e3
+    return api, dev
+
+
+def bc_rows(smoke, root, dev):
+    """betweenness over Person / KNOWS with 8 sources from the root's
+    package: host-clock calls, a traced call's split, one source's sweep
+    in CUDA events; the ptxas reports of brandes.cu and
+    segment_sum_pull.cu."""
+    import time
+
+    import numpy as np
+    import torch
+
+    ptxas(smoke, root, ("brandes.cu", "segment_sum_pull.cu"))
+    tbc = importlib.import_module("falkordb_tpu_torch.algos.betweenness")
+    knows = ldbc_transposes(smoke, dev)[1][1]
+    a = knows.transpose_host()  # the forward CSR, rows sorted by column
+    n = a.n_rows
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = tbc.betweenness(a, sampling_size=8, seed=7)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    before = {k: v.launches for k, v in smoke.cuda.KERNELS.items()}
+    t0 = time.perf_counter()
+    api, by_dev = api_times(lambda: tbc.betweenness(a, sampling_size=8,
+                                                    seed=7))
+    traced = (time.perf_counter() - t0) * 1e3
+    launched = {k: v.launches - before[k]
+                for k, v in smoke.cuda.KERNELS.items()
+                if v.launches > before[k]}
+    api_ms = sum(v[1] for v in api.values())
+    print("bc " + json.dumps({
+        "root": root, "call": "betweenness(sampling_size=8, seed=7)", "n": n,
+        "nnz": int(a.nnz), "first_ms": walls[0], "ms": walls[1:],
+        "score_sum": float(scores.sum()), "score_max": float(scores.max()),
+        "launches": launched, "traced_ms": traced, "cuda_api": api,
+        "device_ms": by_dev, "cuda_api_ms": api_ms,
+        "host_rest_ms": traced - api_ms}), flush=True)
+    at = knows
+    s = widest_source(a, np.random.default_rng(7).choice(n, size=8,
+                                                         replace=False))
+    ms_loop = smoke.cuda_ms(lambda: host_loop_delta(tbc, a, at, s), reps=3)
+    row = {"root": root, "source": s, "host_loop_ms": ms_loop}
+    if hasattr(tbc, "bc_sweeps"):
+        at = a.transpose()
+        got = tbc.bc_sweeps(a, at, [s]).cpu().numpy()
+        assert np.array_equal(got, host_loop_delta(tbc, a, at, s))
+        row["sweep_ms"] = smoke.cuda_ms(lambda: tbc.bc_sweeps(a, at, [s]))
+        row["sweep_api"] = api_counts(lambda: tbc.bc_sweeps(a, at, [s]))
+        device_line(smoke, root, "bc_sweeps one source",
+                    lambda: tbc.bc_sweeps(a, at, [s]))
+    print("bc_source " + json.dumps(row), flush=True)
+    bc_query(smoke, root)
+
+
+BC_QUERY_RUNS = 2  # each run yields 430,000 rows through the host
+BC_CYPHER = ("CALL algo.betweenness({nodeLabels: ['Person'], "
+             "relationshipTypes: ['KNOWS'], samplingSize: 8, samplingSeed: 7}) "
+             "YIELD node, score RETURN node.id, score")
+
+
+def widest_source(a, sources):
+    """The source whose forward BFS over a reaches the most rows."""
+    from scipy.sparse.csgraph import breadth_first_order
+
+    m = a.to_scipy()
+    return int(max(sources, key=lambda s: len(breadth_first_order(
+        m, int(s), directed=True, return_predecessors=False))))
+
+
+def bc_query(smoke, root):
+    """algo_betweenness as chip_smoke.py runs it, through the root's
+    database on the card over the SF1-class graph: a `query` line with its
+    first run and BC_QUERY_RUNS more on the host clock, and its rows' score
+    sum."""
+    import time
+
+    import numpy as np
+    import torch
+
+    t = smoke.gen_dataset(smoke.SF1_PERSONS,
+                          np.random.default_rng(smoke.SEED))
+    db = smoke.FalkorDB()
+    smoke.load_ldbc(db.select_graph("ldbc"), t)
+    g = db.select_graph("ldbc")
+    ms = []
+    for _ in range(BC_QUERY_RUNS + 1):
+        t0 = time.perf_counter()
+        rows = g.query(BC_CYPHER).result_set
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print("query " + json.dumps({
+        "root": root, "query": "algo_betweenness", "first_ms": ms[0],
+        "ms": ms[1:], "rows": len(rows),
+        "score_sum": float(sum(r[1] for r in rows))}), flush=True)
 
 
 if __name__ == "__main__":

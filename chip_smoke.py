@@ -33,8 +33,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shape) and over the RMAT graph's unsorted transpose from the stepped
    mode's roots (its hub rows cut into segments), then its harmonic-sums
    form over Person / KNOWS, one batch and a queued chain of batches, each
-   with its CUDA API calls a call; K10 with no
-   chunk, K17 (2048 int8 lanes, 64 int32 lanes) and
+   with its CUDA API calls a call; K7's level kernel over Person / KNOWS
+   both ways, then K7's sweep (one cooperative launch a source) from one
+   source of algo.betweenness, equal bit for bit to the host level loop
+   over K7's level kernel, beside cuSPARSE's SpMV once a pull of that loop;
+   K10 with no
+   chunk, K17 (2048 int8 lanes, 64 int32 lanes, with the nonzero fresh
+   words and the bound of their 32-byte level sectors) and
    K18 (one step, beside a CSR SpMV) run on the RMAT graph's sorted
    transpose ELL.  K19-K22 run at bench_kernels.py's shapes over the same
    RMAT edges (CSR.from_coo_numpy, dedup; uniform(0.5, 2) float32 values):
@@ -70,7 +75,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
       KNOWS) whose answers are checked against a numpy / scipy oracle over
       the generated tables and against the same database run with
       device="cpu" (row for row; float scores node by node at the kernels'
-      tolerances), and the host-only procedures once each on a small graph.
+      tolerances), and the host-only procedures once each on a small graph;
+      algo.betweenness launches K7's sweep once a source, and K7's level
+      kernel not at all.
       Each query runs once on the card for its time (cut from 3, for the
       run's time: path g runs beside it), once on the CPU database and once
       under the profiler for the card's busy share.
@@ -168,7 +175,7 @@ import bench_port_compare
 import bench_port_gather
 import bench_port_kernels
 from falkordb_tpu_torch.algos.betweenness import (
-    segment_sum_pull, segment_sum_pull_plain,
+    bc_sweeps, brandes_sweep_plain, segment_sum_pull, segment_sum_pull_plain,
 )
 from falkordb_tpu_torch.algos.bfs import (
     UNREACHED, UNREACHED8, bfs_levels, bfs_levels_plain, bfs_multi,
@@ -722,6 +729,9 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "wcc": "exact", "sssp": "exact, inf as inf",
     "bc_push_counts": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
     "bc_pull_deps": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
+    "bc_sweep": "exact against the host level loop over K7's level kernel "
+                "(the same row sums in the same order); rtol 1e-5 atol 1e-6 "
+                "against the plain sweep (index_add_ sums in any order)",
     "bfs_parents": "exact",
     "packed_chunk_reach": "exact (reach bit for bit)",
     "packed_sparse_reach": "exact (reach bit for bit)",
@@ -743,7 +753,9 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "multi_bfs": "exact (levels, next frontier bits, the alive flag); the "
                  "harmonic sums atol 1e-9 (float64 sums in another order), "
                  "the same bits on a second run",
-    "packed_levels": "exact",
+    "packed_levels": "exact (sector_bound_ms: the fresh words and a 32-byte "
+                     "sector read and written for each 32 B of levels "
+                     "under a nonzero word)",
     "ell_pagerank": "one step: scores rtol 1e-5 atol 1e-9, L1 change rtol "
                     "1e-4 (float32 sums in other orders), the same bits on "
                     "a second call",
@@ -998,6 +1010,63 @@ def check_segment_sum_pull(store, dev):
                                                    csr.nnz, n, x)),
             cuda_ms(_spmv(csr)), 4 * nnz + 12 * n, _max_err(yk, yp))])
     return out
+
+
+def bc_sweep_bytes(a, at, s):
+    """(bytes, scan bytes, depth, rows reached) of Brandes' sweep from s
+    over the forward CSR a and its transpose at.  Bytes are what the data
+    needs: each reached row's in-edges once (8 B: the column and the
+    frontier word it names) and its out-edges' columns once with the word
+    each names in two phases (12 B: the level when claiming the next
+    level, coef in the backward pull); 68 B a reached row (three indptr
+    pairs, sigma written and read, bc read and written, a frontier and two
+    coef words).  Scan bytes are what K7's design adds, which keeps no
+    frontier list: the level array read once a phase (2 * depth phases)
+    and the init's 20 B a row."""
+    from scipy.sparse.csgraph import shortest_path
+
+    hops = shortest_path(a.to_scipy(), unweighted=True, directed=True,
+                         indices=s)
+    reached = np.isfinite(hops)
+    depth = int(hops[reached].max())
+    outdeg, indeg = a.degrees_host(), at.degrees_host()
+    edges = 8 * int(indeg[reached].sum()) + 12 * int(outdeg[reached].sum())
+    nbytes = edges + 68 * int(reached.sum())
+    return nbytes, 4 * a.n_rows * (2 * depth + 5), depth, int(reached.sum())
+
+
+def check_bc_sweep(store, dev):
+    """K7's sweep over Person / KNOWS (the CSRs algo.betweenness runs) from
+    the one of algo_betweenness's 8 sources that reaches the most rows: one
+    launch, equal bit for bit to the host level loop over K7's level kernel
+    and within BC_TOL of the plain sweep; the library column is cuSPARSE's
+    SpMV once a pull of the host loop (depth + 1 over the transpose, depth
+    over the forward CSR); `scan_bound_ms` is the bound of the level scans
+    the kernel's design adds (`bc_sweep_bytes`)."""
+    a = compact_adjacency(store, "Person", ["KNOWS"], directed=True).csr
+    at = a.transpose()
+    n, nnz = a.n_rows, int(a.nnz)
+    s = bench_port_compare.widest_source(
+        a, np.random.default_rng(7).choice(n, size=8, replace=False))
+    got = bc_sweeps(a, at, [s])
+    via_k7 = brandes_sweep_plain(a, at, s, pull=segment_sum_pull)
+    plain = brandes_sweep_plain(a, at, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, via_k7), \
+        f"bc_sweep: {float((got - via_k7).abs().max())} off the K7 loop"
+    torch.testing.assert_close(got, plain, **BC_TOL)
+    assert bool((got > 0).any())
+    nbytes, scan, depth, reached = bc_sweep_bytes(a, at, s)
+    library = (cuda_ms(_spmv(at)) * (depth + 1) + cuda_ms(_spmv(a)) * depth)
+    return [_row(
+        "bc_sweep", f"Person/KNOWS n={n} nnz={nnz}, one source ({s}): depth "
+        f"{depth}, {reached} rows reached",
+        cuda_ms(lambda: bc_sweeps(a, at, [s])),
+        cuda_ms(lambda: brandes_sweep_plain(a, at, s)), library, nbytes,
+        _max_err(got, plain),
+        k7_loop_ms=cuda_ms(lambda: brandes_sweep_plain(
+            a, at, s, pull=segment_sum_pull)),
+        scan_bound_ms=bound_ms(scan))]
 
 
 def check_bfs_parents(store, dev):
@@ -1467,13 +1536,17 @@ def check_ell_kernels(pprep, at_sorted, dev):
                                            != base[i:i + (1 << 16)]))
                    for i in range(0, n, 1 << 16))
         w = fresh.shape[1]
+        nonzero, sector = bench_port_compare.k17_counts(
+            fresh, n, lanes, base.element_size())
         rows.append(_row(
             "packed_levels", f"sorted ELL n={n} k={lanes} {what} levels, level "
-            f"2 ({set_} levels set)", cuda_ms(lambda: packed_levels(
-                fresh, lk, 1), setup=lambda: lk.copy_(base)),
+            f"2 ({set_} levels set, {nonzero} nonzero words)",
+            cuda_ms(lambda: packed_levels(fresh, lk, 1),
+                    setup=lambda: lk.copy_(base)),
             cuda_ms(lambda: packed_levels_plain(fresh, lk, 1),
                     setup=lambda: lk.copy_(base)), None,
-            4 * w * n + 2 * base.element_size() * set_, 0.0))
+            4 * w * n + 2 * base.element_size() * set_, 0.0,
+            nonzero_words=nonzero, sector_bound_ms=bound_ms(sector)))
         del lk
     del lv8, lv32, fk, fresh64, parts
     parts = ell_reach_parts(ell, dev, by_range=False)
@@ -3257,7 +3330,7 @@ def run_queries(g_dev, g_cpu, queries, rows_out=None):
 
 
 LDBC_KERNELS = ("expand", "group_partials", "topk", "bfs_levels", "pagerank",
-                "wcc", "sssp", "bc_push_counts", "bc_pull_deps", "bfs_parents")
+                "wcc", "sssp", "bc_sweep", "bfs_parents")
 BFS_KERNELS = ("packed_seed", "packed_sparse_reach", "packed_chunk_reach",
                "packed_epilogue", "packed_counts")
 VECTOR_KERNELS = ("kmeans_assign", "kmeans_update", "vector_scores")
@@ -3378,6 +3451,7 @@ def main(argv=None):
     results["wcc"], results["sssp"] = check_pull_min(store, dev)
     results["bc_push_counts"], results["bc_pull_deps"] = \
         check_segment_sum_pull(store, dev)
+    results["bc_sweep"] = check_bc_sweep(store, dev)
     check_packed_words(dev)
     results.update(check_packed(prep, dev))
     knows_t = compact_adjacency(store, "Person", ["KNOWS"], directed=True).at
@@ -3439,6 +3513,11 @@ def main(argv=None):
     small = small_algorithms(db, db_cpu, np.random.default_rng(SEED + 2))
     launches = {}
     path_launches("LDBC read and algorithm mixes", LDBC_KERNELS, launches)
+    assert query_stats["algo_betweenness"]["launches"] == {"bc_sweep": 8}, \
+        query_stats["algo_betweenness"]["launches"]  # one launch a source
+    for k in ("bc_push_counts", "bc_pull_deps"):  # K7's level kernel
+        launches[k] = cuda.KERNELS[k].launches
+        assert not launches[k], (k, launches[k])
 
     cuda.reset_launches()
     harmonic_stats = harmonic_path(db, db_cpu, t, small,

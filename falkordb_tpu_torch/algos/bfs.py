@@ -701,14 +701,22 @@ def bfs_multi_ell_packed(ell, sources, max_levels=16,
             return PackedBfsResult(visited, hist, total, sources)
 
 
+_PACKED_LEVELS = _cuda.Entry("fk_packed_levels", "packed_levels")
+
+
 def packed_levels(fresh: torch.Tensor, levels: torch.Tensor,
                   depth: int) -> torch.Tensor:
     """K17: levels[v, l] = depth + 1 where bit l of fresh[v] (32 lanes an
     int32 word) is set and levels[v, l] is UNREACHED (2^30 in int32 levels,
     127 in int8 ones, whose depth + 1 wraps), for v < n = levels.shape[0];
     in place."""
-    if not _cuda.on_cuda(fresh, levels):
+    if not _cuda.on_card(fresh, levels):
         return packed_levels_plain(fresh, levels, depth)
+    if levels.dim() != 2 or levels.dtype not in (torch.int8, torch.int32) \
+            or not levels.is_contiguous():
+        raise ValueError(f"packed_levels: levels must be a contiguous int8 or "
+                         f"int32 (n, k) tensor, got {levels.dtype} "
+                         f"{tuple(levels.shape)}")
     n, k = levels.shape
     if (fresh.dtype != torch.int32 or fresh.dim() != 2
             or not fresh.is_contiguous() or fresh.shape[0] < n
@@ -716,15 +724,10 @@ def packed_levels(fresh: torch.Tensor, levels: torch.Tensor,
         raise ValueError(f"packed_levels: fresh must be a contiguous (>= {n}, "
                          f">= {-(-k // 32)}) int32 tensor, got {fresh.dtype} "
                          f"{tuple(fresh.shape)}")
-    if levels.dtype not in (torch.int8, torch.int32) or \
-            not levels.is_contiguous():
-        raise ValueError(f"packed_levels: levels must be a contiguous int8 or "
-                         f"int32 (n, k) tensor, got {levels.dtype}")
-    rc = _cuda.lib().fk_packed_levels(
-        _cuda.ptr(fresh), n, fresh.shape[1], _cuda.ptr(levels), k,
-        levels.element_size(), int(depth), _cuda.stream_ptr(levels))
-    _cuda.check(rc, "packed_levels")
-    _cuda.count_launch("packed_levels")
+    if n and k:
+        _PACKED_LEVELS.launch(levels.get_device(), fresh.data_ptr(), n,
+                              fresh.shape[1], levels.data_ptr(), k,
+                              levels.element_size(), int(depth))
     return levels
 
 

@@ -202,7 +202,7 @@ def algo_betweenness(rt, cfg=None):
     sampling = cfg.get("samplingSize")
     scores = np.asarray(betweenness(
         comp.csr, sampling_size=int(sampling) if sampling else None,
-        seed=int(cfg.get("samplingSeed", 0)) or 0))
+        seed=int(cfg.get("samplingSeed", 0)) or 0, at=comp.at))
     order = np.argsort(-scores, kind="stable")
     for ci in order:
         yield {"node": rt.ctx.node_value(int(comp.ids[ci])),

@@ -46,4 +46,35 @@ inline unsigned grid_for(int64_t n, int threads, int64_t max_blocks = 132 * 16) 
   return (unsigned)b;
 }
 
+// Every block of a cooperative launch waits here for the others, adding
+// whether it found something to its arrival: `count` holds the arrivals
+// (the low 16 bits; the high 16 count the blocks that found), `gen` the
+// generation (shifted left by one, the last flag in bit 0); both zero
+// before the first use.  The last block to arrive sets the arrivals back
+// to zero and publishes the flag with the next generation, which the
+// others read as they see it change.  Returns the flag in every thread.
+__device__ __forceinline__ bool grid_or(unsigned* count, unsigned* gen, bool found) {
+  __shared__ unsigned out;
+  const int any = __syncthreads_or(found);
+  if (threadIdx.x == 0) {
+    const unsigned g = *(volatile unsigned*)gen;  // before arriving
+    __threadfence();
+    const unsigned old = atomicAdd(count, any ? 0x10001u : 1u);
+    if ((old & 0xffffu) == gridDim.x - 1) {
+      const unsigned flag = (old >> 16) + (any ? 1u : 0u) > 0;
+      *count = 0;
+      __threadfence();
+      atomicExch(gen, (((g >> 1) + 1u) << 1) | flag);
+      out = flag;
+    } else {
+      unsigned now;
+      while ((now = *(volatile unsigned*)gen) == g) __nanosleep(32);
+      __threadfence();
+      out = now & 1u;
+    }
+  }
+  __syncthreads();
+  return out != 0;
+}
+
 }  // namespace fk

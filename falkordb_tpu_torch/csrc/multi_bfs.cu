@@ -392,35 +392,6 @@ __device__ void run_item(const Params& p, const Level& L, int64_t it, int4 d, bo
   }
 }
 
-// Every block of the cooperative launch waits here for the others, adding
-// whether it found a fresh lane to its arrival; the last to arrive sets
-// the arrivals back to zero and publishes the level's flag with the next
-// generation, which the others read as they see it change.  Returns the
-// flag in every thread.
-__device__ bool grid_sync(Control* c, bool found) {
-  __shared__ unsigned out;
-  const int any = __syncthreads_or(found);
-  if (threadIdx.x == 0) {
-    const unsigned gen = *(volatile unsigned*)&c->gen;  // before arriving
-    __threadfence();
-    const unsigned old = atomicAdd(&c->count, any ? 0x10001u : 1u);
-    if ((old & 0xffffu) == gridDim.x - 1) {
-      const unsigned flag = (old >> 16) + (any ? 1u : 0u) > 0;
-      c->count = 0;
-      __threadfence();
-      atomicExch(&c->gen, (((gen >> 1) + 1u) << 1) | flag);
-      out = flag;
-    } else {
-      unsigned now;
-      while ((now = *(volatile unsigned*)&c->gen) == gen) __nanosleep(32);
-      __threadfence();
-      out = now & 1u;
-    }
-  }
-  __syncthreads();
-  return out != 0;
-}
-
 // The state before the first level: with srcs, cleared and the roots set
 // (levels UNREACHED but 0 at the roots); else the map of the rows holding
 // frontier words.  Map 1 and the hubs' words and counters start zero.
@@ -443,7 +414,7 @@ __device__ void prologue(const Params& p) {
       for (int64_t i = t0; i < total / 4; i += nt) reinterpret_cast<int4*>(p.levels)[i] = u4;
       for (int64_t i = total / 4 * 4 + t0; i < total; i += nt) p.levels[i] = kUnreached;
     }
-    grid_sync(p.ctl, false);
+    fk::grid_or(&p.ctl->count, &p.ctl->gen, false);
     for (int64_t l = t0; l < p.k; l += nt) {
       int64_t s = __ldg(p.srcs + l);
       if (s < 0) s += p.n;  // the reference's scatter: from the end
@@ -466,7 +437,7 @@ __device__ void prologue(const Params& p) {
     }
     for (int64_t i = t0; i < W; i += nt) p.map[W + i] = 0;
   }
-  grid_sync(p.ctl, false);
+  fk::grid_or(&p.ctl->count, &p.ctl->gen, false);
 }
 
 // Threads a block, one block an SM (which copies the map once): 768 up to
@@ -522,7 +493,7 @@ __global__ void __launch_bounds__(T) multi_bfs_kernel(Params p) {
       if (it + nw < items) d = item_of(p, it + nw);  // the next item's, ahead
       run_item<KW, T>(p, L, it, cur, found);
     }
-    alive = grid_sync(p.ctl, found);
+    alive = fk::grid_or(&p.ctl->count, &p.ctl->gen, found);
     ++r;
     ++L.depth;
     if (!alive) break;

@@ -17,10 +17,10 @@ The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
 kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
-one.  K2, K5, K9's level form, K16, K23, K24, K26, K27's `double` and K30
-take it; the other wrappers still take `on_cuda`, `check_input` and a
-`lib()` lookup a call.
-K5 and K16, one persistent cooperative launch a call, keep their grid
+one.  K2, K5, K7's sweep, K9's level form, K16, K17, K23, K24, K26, K27's
+`double` and K30 take it; the other wrappers still take `on_cuda`,
+`check_input` and a `lib()` lookup a call.
+K5, K7's sweep and K16, persistent cooperative launches, keep their grid
 barrier's words and their result's pinned staging per card (`control`).
 """
 
@@ -72,6 +72,8 @@ KERNELS = {
                "falkordb_tpu/algos/betweenness.py:25"),
         Kernel("bc_pull_deps", "falkordb_tpu_torch/csrc/segment_sum_pull.cu",
                "falkordb_tpu/algos/betweenness.py:33"),
+        Kernel("bc_sweep", "falkordb_tpu_torch/csrc/brandes.cu",
+               "falkordb_tpu/algos/betweenness.py:42"),
         Kernel("bfs_parents", "falkordb_tpu_torch/csrc/bfs_parents.cu",
                "falkordb_tpu/algos/bfs.py:56"),
         Kernel("packed_chunk_reach", "falkordb_tpu_torch/csrc/packed_reach.cu",
@@ -158,6 +160,8 @@ _SIGNATURES = {
     "fk_sssp": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _OUT_I32,
                 _P],
     "fk_segment_sum_pull": [_P, _P, _P, _I64, _P, _P, _P],
+    "fk_bc_sweep_control_bytes": [],
+    "fk_bc_sweep": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "fk_bfs_parents": [_P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _P],
     "fk_packed_reach": [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _P, _I64,
                         _P, _I64, _I64, _P],
@@ -221,6 +225,7 @@ _SIGNATURES = {
 _RESTYPES = {"fk_kmeans_assign_scratch": _I64,
              "fk_pagerank_control_bytes": _I64,
              "fk_multi_bfs_control_bytes": _I64,
+             "fk_bc_sweep_control_bytes": _I64,
              "fk_mesh_scratch_bytes": _I64}  # the rest return an error
 
 _lock = threading.Lock()

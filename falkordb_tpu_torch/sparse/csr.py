@@ -230,6 +230,13 @@ class CSR:
             c, r, v, shape=(self.n_cols, self.n_rows), cap=cap or self.cap,
             dedup=False, device=self.device)
 
+    def transpose(self) -> "CSR":
+        """`transpose_host()`, made once and cached on the snapshot."""
+        at = self.__dict__.get("_transpose")
+        if at is None:
+            at = self.__dict__["_transpose"] = self.transpose_host()
+        return at
+
     def degrees_host(self) -> np.ndarray:
         ip = self.host_view()[0]
         return ip[1:] - ip[:-1]

@@ -38,7 +38,9 @@ from falkordb_tpu.algos.sssp import sssp as jax_sssp
 from falkordb_tpu.algos.wcc import wcc as jax_wcc
 from falkordb_tpu.sparse.csr import CSR as JaxCSR
 from falkordb_tpu_torch import FalkorDB
-from falkordb_tpu_torch.algos.betweenness import betweenness
+from falkordb_tpu_torch.algos import betweenness as tbc
+from falkordb_tpu_torch.algos.betweenness import (betweenness,
+                                                  segment_sum_pull)
 from falkordb_tpu_torch.algos.bfs import UNREACHED, bfs_levels_parents
 from falkordb_tpu_torch.algos.pagerank import pagerank, pagerank_transposed
 from falkordb_tpu_torch.algos.sssp import sssp
@@ -237,20 +239,170 @@ def test_sssp_matches_jax(rng, kind, weights, src_node):
 # -- K7 betweenness -----------------------------------------------------------
 
 
-@pytest.mark.parametrize("kind", ["random", "single", "loop"])
+def _bc_graph(kind, rng):
+    """(src, dst, n, cap) of the betweenness graphs: `_graph`'s kinds at
+    their own capacity (cap None), and "reach" (nodes no source reaches
+    and sinks: sources of depth 0), "multi" (every edge twice or three
+    times, self-loops too) and "capped" (the random graph in a CSR whose
+    capacity runs 37 entries past nnz)."""
+    if kind in ("random", "single", "loop"):
+        return (*_graph(kind, rng), None)
+    if kind == "capped":
+        src, dst, n = _graph("random", rng)
+        return src, dst, n, len(src) + 37
+    if kind == "reach":  # 0-14 a chain with branches, 15-29 a sink tree
+        src = np.array([0, 0, 1, 2, 3, 3, 4, 5, 6, 7, 8, 9, 15, 15, 16])
+        dst = np.array([1, 2, 3, 3, 4, 5, 6, 6, 7, 8, 9, 10, 16, 17, 18])
+        return src, dst, 30, None
+    n = 40  # "multi"
+    src = rng.integers(0, n, 60)
+    dst = rng.integers(0, n, 60)
+    rep = rng.integers(2, 4, 60)
+    return np.repeat(src, rep), np.repeat(dst, rep), n, None
+
+
+def _host_loop_delta(a_csr, at, s):
+    """Source s's dependencies as the port computed them before its sweep
+    moved onto the card: the reference's host level loop in numpy, each
+    level's row sums from `segment_sum_pull` (the plain version on CPU
+    tensors).  The oracle the sweep must equal bit for bit."""
+    n = a_csr.n_rows
+
+    def push_counts(sigma_frontier):
+        x = torch.from_numpy(sigma_frontier).to(at.device)
+        return segment_sum_pull(at, x, "bc_push_counts").cpu().numpy()
+
+    def pull_deps(coef):
+        x = torch.from_numpy(coef).to(a_csr.device)
+        return segment_sum_pull(a_csr, x, "bc_pull_deps").cpu().numpy()
+
+    levels = np.full(n, -1, dtype=np.int64)
+    sigma = np.zeros(n, dtype=np.float64)
+    levels[s] = 0
+    sigma[s] = 1.0
+    frontier = np.zeros(n, dtype=np.float32)
+    frontier[s] = sigma[s]
+    depth = 0
+    while True:
+        counts = push_counts(frontier)
+        fresh = (levels < 0) & (counts > 0)
+        if not fresh.any():
+            break
+        depth += 1
+        levels[fresh] = depth
+        sigma[fresh] = counts[fresh]
+        frontier = np.where(fresh, counts, 0.0).astype(np.float32)
+    delta = np.zeros(n, dtype=np.float64)
+    for lvl in range(depth, 0, -1):
+        wset = (levels == lvl)
+        coef = np.where(wset, (1.0 + delta) / np.maximum(sigma, 1e-300),
+                        0.0).astype(np.float32)
+        acc = pull_deps(coef)
+        prev = (levels == lvl - 1)
+        delta[prev] += sigma[prev] * acc[prev]
+    delta[s] = 0.0
+    return delta
+
+
+def _host_loop_betweenness(a_csr, sampling_size=None, seed=0,
+                           normalized=False):
+    """The port's former betweenness around `_host_loop_delta`."""
+    n = a_csr.n_rows
+    if n == 0:
+        return np.zeros(0, dtype=np.float64)
+    at = a_csr.transpose_host()
+    if sampling_size is not None and sampling_size < n:
+        sources = np.random.default_rng(seed).choice(n, size=sampling_size,
+                                                     replace=False)
+    else:
+        sources = np.arange(n)
+    bc = np.zeros(n, dtype=np.float64)
+    for s in sources:
+        bc += _host_loop_delta(a_csr, at, s)
+    if sampling_size is not None and sampling_size < n:
+        bc *= n / float(sampling_size)
+    if normalized and n > 2:
+        bc /= (n - 1) * (n - 2)
+    return bc
+
+
+@pytest.mark.parametrize("kind", ["random", "single", "loop", "reach",
+                                  "multi", "capped"])
 @pytest.mark.parametrize("sampling,normalized", [(None, False), (7, False),
-                                                 (None, True)])
+                                                 (None, True), (7, True)])
 def test_betweenness_matches_jax(rng, kind, sampling, normalized):
-    src, dst, n = _graph(kind, rng)
-    jc, tc = _both(src, dst, n)
+    """Within BC_RTOL / BC_ATOL of falkordb_tpu, and equal bit for bit to
+    the port's former host loop (`_host_loop_betweenness`)."""
+    src, dst, n, cap = _bc_graph(kind, rng)
+    jc = JaxCSR.from_coo_numpy(src, dst, None, shape=(n, n), cap=cap,
+                               dedup=False)
+    tc = CSR.from_coo_numpy(src, dst, None, shape=(n, n), cap=cap,
+                            dedup=False)
+    if cap is not None:
+        assert tc.cap == cap > int(tc.nnz)
     j = np.asarray(jax_betweenness(jc, sampling_size=sampling, seed=3,
                                    normalized=normalized))
     t = betweenness(tc, sampling_size=sampling, seed=3,
                     normalized=normalized)
     assert t.dtype == np.float64 and t.shape == (n,)
     np.testing.assert_allclose(t, j, rtol=BC_RTOL, atol=BC_ATOL)
-    if kind == "random":
+    want = _host_loop_betweenness(tc, sampling_size=sampling, seed=3,
+                                  normalized=normalized)
+    assert t.tobytes() == want.tobytes()
+    if kind in ("random", "reach", "multi", "capped"):
         assert (t > 0).any()
+
+
+@pytest.mark.parametrize("kind", ["random", "reach", "multi", "capped"])
+def test_brandes_sweep_plain_matches_host_loop(rng, kind):
+    """One source at a time, every source (sinks of depth 0 and sources
+    that reach a few nodes included): `brandes_sweep_plain`'s delta equal
+    bit for bit to the former host loop's, and `bc_sweeps` the sum of the
+    sweeps in source order."""
+    src, dst, n, cap = _bc_graph(kind, rng)
+    a = CSR.from_coo_numpy(src, dst, None, shape=(n, n), cap=cap,
+                           dedup=False)
+    at = a.transpose()
+    assert a.transpose() is at  # cached on the snapshot
+    sinks = 0
+    total = torch.zeros(n, dtype=torch.float64)
+    for s in range(n):
+        d = tbc.brandes_sweep_plain(a, at, s)
+        assert d.dtype == torch.float64 and d.shape == (n,)
+        want = _host_loop_delta(a, at, s)
+        assert d.numpy().tobytes() == want.tobytes(), s
+        sinks += not bool((d != 0).any())
+        total += d
+    assert sinks > 0
+    order = np.random.default_rng(5).permutation(n)
+    got = tbc.bc_sweeps(a, at, order)
+    want = torch.zeros(n, dtype=torch.float64)
+    for s in order:
+        want += tbc.brandes_sweep_plain(a, at, int(s))
+    assert torch.equal(got, want)
+    assert torch.equal(tbc.bc_sweeps(a, at, range(n)), total)
+    assert not bool(tbc.bc_sweeps(a, at, []).any())
+
+
+def test_betweenness_takes_the_snapshot_transpose():
+    """algo.betweenness hands `betweenness` the snapshot's transpose
+    (compact_adjacency's `at`): the same arrays as the forward CSR's
+    transpose_host(), so the same scores bit for bit, and no transpose is
+    made."""
+    from falkordb_tpu_torch.algos.common import compact_adjacency
+
+    db = FalkorDB(device="cpu")
+    g = db.select_graph("snap")
+    _build_random(g, n=40, p=0.1)
+    comp = compact_adjacency(db._get_or_create("snap").store, "V", ["E"],
+                             directed=True)
+    made = comp.csr.transpose_host()
+    for f in ("indptr", "rows", "cols", "nnz"):
+        assert torch.equal(getattr(comp.at, f), getattr(made, f)), f
+    got = betweenness(comp.csr, sampling_size=9, seed=4, at=comp.at)
+    assert "_transpose" not in comp.csr.__dict__
+    want = _host_loop_betweenness(comp.csr, sampling_size=9, seed=4)
+    assert got.tobytes() == want.tobytes() and (got > 0).any()
 
 
 # -- K8 BFS with parents ------------------------------------------------------

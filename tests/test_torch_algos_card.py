@@ -1,11 +1,22 @@
-"""K5 on the card: PageRank's power iteration (falkordb_tpu_torch/algos/
-pagerank.py `pagerank_transposed`, csrc/pagerank.cu) against its plain
-PyTorch version `pagerank_plain` on the same CUDA tensors (one persistent
-cooperative launch a call), over transposes with a hub row wider than a
-tile (cut into tasks),
-rows of degree 0, dangling nodes, a padded capacity past nnz and columns
-out of range; at n = 1, max_iters = 1, tol = 0 (max_iters steps), and two
-calls in a row.
+"""K5 and K7's sweep on the card, each against its plain PyTorch version on
+the same CUDA tensors.
+
+K5: PageRank's power iteration (falkordb_tpu_torch/algos/pagerank.py
+`pagerank_transposed`, csrc/pagerank.cu) against `pagerank_plain` (one
+persistent cooperative launch a call), over transposes with a hub row
+wider than a tile (cut into tasks), rows of degree 0, dangling nodes, a
+padded capacity past nnz and columns out of range; at n = 1, max_iters =
+1, tol = 0 (max_iters steps), and two calls in a row.
+
+K7's sweep: betweenness's Brandes sweep of one source in one cooperative
+launch (falkordb_tpu_torch/algos/betweenness.py `bc_sweeps`,
+csrc/brandes.cu) against the host level loop `brandes_sweep_plain` driving
+K7's level kernel (`segment_sum_pull`: the same row sums in the same
+order), bit for bit, and against the plain sweep at chip_smoke.py's
+BC_TOL, over an LDBC-like graph with rows wider than a warp's lanes both
+ways, a uniform random graph and a padded capacity; sources of depth 0
+and 1, n = 0 and n = 1; the same bits on a second call; 8 sources in one
+call equal to 8 one-source calls added in order.
 
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
@@ -14,18 +25,19 @@ and tests/conftest.py does, so run it there with the conftest off:
     python -m pytest --noconftest -p no:cacheprovider -q \\
         tests/test_torch_algos_card.py
 
-Tolerances: the same steps as the plain version; the scores rtol 1e-5
-atol 1e-9 of the same steps in float64 and rtol 1e-4 of the plain version
-(whose float32 atomics add the 9,000-entry hub in any order); the last L1
-change rtol 1e-5 of the one recomputed from the kernel's own scores
-(`hold` says why); the same bits and steps on a second call (every sum
-has one order).
+Tolerances of K5: the same steps as the plain version; the scores rtol
+1e-5 atol 1e-9 of the same steps in float64 and rtol 1e-4 of the plain
+version (whose float32 atomics add the 9,000-entry hub in any order); the
+last L1 change rtol 1e-5 of the one recomputed from the kernel's own
+scores (`hold` says why); the same bits and steps on a second call (every
+sum has one order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from falkordb_tpu_torch.algos import betweenness as tbc
 from falkordb_tpu_torch.algos import pagerank as tpr
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.sparse.csr import CSR
@@ -173,3 +185,107 @@ def test_pagerank_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="several devices"):
         tpr.pagerank_transposed(mixed)
     assert cuda.KERNELS["pagerank"].launches == 0
+
+
+# -- K7: the Brandes sweep of betweenness --------------------------------------
+
+BC_TOL = dict(rtol=1e-5, atol=1e-6)  # chip_smoke.py's: float32 sums
+
+
+def bc_graph(kind, dev, seed=0):
+    """(forward CSR, its transpose) on the card.  "knows": heavy-tailed
+    out-degrees (Zipf, up to 2,000) and a node of 3,000 in-edges, so rows
+    wider than a warp's lanes come in both directions, plus nodes 0-99
+    with no edge; "random": 100,000 uniform edges over 20,000 nodes;
+    "padded": "random" at 5,000 nodes in a CSR of capacity 777 past nnz."""
+    rng = np.random.default_rng(seed)
+    cap = None
+    if kind == "knows":
+        n = 30_000
+        deg = np.minimum(rng.zipf(1.8, n), 2000)
+        deg[:100] = 0
+        src = np.repeat(np.arange(n), deg)
+        dst = rng.integers(100, n, len(src))
+        dst[rng.random(len(src)) < 3000 / len(src)] = 7
+    else:
+        n, m = (20_000, 100_000) if kind == "random" else (5000, 20_000)
+        src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+        if kind == "padded":
+            cap = m + 777
+    a = CSR.from_coo_numpy(src, dst, None, shape=(n, n), cap=cap,
+                           dedup=False, device=dev)
+    return a, a.transpose()
+
+
+def hold_sweep(a, at, s):
+    """One source: the sweep kernel (one launch) equal bit for bit to the
+    host loop over K7's level kernel, and within BC_TOL of the plain
+    sweep.  Returns the kernel's scores."""
+    before = cuda.KERNELS["bc_sweep"].launches
+    got = tbc.bc_sweeps(a, at, [s])
+    assert cuda.KERNELS["bc_sweep"].launches == before + 1
+    k7 = cuda.KERNELS["bc_push_counts"].launches
+    want = tbc.brandes_sweep_plain(a, at, s, pull=tbc.segment_sum_pull)
+    assert cuda.KERNELS["bc_push_counts"].launches > k7
+    plain = tbc.brandes_sweep_plain(a, at, s)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and got.shape == (a.n_rows,)
+    assert torch.equal(got, want), (s, float((got - want).abs().max()))
+    torch.testing.assert_close(got, plain, **BC_TOL)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["knows", "random", "padded"])
+def test_bc_sweep_matches_the_k7_host_loop(kind, dev):
+    a, at = bc_graph(kind, dev)
+    n = a.n_rows
+    outdeg = np.diff(a.indptr.cpu().numpy())
+    sources = [int(np.argmax(outdeg)), 7, n - 1, int(np.argmin(outdeg))]
+    reached = 0
+    for s in sources:
+        got = hold_sweep(a, at, s)
+        reached += bool((got > 0).any())
+    assert reached >= 2
+
+
+@pytest.mark.cuda
+def test_bc_sweep_edge_cases(dev):
+    a, at = bc_graph("knows", dev)
+    assert not bool(hold_sweep(a, at, 0).any())  # no out-edge: depth 0
+    for loop in (0, 1):  # n = 1, with and without a self-loop
+        one = CSR.from_coo_numpy(np.zeros(loop, np.int64),
+                                 np.zeros(loop, np.int64), None,
+                                 shape=(1, 1), dedup=False, device=dev)
+        assert not bool(hold_sweep(one, one.transpose(), 0).any())
+    src = np.array([0, 0, 1, 3])  # depth 1 from 0, depth 2 from 3
+    dst = np.array([1, 2, 2, 0])
+    small = CSR.from_coo_numpy(src, dst, None, shape=(4, 4), dedup=False,
+                               device=dev)
+    st = small.transpose()
+    assert not bool(hold_sweep(small, st, 0).any())
+    assert float(hold_sweep(small, st, 3)[0]) == 2.0
+    empty = CSR.empty((0, 0), device=dev)
+    assert tbc.bc_sweeps(empty, empty, []).shape == (0,)
+    with pytest.raises(ValueError, match="outside"):
+        tbc.bc_sweeps(small, st, [4])
+
+
+@pytest.mark.cuda
+def test_bc_sweep_same_bits_and_source_order(dev):
+    """8 sources in one call (queued, nothing read between) equal to 8
+    one-source calls added in order, and the same bits on a second call;
+    betweenness() through the sweep is the host loop's, scaled."""
+    a, at = bc_graph("knows", dev, seed=3)
+    sources = np.random.default_rng(7).choice(a.n_rows, 8, replace=False)
+    before = cuda.KERNELS["bc_sweep"].launches
+    got = tbc.bc_sweeps(a, at, sources)
+    assert cuda.KERNELS["bc_sweep"].launches == before + 8
+    assert torch.equal(got, tbc.bc_sweeps(a, at, sources))
+    want = torch.zeros_like(got)
+    for s in sources:
+        want += tbc.bc_sweeps(a, at, [s])
+    assert torch.equal(got, want)
+    scores = tbc.betweenness(a, sampling_size=8, seed=7)
+    assert np.array_equal(scores, got.cpu().numpy() * (a.n_rows / 8.0))
+    assert (scores > 0).any()

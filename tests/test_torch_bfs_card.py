@@ -470,3 +470,79 @@ def test_card_epilogue_bitmap(dev):
         assert torch.equal(fl_k.cpu(), fl_p) and torch.equal(vk.cpu(), vp)
         assert torch.equal(nz.cpu(), nz_p), (W, dtype)
         assert torch.equal(nz_p, tbp.nonzero_rows(fp))
+
+
+# -- K17: the per-lane level unpack -------------------------------------------
+
+
+def k17_inputs(n, k, W, seed, dev, misalign=False):
+    """fresh (n + 3, W) int32 on the card: random words, a row of all 32
+    bits, one of bit 31 alone, a zero row, and 95% of the other rows zero
+    (a late level); int8 levels half UNREACHED8 and half reached (a fresh
+    bit over a reached lane keeps it), and their int32 counterpart.  With
+    `misalign` the levels start one element past a 16-byte boundary."""
+    g = torch.Generator().manual_seed(seed)
+    words = torch.randint(-2**31, 2**31 - 1, (n + 3, W), generator=g,
+                          dtype=torch.int64)
+    words[torch.rand(n + 3, generator=g) < 0.95] = 0
+    if n > 3:
+        words[1], words[2], words[3] = -1, -2**31, 0
+    fresh = words.to(torch.int32).to(dev)
+    lv8 = torch.where(torch.rand(n, k, generator=g) < 0.5,
+                      torch.full((), 127, dtype=torch.int8),
+                      torch.randint(0, 5, (n, k), generator=g,
+                                    dtype=torch.int8))
+    lv32 = torch.where(lv8 == 127, torch.full((), 2**30, dtype=torch.int32),
+                       lv8.to(torch.int32))
+    out = []
+    for lv in (lv8, lv32):
+        if misalign:
+            flat = torch.empty(n * k + 1, dtype=lv.dtype, device=dev)
+            placed = flat[1:].view(n, k)
+            placed.copy_(lv)
+            out.append(placed)
+        else:
+            out.append(lv.to(dev))
+    return fresh, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 33, 64, 2047, 2048])
+@pytest.mark.parametrize("pad_words", [0, 1, 3])
+def test_card_packed_levels(dev, k, pad_words):
+    """K17 against its plain version on the same CUDA tensors, int8 and
+    int32, at widths that end mid-word and mid-run and at whole runs, with
+    fresh W = ceil(k / 32) + pad_words words (16-, 8- and 4-byte loads),
+    rows of fresh past n, depths whose int8 level wraps; one launch a
+    call."""
+    n = 3000 if k < 1024 else 300
+    W = -(-k // 32) + pad_words
+    for depth in (0, 126, 300):
+        fresh, (lv8, lv32) = k17_inputs(n, k, W, k * 7 + pad_words, dev)
+        for lv in (lv8, lv32):
+            want = tbfs.packed_levels_plain(fresh, lv.clone(), depth)
+            before = cuda.KERNELS["packed_levels"].launches
+            got = tbfs.packed_levels(fresh, lv, depth)
+            assert got is lv
+            assert cuda.KERNELS["packed_levels"].launches == before + 1
+            assert torch.equal(got, want), (k, W, depth, lv.dtype)
+
+
+@pytest.mark.cuda
+def test_card_packed_levels_misaligned_and_empty(dev):
+    """Levels that start off a 16-byte boundary take the per-lane path (the
+    same answers); n = 0 and k = 0 launch nothing."""
+    for k in (16, 64, 2048):
+        fresh, lvs = k17_inputs(200, k, k // 32 + 1, k, dev, misalign=True)
+        for lv in lvs:
+            assert lv.data_ptr() % 16 != 0
+            want = tbfs.packed_levels_plain(fresh, lv.clone(), 4)
+            assert torch.equal(tbfs.packed_levels(fresh, lv, 4), want)
+    fresh = torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    for dtype in (torch.int8, torch.int32):
+        for shape in ((0, 33), (5, 0)):
+            lv = torch.zeros(shape, dtype=dtype, device=dev)
+            f = fresh if shape[0] == 0 else torch.ones((5, 1), dtype=torch.int32,
+                                                        device=dev)
+            assert tbfs.packed_levels(f, lv, 0).shape == shape
+    assert cuda.KERNELS["packed_levels"].launches == 6

@@ -421,6 +421,64 @@ def test_packed_levels_plain_matches_reference_unpack(depth):
     np.testing.assert_array_equal(again.numpy(), want8)
 
 
+def k17_case(k, seed, n=40, extra_rows=3):
+    """A K17 input at k lanes: fresh with `extra_rows` rows past n and one
+    word past the lanes, random words with rows of every bit set (-1),
+    only bit 31 set (-2^31) and zero; int8 levels half UNREACHED8 and half
+    reached (0..4), and their int32 counterpart (UNREACHED)."""
+    rng = np.random.default_rng(seed)
+    W = -(-k // 32) + 1
+    words = rng.integers(-2**31, 2**31, (n + extra_rows, W), dtype=np.int64)
+    words[1] = -1
+    words[2] = -2**31
+    words[3] = 0
+    words = words.astype(np.int32)
+    lv8 = np.where(rng.random((n, k)) < 0.5, 127,
+                   rng.integers(0, 5, (n, k))).astype(np.int8)
+    lv32 = np.where(lv8 == 127, 2**30, lv8).astype(np.int32)
+    return words, lv8, lv32
+
+
+def k17_reference(words, lv8, lv32, depth):
+    """falkordb_tpu's updates: _unpack_bits with the int8 update of
+    _make_sorted_level_fn (depth + 1 in int8 arithmetic) and the int32
+    shift-and-mask update of _make_ell_level_fn."""
+    n, k = lv8.shape
+    bits = jbfs._unpack_bits(jnp.asarray(words[:n]), k)
+    want8 = np.asarray(jnp.where((bits > 0) & (jnp.asarray(lv8) == 127),
+                                 jnp.int32(depth).astype(jnp.int8) + 1,
+                                 jnp.asarray(lv8)))
+    lanes = jnp.arange(k, dtype=jnp.int32)
+    w = jnp.take(jnp.asarray(words[:n]), lanes // 32, axis=1)
+    b = jnp.bitwise_and(jnp.right_shift(w, lanes % 32), 1)
+    want32 = np.asarray(jnp.where((b > 0) & (jnp.asarray(lv32) == 2**30),
+                                  depth + 1, jnp.asarray(lv32)))
+    return want8, want32
+
+
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 33, 2047])
+@pytest.mark.parametrize("depth", [0, 126, 254, 300])
+def test_packed_levels_plain_at_every_width(k, depth):
+    """K17's plain version against the reference's updates at widths that
+    end mid-word and mid-run (1, 15, 17, 33, 2047) and on a run (16), fresh
+    rows past n, a row of all 32 bits set, one of bit 31 alone; int8
+    depth + 1 wraps (126 -> 127, the UNREACHED8 value itself; 254 ->
+    -1; 300 -> 45)."""
+    words, lv8, lv32 = k17_case(k, seed=k * 1000 + depth)
+    want8, want32 = k17_reference(words, lv8, lv32, depth)
+    got8 = tbfs.packed_levels(torch.from_numpy(words),
+                              torch.from_numpy(lv8.copy()), depth)
+    got32 = tbfs.packed_levels(torch.from_numpy(words),
+                               torch.from_numpy(lv32.copy()), depth)
+    np.testing.assert_array_equal(got8.numpy(), want8)
+    np.testing.assert_array_equal(got32.numpy(), want32)
+    changed = want32 != lv32  # the all-ones row: every UNREACHED lane
+    np.testing.assert_array_equal(changed[1], lv32[1] == 2**30)
+    if k >= 32:  # bit 31 alone: lane 31, and only where UNREACHED
+        assert changed[2].sum() == (lv32[2, 31] == 2**30)
+    assert not changed[3].any()
+
+
 # -- K18: pagerank_ell --------------------------------------------------------------
 
 

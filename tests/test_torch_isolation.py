@@ -13,7 +13,7 @@ import torch
 
 import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
-from falkordb_tpu_torch.algos.betweenness import segment_sum_pull
+from falkordb_tpu_torch.algos.betweenness import bc_sweeps, segment_sum_pull
 from falkordb_tpu_torch.algos.bfs import (
     bfs_levels, bfs_multi, bfs_multi_stepped, bfs_parents, multi_bfs_level,
     multi_bfs_state, packed_levels,
@@ -175,6 +175,8 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
     sssp_run(at, 0)
     segment_sum_pull(at, torch.ones(3), "bc_push_counts")
     segment_sum_pull(at, torch.ones(3), "bc_pull_deps")
+    bc = bc_sweeps(at, at.transpose_host(), [0, 2, 1])
+    assert bc.dtype == torch.float64 and bc.device.type == "cpu"
     bfs_parents(at, 0)
     one = torch.tensor([1], dtype=torch.int64)
     visited, frontier = packed_seed(2, 1, torch.int16, 0, True, one, one)
@@ -235,7 +237,8 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == {
         "expand": 0, "group_partials": 0, "topk": 0, "bfs_levels": 0,
         "pagerank": 0, "wcc": 0, "sssp": 0, "bc_push_counts": 0,
-        "bc_pull_deps": 0, "bfs_parents": 0, "packed_chunk_reach": 0,
+        "bc_pull_deps": 0, "bc_sweep": 0, "bfs_parents": 0,
+        "packed_chunk_reach": 0,
         "packed_sparse_reach": 0, "packed_epilogue": 0, "packed_seed": 0,
         "packed_counts": 0, "kmeans_assign": 0, "kmeans_update": 0,
         "vector_scores": 0, "multi_bfs": 0, "packed_levels": 0,
@@ -256,11 +259,15 @@ def test_wrappers_refuse_other_devices():
     at = CSR.from_coo_numpy([0, 1], [1, 2], None, shape=(3, 3), dedup=False)
     with pytest.raises(ValueError, match="several devices"):
         segment_sum_pull(at, torch.ones(3, device="meta"), "bc_pull_deps")
+    with pytest.raises(ValueError, match="several devices"):
+        bc_sweeps(at, at.to("meta"), [0])
     meta = CSR(*(torch.zeros(k, dtype=torch.int32, device="meta")
                  for k in (4, 8, 8)), None,
                torch.zeros((), dtype=torch.int32, device="meta"), 3, 3)
     with pytest.raises(ValueError, match="no kernel for device"):
         multi_bfs_level(meta, multi_bfs_state(meta, 2), seeds=[0, 1])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        bc_sweeps(meta, meta, [0, 1])
     with pytest.raises(ValueError, match="no kernel for device"):
         packed_levels(torch.zeros((3, 1), dtype=torch.int32, device="meta"),
                       torch.zeros((2, 5), dtype=torch.int8, device="meta"), 0)
