@@ -1,5 +1,5 @@
-"""Time chip_smoke.py's K2, K3, K5, K13-K15, K18-K21, K24, K26, K27 and K30
-rows from one checkout of the repo, so that two trees can be compared on one
+"""Time chip_smoke.py's K2, K3, K5, K6, K13-K15, K18-K21, K24, K26, K27 and
+K30 rows from one checkout of the repo, so that two trees can be compared on one
 card in one call.
 
     python3 bench_port_compare.py                    # this checkout
@@ -17,6 +17,7 @@ card in one call.
     python3 bench_port_compare.py --rows queries     # path g's read mix
     python3 bench_port_compare.py --rows levels      # K17
     python3 bench_port_compare.py --rows bc          # K7 (betweenness)
+    python3 bench_port_compare.py --rows fixpoint    # K6 (WCC, SSSP)
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -50,11 +51,14 @@ SIFT1M-shaped mixture (1,000,000 x 128, 2,000 lists; `mixture`): K13 on
 the constructed ties, on the initial centroids and after one update, K14,
 and K15 on the centroids, one query's probed lists and an exact store, for
 both metrics, each against its plain version and one PyTorch call
-(`torch.mm`, `torch.mv`; TF32 off).  Then K13 on a GloVe-100-shaped
-mixture (1,183,514 x 100, 2,175 lists, rows normalised as the cosine index
-stores them) against `torch.mm`; one `device {...}` line per K13 and K15
-call; and one `ptxas {...}` line per kernel function of
-csrc/kmeans_assign.cu and csrc/vector_scores.cu: its registers, shared
+(`torch.mm`, `torch.mv`, `index_add_`; TF32 off).  Then K13 on a
+GloVe-100-shaped mixture (1,183,514 x 100, 2,175 lists, rows normalised as
+the cosine index stores them) against `torch.mm`, and K14 on its
+assignment against `index_add_`; one `device {...}` line per K13, K14 and
+K15 call (K14's with the CUDA API calls of one call: a tree that sorts in
+the wrapper shows the sort's kernels beside its own); and one `ptxas
+{...}` line per kernel function of csrc/kmeans_assign.cu,
+csrc/kmeans_update.cu and csrc/vector_scores.cu: its registers, shared
 memory and spills from the build's ptxas report.
 
 The mesh rows are DIR/chip_smoke.py's `check_shard_reduce` (K24 over shard
@@ -171,6 +175,22 @@ word); then `bfs_multi_ell_sorted` fused and stepped on the host clock (3
 runs each) with a `device` line each, and the ptxas report of
 csrc/packed_levels.cu.
 
+The fixpoint rows are K6 at DIR/chip_smoke.py's `check_pull_min` shapes:
+WCC over Person / KNOWS symmetrised and SSSP over the whole SF1-class
+graph's KNOWS transpose weighted by `since` from the first Person (built
+once by the root's generator, loader and compact_adjacency and cached
+under this checkout's .bench_cache/port/), each held to its plain version
+(equal bits, equal steps) and to a second call's bits: a `compare` row
+(ms in CUDA events; bound_ms the bytes the data needs and jacobi_bound_ms
+the full pass of every step, as chip_smoke.py counts them), a `device`
+line (device ms by kernel, the CUDA API calls of one call), a `host` line
+(µs a call on the host clock), a `steps` line (the rows that changed in
+each step, from the plain loop) and the ptxas report of csrc/pull_min.cu;
+then `CALL algo.WCC` over Person / KNOWS and `CALL algo.SSSP` from the
+first Person through the root's database on the card over the SF1-class
+graph (a `query` line each: its first run and FIXPOINT_QUERY_RUNS more on
+the host clock, the rows and a digest of them).
+
 The bc rows are `betweenness(comp.csr, sampling_size=8, seed=7)` over the
 SF1-class Person / KNOWS CSR (the forward CSR made from the pagerank rows'
 cached transpose): a `bc {...}` line with its first call and 3 more on
@@ -207,12 +227,12 @@ def main(argv=None):
     ap.add_argument("--rows", default=["all"], nargs="+",
                     choices=("all", "graph", "vector", "mesh", "probes",
                              "pagerank", "agg", "bfs", "expand", "reach",
-                             "queries", "levels", "bc"),
+                             "queries", "levels", "bc", "fixpoint"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
                          "K24 and K26; probes: K30's reps-1 forms and K27's "
                          "double; pagerank: K5; agg: K2; bfs: K16; expand: "
                          "K23; reach: K9; queries: path g's forced LDBC "
-                         "read mix; levels: K17; bc: K7")
+                         "read mix; levels: K17; bc: K7; fixpoint: K6")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -260,6 +280,8 @@ def main(argv=None):
         levels_rows(smoke, root, args.scale, dev)
     if {"all", "bc"} & set(args.rows):
         bc_rows(smoke, root, dev)
+    if {"all", "fixpoint"} & set(args.rows):
+        fixpoint_rows(smoke, root, dev)
     return 0
 
 
@@ -1147,7 +1169,7 @@ class VectorBench:
     shapes, K13 at GloVe-100's, the device ms by kernel of each K13 and K15
     call, and the two kernels' ptxas reports."""
 
-    SOURCES = ("kmeans_assign.cu", "vector_scores.cu")
+    SOURCES = ("kmeans_assign.cu", "kmeans_update.cu", "vector_scores.cu")
 
     def __init__(self, smoke, root, dev):
         self.smoke, self.root, self.dev = smoke, root, dev
@@ -1207,11 +1229,17 @@ class VectorBench:
                      Gm, qm, m, *sel)),
                 (f"vector_scores {metric} exact store",
                  lambda Em=Em, qm=qm, m=metric: vi.vector_scores(Em, qm, m))]
+        calls.append(("kmeans_update sift-128 after one update",
+                      lambda: vi.kmeans_update(Xd, a1, nlist)))
         for what, fn in calls:
-            device_line(smoke, root, what, fn)
+            device_line(smoke, root, what, fn,
+                        **({"host_api": api_counts(fn)}
+                           if what.startswith("kmeans_update") else {}))
 
     def glove_row(self):
-        """K13 at GloVe-100's shape on its initial centroids."""
+        """K13 at GloVe-100's shape on its initial centroids, then K14 on
+        that assignment (against its plain version and index_add_, twice
+        bit for bit)."""
         import numpy as np
         import torch
         from falkordb_tpu_torch.index import vector_index as vi
@@ -1239,6 +1267,28 @@ class VectorBench:
         compare_line(self.root, r)
         device_line(smoke, self.root, "kmeans_assign glove-100",
                     lambda: vi.kmeans_assign(Xd, C))
+        uk = vi.kmeans_update(Xd, ak, nlist)
+        up = vi.kmeans_update_plain(Xd, ak, nlist)
+        again = vi.kmeans_update(Xd, ak, nlist)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(uk, up, rtol=1e-4, atol=1e-5)
+        same = bool(torch.equal(uk.view(torch.int32),
+                                again.view(torch.int32)))
+        empty = nlist - int(torch.unique(ak).numel())
+        compare_line(self.root, {
+            "name": "kmeans_update", "shape": f"glove-100 initial centroids: "
+            f"n={g.n} d={g.d} nlist={nlist} empty={empty} same bits twice="
+            f"{same}",
+            "ms": smoke.cuda_ms(lambda: vi.kmeans_update(Xd, ak, nlist)),
+            "plain_ms": smoke.cuda_ms(
+                lambda: vi.kmeans_update_plain(Xd, ak, nlist)),
+            "library_ms": smoke.cuda_ms(lambda: torch.zeros(
+                nlist, g.d, device=dev).index_add_(0, ak, Xd)),
+            "bound_ms": smoke.bound_ms(4 * g.n * g.d + 8 * g.n +
+                                       4 * nlist * g.d)})
+        fn = lambda: vi.kmeans_update(Xd, ak, nlist)  # noqa: E731
+        device_line(smoke, self.root, "kmeans_update glove-100", fn,
+                    host_api=api_counts(fn))
 
     def ptxas(self):
         ptxas(self.smoke, self.root, self.SOURCES)
@@ -1966,6 +2016,185 @@ def bc_query(smoke, root):
         "root": root, "query": "algo_betweenness", "first_ms": ms[0],
         "ms": ms[1:], "rows": len(rows),
         "score_sum": float(sum(r[1] for r in rows))}), flush=True)
+
+
+
+# -- K6: the pull-min fixpoints behind algo.wcc and algo.sssp ----------------
+
+FIXPOINT_QUERY_RUNS = 2
+FIXPOINT_QUERIES = (
+    ("algo_wcc", "CALL algo.WCC({nodeLabels: ['Person'], relationshipTypes: "
+     "['KNOWS']}) YIELD node, componentId RETURN node.id, componentId"),
+    ("algo_sssp", "MATCH (p:Person {id: $id}) CALL algo.SSSP({sourceNode: p, "
+     "relationshipTypes: ['KNOWS'], weightAttribute: 'since'}) YIELD node, "
+     "distance RETURN node.id, distance"))
+
+
+def fixpoint_csrs(smoke, dev):
+    """check_pull_min's two CSRs at P = 430,000, built once by the root's
+    generator, loader and compact_adjacency and cached under this
+    checkout's .bench_cache/port/: [(name, what, CSR on dev, source)] for
+    WCC (Person / KNOWS symmetrised) and SSSP (the whole graph's KNOWS
+    transpose weighted by `since`, from the first Person)."""
+    import numpy as np
+    from falkordb_tpu_torch.sparse.csr import CSR
+
+    path = os.path.join(CACHE, f"k6_ldbc_{smoke.SF1_PERSONS}.npz")
+    if not os.path.exists(path):
+        from falkordb_tpu_torch.algos.common import compact_adjacency
+        t = smoke.gen_dataset(smoke.SF1_PERSONS,
+                              np.random.default_rng(smoke.SEED))
+        db = smoke.FalkorDB(device="cpu")
+        smoke.load_ldbc(db.select_graph("ldbc"), t)
+        store = db._get_or_create("ldbc").store
+        sym = compact_adjacency(store, "Person", ["KNOWS"],
+                                directed=False).csr
+        comp = compact_adjacency(store, None, ["KNOWS"], directed=True,
+                                 weight_attr="since")
+        arrays = {"src1": np.int64(comp.remap[0])}
+        for i, c in enumerate((sym, comp.at)):
+            for f in ("indptr", "rows", "cols"):
+                arrays[f"{f}{i}"] = getattr(c, f).cpu().numpy()
+            arrays[f"nnz{i}"] = np.int64(int(c.nnz))
+        arrays["vals1"] = comp.at.vals.cpu().numpy()
+        os.makedirs(CACHE, exist_ok=True)
+        np.savez(path + ".tmp.npz", **arrays)
+        os.replace(path + ".tmp.npz", path)
+    z = np.load(path)
+    out = []
+    for i, (name, what) in enumerate((
+            ("wcc", "Person/KNOWS sym"), ("sssp", "KNOWS by since"))):
+        n = len(z[f"indptr{i}"]) - 1
+        csr = CSR.from_host(z[f"indptr{i}"], z[f"rows{i}"], z[f"cols{i}"],
+                            z["vals1"] if i else None, int(z[f"nnz{i}"]),
+                            (n, n), device=dev)
+        out.append((name, what, csr, int(z["src1"]) if i else -1))
+    return out
+
+
+def fixpoint_profile(csr, src):
+    """K6's work step by step from a plain Jacobi loop on the CSR's device
+    (WCC when src < 0, else SSSP from src): (rows changed in each step,
+    bytes the data needs, the full pass's bytes).  The data needs 4 B a row
+    at init, then in each step, for every source that changed in the step
+    before (every node before step 1 for WCC, the source for SSSP), its
+    out-edges (4 B a column, 8 B with a weight) and its value (4 B), and 8
+    B for every row that changes; the full pass of every step is 4 nnz +
+    12 n bytes for WCC, 8 nnz + 12 n for SSSP."""
+    import torch
+
+    n, nnz = csr.n_rows, int(csr.nnz)
+    dev = csr.cols.device
+    cols = csr.cols[:nnz].to(torch.int64).clamp(0, max(n - 1, 0))
+    rows = csr.rows[:nnz].to(torch.int64)
+    outdeg = torch.bincount(cols, minlength=n)
+    wcc = src < 0
+    per_edge = 4 if wcc else 8
+    if wcc:
+        x = torch.arange(n, dtype=torch.int32, device=dev)
+        w = None
+        changed = torch.ones(n, dtype=torch.bool, device=dev)
+    else:
+        x = torch.full((n,), float("inf"), device=dev)
+        x[src] = 0.0
+        w = (csr.vals[:nnz].float() if csr.vals is not None
+             else torch.ones(nnz, device=dev))
+        changed = torch.zeros(n, dtype=torch.bool, device=dev)
+        changed[src] = True
+    need, per_step = 4 * n, []
+    while True:
+        g = x[cols] if wcc else x[cols] + w
+        best = torch.full_like(x, torch.iinfo(torch.int32).max if wcc
+                               else float("inf")).scatter_reduce_(
+            0, rows, g, "amin")
+        new = torch.minimum(x, best)
+        now = new < x
+        need += int((outdeg[changed] * per_edge + 4).sum()) + 8 * int(
+            now.sum())
+        per_step.append(int(now.sum()))
+        x, changed = new, now
+        if not bool(now.any()):
+            break
+    full = len(per_step) * (per_edge * nnz + 12 * n)
+    return per_step, need, full
+
+
+def fixpoint_rows(smoke, root, dev):
+    """K6 at check_pull_min's shapes from the root's package, then
+    algo.WCC and algo.SSSP through the root's database (see the module
+    docstring)."""
+    import torch
+
+    ptxas(smoke, root, ("pull_min.cu",))
+    twcc = importlib.import_module("falkordb_tpu_torch.algos.wcc")
+    tsssp = importlib.import_module("falkordb_tpu_torch.algos.sssp")
+    for name, what, csr, src in fixpoint_csrs(smoke, dev):
+        n, nnz = csr.n_rows, int(csr.nnz)
+        if name == "wcc":
+            def run(csr=csr):
+                return twcc.wcc_run(csr)
+
+            def plain(csr=csr):
+                return twcc.wcc_plain(csr.indptr, csr.rows, csr.cols,
+                                      csr.nnz, n)
+        else:
+            def run(csr=csr, src=src):
+                return tsssp.sssp_run(csr, src)
+
+            def plain(csr=csr, src=src):
+                return tsssp.sssp_plain(csr.indptr, csr.rows, csr.cols,
+                                        csr.vals, csr.nnz, n, src)
+        got, steps = run()
+        again = run()
+        want, psteps = plain()
+        torch.cuda.synchronize()
+        assert steps == psteps and torch.equal(got, want), \
+            f"{name}: {steps} steps, plain {psteps}"
+        same = again[1] == steps and torch.equal(again[0], got)
+        per_step, need, full = fixpoint_profile(csr, src)
+        assert len(per_step) == steps, (per_step, steps)
+        compare_line(root, {
+            "name": name, "shape": f"{what} n={n} nnz={nnz} iters={steps} "
+            f"same bits twice={same}", "ms": smoke.cuda_ms(run),
+            "plain_ms": smoke.cuda_ms(plain), "library_ms": None,
+            "bound_ms": smoke.bound_ms(need)})
+        print("steps " + json.dumps({
+            "root": root, "name": name, "changed_rows": per_step,
+            "bound_ms": smoke.bound_ms(need),
+            "jacobi_bound_ms": smoke.bound_ms(full)}), flush=True)
+        device_line(smoke, root, f"{name} {what}", run, steps=steps,
+                    host_api=api_counts(run))
+        print("host " + json.dumps({"root": root, "call": name,
+                                    "us": host_us(run, calls=50)}),
+              flush=True)
+    fixpoint_queries(smoke, root)
+
+
+def fixpoint_queries(smoke, root):
+    """algo.WCC and algo.SSSP as chip_smoke.py's algorithm mix runs them,
+    through the root's database on the card over the SF1-class graph."""
+    import time
+
+    import numpy as np
+    import torch
+
+    t = smoke.gen_dataset(smoke.SF1_PERSONS,
+                          np.random.default_rng(smoke.SEED))
+    db = smoke.FalkorDB()
+    smoke.load_ldbc(db.select_graph("ldbc"), t)
+    g = db.select_graph("ldbc")
+    for name, cypher in FIXPOINT_QUERIES:
+        params = {"id": int(t["person_id"][0])} if "$id" in cypher else {}
+        ms = []
+        for _ in range(FIXPOINT_QUERY_RUNS + 1):
+            t0 = time.perf_counter()
+            rows = g.query(cypher, params).result_set
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print("query " + json.dumps({
+            "root": root, "query": name, "first_ms": ms[0], "ms": ms[1:],
+            "rows": len(rows),
+            "digest": float(sum(float(r[1]) for r in rows))}), flush=True)
 
 
 if __name__ == "__main__":

@@ -726,7 +726,10 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "topk": "exact", "bfs_levels": "exact",
     "pagerank": "same steps; scores rtol 1e-5 atol 1e-9 (float32 sums in "
                 "other orders); the same bits and steps on a second call",
-    "wcc": "exact", "sssp": "exact, inf as inf",
+    "wcc": "exact, the plain version's steps; the same bits on a second "
+           "call",
+    "sssp": "exact, inf as inf, the plain version's steps; the same bits on "
+            "a second call",
     "bc_push_counts": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
     "bc_pull_deps": "rtol 1e-5 atol 1e-6 (float32 sums in other orders)",
     "bc_sweep": "exact against the host level loop over K7's level kernel "
@@ -962,33 +965,49 @@ def check_pagerank(store, dev):
 def check_pull_min(store, dev):
     """K6 in both forms at the shapes algo.WCC and algo.SSSP build: WCC over
     Person / KNOWS symmetrised, SSSP over KNOWS weighted by `since` from the
-    first Person.  Exact."""
+    first Person.  Exact, with the plain version's steps.  bound_ms counts
+    the bytes the data needs (`bench_port_compare.fixpoint_profile`: the
+    changed sources' out-edges and values, the changed rows), and
+    jacobi_bound_ms the full pass of every step; each row lists the rows
+    that changed in each step."""
     sym = compact_adjacency(store, "Person", ["KNOWS"], directed=False).csr
-    n, nnz = sym.n_rows, int(sym.nnz)
-    plain = (sym.indptr, sym.rows, sym.cols, sym.nnz, n)
-    lk, ik = wcc_run(sym)
-    lp, ip = wcc_plain(*plain)
-    torch.cuda.synchronize()
-    assert ik == ip and torch.equal(lk, lp), f"wcc: {ik} steps, plain {ip}"
-    wcc_rows = [_row("wcc", f"Person/KNOWS sym n={n} nnz={nnz} iters={ik}",
-                     cuda_ms(lambda: wcc_run(sym)),
-                     cuda_ms(lambda: wcc_plain(*plain)), None,
-                     ik * (4 * nnz + 12 * n), 0.0)]
     comp = compact_adjacency(store, None, ["KNOWS"], directed=True,
                              weight_attr="since")
-    at, src = comp.at, comp.remap[0]  # the first Person
-    n, nnz = at.n_rows, int(at.nnz)
-    plain = (at.indptr, at.rows, at.cols, at.vals, at.nnz, n, src)
-    dk, ik = sssp_run(at, src)
-    dp, ip = sssp_plain(*plain)
-    torch.cuda.synchronize()
-    assert ik == ip and torch.equal(dk, dp), f"sssp: {ik} steps, plain {ip}"
-    reached = int(torch.isfinite(dk).sum())
-    sssp_rows = [_row("sssp", f"KNOWS by since n={n} nnz={nnz} iters={ik} "
-                      f"reached={reached}", cuda_ms(lambda: sssp_run(at, src)),
-                      cuda_ms(lambda: sssp_plain(*plain)), None,
-                      ik * (8 * nnz + 12 * n), 0.0)]
-    return wcc_rows, sssp_rows
+    out = []
+    for name, what, csr, src in (("wcc", "Person/KNOWS sym", sym, -1),
+                                 ("sssp", "KNOWS by since", comp.at,
+                                  comp.remap[0])):  # the first Person
+        n, nnz = csr.n_rows, int(csr.nnz)
+        if name == "wcc":
+            def run(csr=csr):
+                return wcc_run(csr)
+
+            def plain(csr=csr, n=n):
+                return wcc_plain(csr.indptr, csr.rows, csr.cols, csr.nnz, n)
+        else:
+            def run(csr=csr, src=src):
+                return sssp_run(csr, src)
+
+            def plain(csr=csr, n=n, src=src):
+                return sssp_plain(csr.indptr, csr.rows, csr.cols, csr.vals,
+                                  csr.nnz, n, src)
+        got, ik = run()
+        want, ip = plain()
+        again = run()
+        torch.cuda.synchronize()
+        assert ik == ip and torch.equal(got, want), \
+            f"{name}: {ik} steps, plain {ip}"
+        assert again[1] == ik and torch.equal(again[0], got), \
+            f"{name}: a second call differs"
+        per_step, need, full = bench_port_compare.fixpoint_profile(csr, src)
+        assert len(per_step) == ik, (name, per_step, ik)
+        extra = ({} if name == "wcc" else
+                 {"reached": int(torch.isfinite(got).sum())})
+        out.append([_row(name, f"{what} n={n} nnz={nnz} iters={ik}",
+                         cuda_ms(run), cuda_ms(plain), None, need, 0.0,
+                         jacobi_bound_ms=bound_ms(full),
+                         changed_rows=per_step, **extra)])
+    return out
 
 
 def check_segment_sum_pull(store, dev):
@@ -2507,6 +2526,37 @@ def check_vector_kernels(X, dev, rng):
     return rows
 
 
+def check_update_glove(cfg, dev):
+    """K14 at GloVe-100's shape (the mixture of ann_path's GloVe index,
+    rows normalised as the cosine index stores them) on K13's assignment
+    to its initial centroids, against its plain version and index_add_,
+    twice bit for bit."""
+    X, _ = mixture(cfg.n, cfg.d, np.random.default_rng(SEED + 7))
+    Xd = torch.from_numpy(X).to(dev)
+    del X
+    Xd /= Xd.norm(dim=1, keepdim=True)
+    n, d = Xd.shape
+    nlist = ann_nlist(n)
+    C = Xd[torch.from_numpy(np.random.default_rng(3).choice(
+        n, size=nlist, replace=False)).to(dev)].contiguous()
+    a = kmeans_assign(Xd, C)
+    uk = kmeans_update(Xd, a, nlist)
+    up = kmeans_update_plain(Xd, a, nlist)
+    again = kmeans_update(Xd, a, nlist)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(uk, up, rtol=1e-4, atol=1e-5)
+    assert torch.equal(uk.view(torch.int32), again.view(torch.int32)), \
+        "kmeans_update glove: two runs differ"
+    return [_row(
+        "kmeans_update", f"{cfg.name} initial centroids: n={n} d={d} "
+        f"nlist={nlist} empty={nlist - int(torch.unique(a).numel())}",
+        cuda_ms(lambda: kmeans_update(Xd, a, nlist)),
+        cuda_ms(lambda: kmeans_update_plain(Xd, a, nlist)),
+        cuda_ms(lambda: torch.zeros(nlist, d, device=dev).index_add_(
+            0, a, Xd)), 4 * n * d + 8 * n + 4 * nlist * d,
+        _max_err(uk, up), flops=n * d, bit_identical_runs=True)]
+
+
 @contextlib.contextmanager
 def plain_scores():
     """The vector index scores with K15's plain version for the block."""
@@ -3487,6 +3537,7 @@ def main(argv=None):
           f"gen_s={time.perf_counter() - t0:.1f}", flush=True)
     results.update(check_vector_kernels(sift_X, dev,
                                         np.random.default_rng(SEED + 5)))
+    results["kmeans_update"] += check_update_glove(glove, dev)
     t0 = time.perf_counter()
     results["shard_expand"] = check_shard_expand(store, dev)
     results["shard_reduce"] = check_shard_reduce(rmat_edges, prep.n, dev)
@@ -3602,7 +3653,8 @@ def main(argv=None):
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            **{k: r[k] for k in ("jacobi_bound_ms",) if k in r}})
     with open_out("chip_smoke.json") as f:
         json.dump({"nvidia_smi": smi.stdout.strip(), "persons": args.persons,
                    "rmat_scale": args.rmat_scale, "kernel_rows": results,

@@ -2,51 +2,51 @@
 fixpoint (the reference's algo.SPpaths Dijkstra role for non-negative
 weights).  falkordb_tpu runs it as a jitted while_loop
 (algos/sssp.py:_sssp_jit); here CUDA tensors launch the float32 min-plus
-form of csrc/pull_min.cu (kernel K6) and CPU tensors run `sssp_plain`."""
+form of csrc/pull_min.cu (kernel K6: one persistent cooperative launch a
+call over the plan of algos/pull_min.py, cached on the transpose) and CPU
+tensors run `sssp_plain`."""
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from falkordb_tpu_torch.algos import pull_min
 from falkordb_tpu_torch.native import cuda as _cuda
 from falkordb_tpu_torch.sparse.csr import CSR
+
+_SSSP = _cuda.Entry("fk_sssp", "sssp")
 
 
 def sssp(a_csr: CSR, src: int) -> torch.Tensor:
     """Distances from src over the FORWARD adjacency (vals = float32
     weights, or None for unit weights), as an (n,) float32 tensor on its
-    device: +inf where unreached, and everywhere when src < 0."""
+    device: +inf where unreached, and everywhere when src < 0.  The
+    transpose is made once and cached on a_csr (`CSR.transpose()`), and
+    K6's plan on the transpose."""
     if src < 0:
         return torch.full((a_csr.n_rows,), float("inf"), dtype=torch.float32,
                           device=a_csr.device)
-    return sssp_run(a_csr.transpose_host(), src)[0]
+    return sssp_run(a_csr.transpose(), src)[0]
 
 
 def sssp_run(at: CSR, src: int):
     """(dist, Jacobi steps run) over the TRANSPOSE adjacency (rows =
     destinations); 0 <= src < n."""
     n = at.n_rows
-    w = at.vals
-    if not _cuda.on_cuda(at.indptr, at.cols, w, at.nnz):
-        return sssp_plain(at.indptr, at.rows, at.cols, w, at.nnz, n, src)
-    _cuda.check_input("sssp", "indptr", at.indptr, torch.int32, n + 1)
-    _cuda.check_input("sssp", "cols", at.cols, torch.int32)
-    _cuda.check_input("sssp", "vals", w, torch.float32, at.cols.numel())
-    dev = at.device
-    a = torch.empty(n, dtype=torch.float32, device=dev)
-    b = torch.empty(n, dtype=torch.float32, device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
-    iters, in_b = ctypes.c_int64(0), ctypes.c_int32(0)
-    p = _cuda.ptr
-    rc = _cuda.lib().fk_sssp(p(at.indptr), p(at.cols), p(w), p(at.nnz), n,
-                             int(src), p(a), p(b), p(flag),
-                             ctypes.byref(iters), ctypes.byref(in_b),
-                             _cuda.stream_ptr(a))
-    _cuda.check(rc, "sssp")
-    _cuda.count_launch("sssp")
-    return (b if in_b.value else a), int(iters.value)
+    indptr, rows, cols, w, nnz = at.indptr, at.rows, at.cols, at.vals, at.nnz
+    if not _cuda.on_card(cols, rows, w, nnz, indptr):
+        return sssp_plain(indptr, rows, cols, w, nnz, n, src)
+    pull_min.check_csr("sssp", at)
+    if w is not None and (w.dtype != torch.float32 or w.dim() != 1 or
+                          not w.is_contiguous() or
+                          w.numel() != cols.numel()):
+        raise _cuda.input_error("sssp", "vals", w, torch.float32,
+                                cols.numel())
+    if n == 0:  # no node: no step runs
+        return torch.empty(0, dtype=torch.float32, device=cols.device), 0
+    return pull_min.launch(_SSSP, at, torch.float32, indptr.data_ptr(),
+                           rows.data_ptr(), cols.data_ptr(), _cuda.ptr(w),
+                           nnz.data_ptr(), n, int(src))
 
 
 def sssp_plain(indptr, rows, cols, vals, nnz, n: int, src: int):

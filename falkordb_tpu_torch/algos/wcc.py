@@ -3,18 +3,21 @@
 Min-label propagation to the fixpoint over the symmetrised CSR from
 compact_adjacency(directed=False).  falkordb_tpu runs it as a jitted
 while_loop (algos/wcc.py:_wcc_jit); here CUDA tensors launch the int32 form
-of csrc/pull_min.cu (kernel K6) and CPU tensors run `wcc_plain`."""
+of csrc/pull_min.cu (kernel K6: one persistent cooperative launch a call
+over the plan of algos/pull_min.py, cached on the CSR) and CPU tensors run
+`wcc_plain`."""
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from falkordb_tpu_torch.algos import pull_min
 from falkordb_tpu_torch.native import cuda as _cuda
 from falkordb_tpu_torch.sparse.csr import CSR
 
 BIG = 2**30  # what a padding edge reads in the reference
+
+_WCC = _cuda.Entry("fk_wcc", "wcc")
 
 
 def wcc(sym_csr: CSR) -> torch.Tensor:
@@ -26,24 +29,15 @@ def wcc(sym_csr: CSR) -> torch.Tensor:
 def wcc_run(sym_csr: CSR):
     """(labels, Jacobi steps run); the last step changed nothing."""
     n = sym_csr.n_rows
-    if not _cuda.on_cuda(sym_csr.indptr, sym_csr.cols, sym_csr.nnz):
-        return wcc_plain(sym_csr.indptr, sym_csr.rows, sym_csr.cols,
-                         sym_csr.nnz, n)
-    _cuda.check_input("wcc", "indptr", sym_csr.indptr, torch.int32, n + 1)
-    _cuda.check_input("wcc", "cols", sym_csr.cols, torch.int32)
-    dev = sym_csr.device
-    a = torch.empty(n, dtype=torch.int32, device=dev)
-    b = torch.empty(n, dtype=torch.int32, device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
-    iters, in_b = ctypes.c_int64(0), ctypes.c_int32(0)
-    p = _cuda.ptr
-    rc = _cuda.lib().fk_wcc(p(sym_csr.indptr), p(sym_csr.cols),
-                            p(sym_csr.nnz), n, p(a), p(b), p(flag),
-                            ctypes.byref(iters), ctypes.byref(in_b),
-                            _cuda.stream_ptr(a))
-    _cuda.check(rc, "wcc")
-    _cuda.count_launch("wcc")
-    return (b if in_b.value else a), int(iters.value)
+    indptr, rows, cols, nnz = (sym_csr.indptr, sym_csr.rows, sym_csr.cols,
+                               sym_csr.nnz)
+    if not _cuda.on_card(cols, rows, nnz, indptr):
+        return wcc_plain(indptr, rows, cols, nnz, n)
+    pull_min.check_csr("wcc", sym_csr)
+    if n == 0:  # no node: no step runs
+        return torch.empty(0, dtype=torch.int32, device=cols.device), 0
+    return pull_min.launch(_WCC, sym_csr, torch.int32, indptr.data_ptr(),
+                           rows.data_ptr(), cols.data_ptr(), nnz.data_ptr(), n)
 
 
 def wcc_plain(indptr, rows, cols, nnz, n: int):

@@ -136,11 +136,30 @@ def kmeans_assign_plain(X, C):
     return out
 
 
+_KMEANS_UPDATE = _cuda.Entry("fk_kmeans_update", "kmeans_update")
+_UPDATE_SCRATCH: dict = {}  # CUDA device index -> ((n, nlist, d), scratch)
+
+
+def _update_scratch(dev: int, n: int, nlist: int, d: int) -> torch.Tensor:
+    """K14's scratch for one shape on CUDA device `dev`, made once (zero,
+    as the kernel takes it first) and kept for the next calls of that
+    shape; the kernel leaves the words it needs zero at zero."""
+    hit = _UPDATE_SCRATCH.get(dev)
+    if hit is None or hit[0] != (n, nlist, d):
+        with torch.cuda.device(dev):
+            words = _cuda.lib().fk_kmeans_update_scratch(n, nlist, d)
+        hit = _UPDATE_SCRATCH[dev] = ((n, nlist, d), torch.zeros(
+            words, dtype=torch.int32, device=torch.device("cuda", dev)))
+    return hit[1]
+
+
 def kmeans_update(X, assign, nlist: int):
     """Each cluster's mean row (kernel K14, csrc/kmeans_update.cu; replaces
     the one-hot update in falkordb_tpu's _kmeans): C'[c] = the sum of the
     rows assigned to c / max(count_c, 1), the zero row for an empty
-    cluster.  Deterministic: the same inputs give the same bits.
+    cluster.  Deterministic: the same inputs give the same bits.  On the
+    card one cooperative launch a call sorts the rows by cluster (a
+    counting sort) and sums them in a fixed order.
 
     X (n, d) contiguous float32, assign (n,) int64 in [0, nlist), on one
     device.  Returns (nlist, d) float32.  CPU tensors run
@@ -148,17 +167,14 @@ def kmeans_update(X, assign, nlist: int):
     _check_matrix("kmeans_update", "X", X)
     n, d = X.shape
     _cuda.check_input("kmeans_update", "assign", assign, torch.int64, n)
-    if not _cuda.on_cuda(X, assign):
+    if not _cuda.on_card(X, assign):
         return kmeans_update_plain(X, assign, nlist)
     C = torch.empty(nlist, d, dtype=torch.float32, device=X.device)
     if nlist and d:
-        # each cluster's rows as one run of `order`, in row order
-        keys, order = torch.sort(assign, stable=True)
-        p = _cuda.ptr
-        rc = _cuda.lib().fk_kmeans_update(p(X), p(keys), p(order), n, nlist,
-                                          d, p(C), _cuda.stream_ptr(X))
-        _cuda.check(rc, "kmeans_update")
-        _cuda.count_launch("kmeans_update")
+        dev = X.get_device()
+        scratch = _update_scratch(dev, n, nlist, d)
+        _KMEANS_UPDATE.launch(dev, X.data_ptr(), assign.data_ptr(), n, nlist,
+                              d, scratch.data_ptr(), C.data_ptr())
     return C
 
 

@@ -17,11 +17,12 @@ The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
 kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
-one.  K2, K5, K7's sweep, K9's level form, K16, K17, K23, K24, K26, K27's
-`double` and K30 take it; the other wrappers still take `on_cuda`,
-`check_input` and a `lib()` lookup a call.
-K5, K7's sweep and K16, persistent cooperative launches, keep their grid
-barrier's words and their result's pinned staging per card (`control`).
+one.  K2, K5, K6, K7's sweep, K9's level form, K14, K16, K17, K23, K24,
+K26, K27's `double` and K30 take it; the other wrappers still take
+`on_cuda`, `check_input` and a `lib()` lookup a call.
+K5, K6, K7's sweep and K16, persistent cooperative launches, keep their
+grid barrier's words and their result's pinned staging per card
+(`control`).
 """
 
 from __future__ import annotations
@@ -156,9 +157,11 @@ _SIGNATURES = {
     "fk_pagerank": [_P, _P, _P, _I64, _F32, _F32, _I64, _F32, _F32, _P, _I64,
                     _P, _I64, _I64, _P, _P, _P, _P, _I64, _P, _P, _OUT_I64,
                     ctypes.POINTER(ctypes.c_float), _OUT_I32, _P],
-    "fk_wcc": [_P, _P, _P, _I64, _P, _P, _P, _OUT_I64, _OUT_I32, _P],
-    "fk_sssp": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _OUT_I32,
-                _P],
+    "fk_pull_min_control_bytes": [],
+    "fk_wcc": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _P,
+               _P, _P, _P, _P, _OUT_I64, _OUT_I32, _P],
+    "fk_sssp": [_P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P, _P,
+                _I64, _P, _P, _P, _P, _P, _OUT_I64, _OUT_I32, _P],
     "fk_segment_sum_pull": [_P, _P, _P, _I64, _P, _P, _P],
     "fk_bc_sweep_control_bytes": [],
     "fk_bc_sweep": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
@@ -174,7 +177,8 @@ _SIGNATURES = {
     "fk_packed_counts": [_P, _I64, _I64, _I64, _P, _P, _P, _P],
     "fk_kmeans_assign": [_P, _P, _I64, _I64, _I64, _P, _P, _P],
     "fk_kmeans_assign_scratch": [_I64, _I64],
-    "fk_kmeans_update": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
+    "fk_kmeans_update_scratch": [_I64, _I64, _I64],
+    "fk_kmeans_update": [_P, _P, _I64, _I64, _I64, _P, _P, _P],
     "fk_vector_scores": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _P, _P],
     "fk_multi_bfs_control_bytes": [],
     "fk_multi_bfs": [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _P, _I64, _P,
@@ -223,7 +227,9 @@ _SIGNATURES = {
 }
 
 _RESTYPES = {"fk_kmeans_assign_scratch": _I64,
+             "fk_kmeans_update_scratch": _I64,
              "fk_pagerank_control_bytes": _I64,
+             "fk_pull_min_control_bytes": _I64,
              "fk_multi_bfs_control_bytes": _I64,
              "fk_bc_sweep_control_bytes": _I64,
              "fk_mesh_scratch_bytes": _I64}  # the rest return an error

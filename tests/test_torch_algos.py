@@ -199,41 +199,375 @@ def test_pagerank_plan_matches_a_walk():
 
 # -- K6 WCC and SSSP ----------------------------------------------------------
 
+# K6's own cases beside KINDS: multi-edges, a capacity past nnz, columns
+# outside [0, n) (the clip gather), a row wider than a K6 item (cut into
+# segments) and a graph whose rows mostly have no in-edge (SSSP's
+# whole-graph shape)
+K6_KINDS = ["multi", "capped", "clip", "wide", "sparse"]
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_wcc_matches_jax(rng, kind):
-    src, dst, n = _graph(kind, rng)
-    s2, d2 = np.concatenate([src, dst]), np.concatenate([dst, src])
-    jc, tc = _both(s2, d2, n)
-    j = np.asarray(jax_wcc(jc))
+
+def _k6_edges(kind, rng):
+    """(src, dst, n) of K6's own kinds."""
+    if kind == "sparse":
+        n = 3000  # edges among the first 100 nodes only
+        src = rng.integers(0, 100, 400)
+        dst = rng.integers(0, 100, 400)
+        src[:4], dst[:4] = [0, 0, 13, 13], [1, 2, 3, 4]
+        return src, dst, n
+    src, dst, n = _graph("random", rng)
+    if kind == "multi":  # every edge twice, a third of them three times
+        k = len(src) // 3
+        src = np.concatenate([src, src, src[:k]])
+        dst = np.concatenate([dst, dst, dst[:k]])
+    if kind == "wide":  # node 3 takes 1,300 in-edges: three segments
+        src = np.concatenate([src, rng.integers(0, 70, 1300)])
+        dst = np.concatenate([dst, np.full(1300, 3)])
+    return src, dst, n
+
+
+def _k6_arrays(kind, src, dst, n, rng, w=None):
+    """(indptr, rows, cols, vals, nnz) of the CSR with rows = dst over the
+    edges src -> dst, sorted by (row, col), in kind's layout: for "capped"
+    37 padding entries at the end (row n - 1, column n + 7), for "clip" 12
+    columns outside [0, n) (read as 0 or n - 1)."""
+    wts = None if w is None else w(len(src))
+    order = np.lexsort((src, dst))
+    src, dst = src[order], dst[order]
+    nnz = len(src)
+    cols = src.astype(np.int32)
+    if kind == "clip":
+        pick = rng.choice(nnz, 12, replace=False)
+        cols[pick[:6]] = -5
+        cols[pick[6:]] = n + 3
+    pad = 37 if kind == "capped" else 0
+    indptr = np.concatenate([[0], np.bincount(dst, minlength=n).cumsum()])
+    rows = np.concatenate([dst, np.full(pad, n - 1)]).astype(np.int32)
+    cols = np.concatenate([cols, np.full(pad, n + 7)]).astype(np.int32)
+    vals = None if wts is None else np.concatenate(
+        [wts[order], np.zeros(pad)]).astype(np.float32)
+    return indptr.astype(np.int32), rows, cols, vals, nnz
+
+
+def _k6_emulate(csr, src=-1):
+    """K6's design (csrc/pull_min.cu) step by step in numpy, with the
+    source numbering of `pull_min.plan_arrays`: a step first brings the
+    rows that changed in the step before to the current values in the next
+    buffer (an atomic min), then takes only the entries whose source is
+    marked changed (a pull scans the entries, a push takes the changed
+    sources' out-entries where at most m / PUSH_SHARE changed), each row's
+    least term to the next buffer by min where
+    it lies below the current value, and marks those rows (and their source
+    numbers) changed.  (values, steps): WCC when src < 0, else SSSP from
+    src."""
+    from falkordb_tpu_torch.algos import pull_min
+
+    n, nnz = csr.n_rows, int(csr.nnz)
+    cols = csr.cols.numpy()[:nnz].astype(np.int64)
+    rows = csr.rows.numpy()[:nnz].astype(np.int64)
+    scols, row_sid, _, m, fwd_ptr, fwd_entry = pull_min.plan_arrays(n, cols)
+    u_of = np.clip(cols, 0, n - 1)
+    if scols is None:
+        scols, row_sid = u_of, np.arange(n)
+    wcc = src < 0
+    w = (np.ones(nnz, np.float32) if wcc or csr.vals is None
+         else csr.vals.numpy()[:nnz].astype(np.float32))
+    if wcc:
+        x0 = np.arange(n, dtype=np.int32)
+        R, S = np.ones(n, bool), np.ones(m, bool)
+    else:
+        x0 = np.full(n, np.inf, np.float32)
+        R, S = np.zeros(n, bool), np.zeros(m, bool)
+        if src < n:
+            x0[src] = 0.0
+            R[src] = True
+            if row_sid[src] >= 0:
+                S[row_sid[src]] = True
+    val = [x0.copy(), x0.copy()]
+    big = np.iinfo(np.int32).max if wcc else np.inf
+    k = 0
+    while True:
+        cur, nxt = val[k & 1], val[(k + 1) & 1]
+        nxt[R] = np.minimum(nxt[R], cur[R])
+        if S.sum() * pull_min.PUSH_SHARE <= m:  # a push: the out-entries
+            es = np.concatenate([fwd_entry[fwd_ptr[i]:fwd_ptr[i + 1]]
+                                 for i in np.nonzero(S)[0]] + [[]])
+            es = es.astype(np.int64)
+        else:  # a pull: every entry whose source is marked
+            es = np.nonzero(S[scols])[0]
+        t = cur[u_of[es]] if wcc else (cur[u_of[es]] + w[es]).astype(
+            np.float32)
+        best = np.full(n, big, dtype=cur.dtype)
+        np.minimum.at(best, rows[es], t)
+        low = best < cur
+        nxt[low] = np.minimum(nxt[low], best[low])
+        R = low
+        S = np.zeros(m, bool)
+        S[row_sid[low & (row_sid >= 0)]] = True
+        k += 1
+        if not low.any():
+            return val[k & 1], k
+
+
+@pytest.mark.parametrize("kind", KINDS + K6_KINDS)
+def test_wcc_matches_jax(rng, kind, monkeypatch):
+    """WCC equals falkordb_tpu's, with the plain version's step count; K6's
+    design emulated over its plan gives the same labels and steps, with
+    the plan's SHARED_BITS and at 128 (the sources numbered apart where
+    they fit it and the rows do not)."""
+    from falkordb_tpu.algos.wcc import _wcc_jit
+    from falkordb_tpu_torch.algos import pull_min
+
+    if kind in KINDS:
+        src, dst, n = _graph(kind, rng)
+        s2, d2 = np.concatenate([src, dst]), np.concatenate([dst, src])
+        jc, tc = _both(s2, d2, n)
+        j = np.asarray(jax_wcc(jc))
+    else:
+        src, dst, n = _k6_edges(kind, rng)
+        indptr, rows, cols, _, nnz = _k6_arrays(
+            kind, np.concatenate([src, dst]), np.concatenate([dst, src]), n,
+            rng)
+        tc = CSR.from_host(indptr, rows, cols, None, nnz, (n, n))
+        j = np.asarray(_wcc_jit(jnp.asarray(indptr), jnp.asarray(rows),
+                                jnp.asarray(cols), jnp.int32(nnz), n))
     labels, steps = wcc_run(tc)
     assert labels.dtype == torch.int32
     np.testing.assert_array_equal(labels.numpy(), j)
     np.testing.assert_array_equal(wcc(tc).numpy(), j)
     assert steps >= 1
+    for shared_bits in (pull_min.SHARED_BITS, 128):
+        monkeypatch.setattr(pull_min, "SHARED_BITS", shared_bits)
+        if n:
+            got, k = _k6_emulate(tc)
+            np.testing.assert_array_equal(got, j)
+            assert k == steps
     if kind == "random":  # the isolated tail keeps its own ids
         np.testing.assert_array_equal(j[70:], np.arange(70, n))
 
 
-@pytest.mark.parametrize("kind", KINDS)
+_WEIGHTS = {"unit": None,
+            "int": lambda rng: lambda m: rng.integers(1, 10, m).astype(
+                np.float32),
+            "real": lambda rng: lambda m: rng.random(m).astype(
+                np.float32) * 3}
+
+
+@pytest.mark.parametrize("kind", KINDS + K6_KINDS)
 @pytest.mark.parametrize("weights", ["unit", "int", "real"])
 @pytest.mark.parametrize("src_node", [0, 13, -1, "last"])
-def test_sssp_matches_jax(rng, kind, weights, src_node):
-    src, dst, n = _graph(kind, rng)
-    w = {"unit": None,
-         "int": rng.integers(1, 10, len(src)).astype(np.float32),
-         "real": rng.random(len(src)).astype(np.float32) * 3}[weights]
-    s = n - 1 if src_node == "last" else min(src_node, n - 1)
-    jc, tc = _both(src, dst, n, w)
-    j = np.asarray(jax_sssp(jc, s))
-    t = sssp(tc, s)
+def test_sssp_matches_jax(rng, kind, weights, src_node, monkeypatch):
+    """SSSP equals falkordb_tpu's (inf included), with the plain version's
+    step count; K6's design emulated over its plan (the sources numbered
+    apart: SHARED_BITS 128 for the sparse graph's 3,000 rows) gives the
+    same distances and steps."""
+    from falkordb_tpu.algos.sssp import _sssp_jit
+    from falkordb_tpu_torch.algos import pull_min
+    from falkordb_tpu_torch.algos.sssp import sssp_run
+
+    monkeypatch.setattr(pull_min, "SHARED_BITS", 128)
+    wf = None if _WEIGHTS[weights] is None else _WEIGHTS[weights](rng)
+    if kind in KINDS:
+        src, dst, n = _graph(kind, rng)
+        w = None if wf is None else wf(len(src))
+        s = n - 1 if src_node == "last" else min(src_node, n - 1)
+        jc, tc = _both(src, dst, n, w)
+        j = np.asarray(jax_sssp(jc, s))
+        t = sssp(tc, s)
+        at = tc.transpose()
+    else:
+        src, dst, n = _k6_edges(kind, rng)
+        indptr, rows, cols, vals, nnz = _k6_arrays(kind, src, dst, n, rng, wf)
+        s = n - 1 if src_node == "last" else min(src_node, n - 1)
+        at = CSR.from_host(indptr, rows, cols, vals, nnz, (n, n))
+        v = jnp.asarray(vals) if vals is not None else jnp.ones(
+            len(cols), jnp.float32)
+        j = (np.full(n, np.inf, np.float32) if s < 0 else np.asarray(
+            _sssp_jit(jnp.asarray(indptr), jnp.asarray(rows),
+                      jnp.asarray(cols), v, jnp.int32(nnz), n, s)))
+        t = (torch.full((n,), float("inf")) if s < 0
+             else sssp_run(at, s)[0])
     assert t.dtype == torch.float32 and t.shape == (n,)
     np.testing.assert_array_equal(t.numpy(), j)  # inf included
     if s < 0:
         assert torch.isinf(t).all()
-    elif kind == "random" and s < 70:  # the isolated tail is unreachable
+        return
+    _, steps = sssp_run(at, s)
+    got, k = _k6_emulate(at, s)
+    np.testing.assert_array_equal(got, j)
+    assert k == steps
+    if kind == "random" and s < 70:  # the isolated tail is unreachable
         assert torch.isinf(t[70:]).all()
         assert int(torch.isfinite(t).sum()) > 50  # the source reaches far
+
+
+def _walk_k6_items(ip):
+    """K6's pull items by a row-by-row walk of the clamped indptr: a row
+    with entries and at most ITEM_EDGES of them joins the open item while
+    it lies in the item's 32-row window, no wider row came between since
+    the window's first row, and the entries before it in that run fall in
+    the item's ITEM_EDGES window; a wider row becomes ITEM_EDGES-entry
+    segments, after every item."""
+    from falkordb_tpu_torch.algos import pull_min
+
+    E = pull_min.ITEM_EDGES
+    items, segs, cur, run, hubs = [], [], None, None, 0
+    for v in range(len(ip) - 1):
+        deg = int(ip[v + 1] - ip[v])
+        if deg > E:
+            hubs += 1
+            for lo in range(int(ip[v]), int(ip[v + 1]), E):
+                segs.append([v, -1, lo, min(lo + E, int(ip[v + 1]))])
+            continue
+        if deg == 0:
+            continue
+        if run is None or run[0] != (v >> 5, hubs):
+            run = [(v >> 5, hubs), 0]
+            cur = None
+        sub = run[1] // E
+        if cur is None or cur[4] != sub:
+            cur = [v, v + 1, 0, 0, sub]
+            items.append(cur)
+        cur[1] = v + 1
+        run[1] += deg
+    return [[a, b, int(ip[a]), int(ip[b])] for a, b, _, _, _ in items] + segs
+
+
+def test_pull_min_items_match_a_walk():
+    """K6's pull items (algos/pull_min.py `plan_items`) are a walk of the
+    same indptr: each within one 32-row window and about 2 x ITEM_EDGES
+    entries, rows of no entry in none, the rows past ITEM_EDGES in
+    segments; cut once a snapshot (clamped at nnz past a padded capacity)
+    and cached on it."""
+    from falkordb_tpu_torch.algos import pull_min
+
+    rng = np.random.default_rng(19)
+    n = 3000
+    deg = rng.integers(0, 40, n)
+    deg[[5, 6, 900, 2999]] = [513, 2000, 512, 1025]  # hubs and the edges
+    deg[1000:1300] = 0  # a run of empty rows
+    deg[40:44] = 200  # a window past ITEM_EDGES in whole rows
+    ip = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    items = pull_min.plan_items(ip)
+    np.testing.assert_array_equal(items, np.array(_walk_k6_items(ip),
+                                                  np.int32))
+    normal = items[items[:, 1] >= 0]
+    assert ((normal[:, 0] >> 5) == ((normal[:, 1] - 1) >> 5)).all()
+    assert (normal[:, 3] - normal[:, 2] <= 2 * pull_min.ITEM_EDGES).all()
+    assert (items[:, 1] == -1).sum() == 2 + 4 + 3
+    nnz = int(ip[-1])
+    dst = np.repeat(np.arange(n), deg)
+    at = CSR.from_coo_numpy(dst, rng.integers(0, n, nnz), None, shape=(n, n),
+                            dedup=False, cap=nnz + 500)
+    plan = pull_min.pull_min_plan(at)
+    assert pull_min.pull_min_plan(at) is plan
+    np.testing.assert_array_equal(plan.items.numpy(), pull_min.plan_items(
+        np.minimum(at.indptr.numpy().astype(np.int64), nnz)))
+
+
+def test_pull_min_plan_numbers_the_sources(monkeypatch):
+    """K6's plan (algos/pull_min.py `plan_arrays`): past SHARED_BITS rows,
+    the distinct sources (clipped columns) numbered in id order when they
+    fit SHARED_BITS, each entry's number, each row's (-1 for a row that is
+    no source) and each number's row; else no numbering; the entries
+    grouped by source (number) in entry order for a push; the plan made
+    once a snapshot (its columns clamped at nnz past a padded capacity)
+    and cached on it."""
+    from falkordb_tpu_torch.algos import pull_min
+
+    rng = np.random.default_rng(19)
+    n = 3000
+    cols = rng.integers(0, 200, 9000)
+    cols[:3] = [-4, n + 9, 150]  # clipped to 0 and n - 1
+    src = np.clip(cols, 0, n - 1)
+
+    def grouped(key, m, fwd_ptr, fwd_entry):
+        np.testing.assert_array_equal(np.diff(fwd_ptr),
+                                      np.bincount(key, minlength=m))
+        for s_ in (0, 150, m - 1):  # each source's entries, in order
+            np.testing.assert_array_equal(
+                fwd_entry[fwd_ptr[s_]:fwd_ptr[s_ + 1]],
+                np.nonzero(key == s_)[0])
+
+    scols, row_sid, sid_row, m, fwd_ptr, fwd_entry = pull_min.plan_arrays(
+        n, cols)
+    assert scols is None and row_sid is None and sid_row is None and m == n
+    grouped(src, n, fwd_ptr, fwd_entry)
+    monkeypatch.setattr(pull_min, "SHARED_BITS", 256)
+    scols, row_sid, sid_row, m, fwd_ptr, fwd_entry = pull_min.plan_arrays(
+        n, cols)
+    ids = np.unique(src)
+    assert m == len(ids) <= 202 and ids[-1] == n - 1
+    np.testing.assert_array_equal(sid_row, ids)
+    np.testing.assert_array_equal(np.nonzero(row_sid >= 0)[0], ids)
+    np.testing.assert_array_equal(row_sid[ids], np.arange(m))
+    np.testing.assert_array_equal(ids[scols], src)
+    grouped(scols, m, fwd_ptr, fwd_entry)
+    monkeypatch.setattr(pull_min, "SHARED_BITS", 150)
+    assert pull_min.plan_arrays(n, cols)[0] is None  # 202 sources: no fit
+    monkeypatch.setattr(pull_min, "SHARED_BITS", 256)
+    dst = rng.integers(0, n, len(cols))
+    at = CSR.from_coo_numpy(dst, src, None, shape=(n, n), dedup=False,
+                            cap=len(cols) + 500)
+    plan = pull_min.pull_min_plan(at)
+    assert pull_min.pull_min_plan(at) is plan and plan.m == m
+    want = pull_min.plan_arrays(n, at.cols.numpy()[:len(cols)])
+    np.testing.assert_array_equal(plan.scols.numpy(), want[0])
+    np.testing.assert_array_equal(plan.fwd_entry.numpy(), want[5])
+    assert plan.bits.numel() == 3 * 96 + 3 * 8  # 16-byte aligned bitmaps
+
+
+def test_fixpoint_profile_counts_the_data_bytes():
+    """bench_port_compare.fixpoint_profile (K6's bound in chip_smoke.py):
+    the plain version's steps, the rows each step changed, and the bytes
+    the data needs: 4 B a row, then per step the changed sources'
+    out-edges (4 B a column, 8 with a weight) and values, 8 B a changed
+    row; the full pass 4 nnz + 12 n a step (8 nnz for SSSP)."""
+    import bench_port_compare
+
+    # a path 0 <- 1 <- 2 <- 3 (symmetrised: WCC labels flow down it)
+    src, dst = np.array([1, 2, 3]), np.array([0, 1, 2])
+    s2, d2 = np.concatenate([src, dst]), np.concatenate([dst, src])
+    sym = CSR.from_coo_numpy(d2, s2, None, shape=(4, 4), dedup=False)
+    per_step, need, full = bench_port_compare.fixpoint_profile(sym, -1)
+    labels, steps = wcc_run(sym)
+    assert per_step == [3, 2, 1, 0] and len(per_step) == steps
+    # step 1: every node's out-edges (6) and values (4); then nodes 1-3,
+    # 2-3, 3 changed (out-degrees 2, 2, 1)
+    assert need == 16 + (6 * 4 + 16 + 8 * 3) + (5 * 4 + 12 + 8 * 2) + (
+        3 * 4 + 8 + 8) + (1 * 4 + 4)
+    assert full == 4 * (4 * 6 + 12 * 4)
+    w = np.array([1.0, 2.0, 4.0], np.float32)
+    at = CSR.from_coo_numpy(dst, src, w, shape=(4, 4), dedup=False)
+    per_step, need, full = bench_port_compare.fixpoint_profile(at, 3)
+    assert per_step == [1, 1, 1, 0] and need == 16 + 3 * (8 + 4 + 8) + 4
+    assert full == 4 * (8 * 3 + 12 * 4)
+
+
+def test_sssp_takes_the_cached_transpose(monkeypatch):
+    """sssp() over one forward CSR makes its transpose once
+    (`CSR.transpose()`), so a second call finds it, and K6's plan on it,
+    again; both calls give the bits of a fresh transpose_host()."""
+    from falkordb_tpu_torch.algos.sssp import sssp_run
+
+    rng = np.random.default_rng(21)
+    src, dst, n = _graph("random", rng)
+    w = rng.random(len(src)).astype(np.float32)
+    a = CSR.from_coo_numpy(src, dst, w, shape=(n, n), dedup=False)
+    made = []
+    real = CSR.transpose_host
+
+    def counted(self, *args, **kw):
+        made.append(self)
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(CSR, "transpose_host", counted)
+    first = sssp(a, 0)
+    second = sssp(a, 13)
+    assert made == [a]
+    fresh = real(a)
+    np.testing.assert_array_equal(first.numpy(), sssp_run(fresh, 0)[0].numpy())
+    np.testing.assert_array_equal(second.numpy(),
+                                  sssp_run(fresh, 13)[0].numpy())
 
 
 # -- K7 betweenness -----------------------------------------------------------

@@ -1,5 +1,5 @@
-"""K5 and K7's sweep on the card, each against its plain PyTorch version on
-the same CUDA tensors.
+"""K5, K6 and K7's sweep on the card, each against its plain PyTorch version
+on the same CUDA tensors.
 
 K5: PageRank's power iteration (falkordb_tpu_torch/algos/pagerank.py
 `pagerank_transposed`, csrc/pagerank.cu) against `pagerank_plain` (one
@@ -17,6 +17,16 @@ BC_TOL, over an LDBC-like graph with rows wider than a warp's lanes both
 ways, a uniform random graph and a padded capacity; sources of depth 0
 and 1, n = 0 and n = 1; the same bits on a second call; 8 sources in one
 call equal to 8 one-source calls added in order.
+
+K6: WCC and SSSP's pull-min fixpoints (falkordb_tpu_torch/algos/wcc.py
+`wcc_run`, algos/sssp.py `sssp_run`, csrc/pull_min.cu, one persistent
+cooperative launch a call with the plan of algos/pull_min.py) against
+`wcc_plain` / `sssp_plain`: equal bits and equal steps, over random,
+power-law, single-hub and mostly-empty-row graphs (the last past
+SHARED_BITS rows, its sources numbered apart) and a graph whose sources do
+not fit SHARED_BITS (the bitmap read from L2), negative weights on a DAG;
+n = 0, nnz = 0, n = 1, a source with no out-edge; the same bits on a
+second call, which cuts no plan.
 
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
@@ -289,3 +299,145 @@ def test_bc_sweep_same_bits_and_source_order(dev):
     scores = tbc.betweenness(a, sampling_size=8, seed=7)
     assert np.array_equal(scores, got.cpu().numpy() * (a.n_rows / 8.0))
     assert (scores > 0).any()
+
+
+# -- K6: the pull-min fixpoints of WCC and SSSP ---------------------------------
+
+
+def k6_edges(kind, seed=0):
+    """(src, dst, n) of K6's card graphs.  "random": 120,000 uniform edges
+    over 20,000 nodes; "power": Zipf-distributed ends (hub rows and hub
+    columns); "hub": "random" and node 3 with HUB in-edges (segments);
+    "sparse": 1,200,000 nodes, edges among the first 50,000 only (the
+    sources numbered apart); "l2": 2,600,000 uniform edges over 1,300,000
+    nodes (about 1.12 M distinct sources: the bitmap read from L2)."""
+    rng = np.random.default_rng(seed)
+    if kind in ("random", "hub"):
+        src, dst, n = graph(seed=seed)
+        if kind == "random":  # graph() always adds the hub
+            src, dst = src[:-HUB], dst[:-HUB]
+        return src, dst, n
+    if kind == "power":
+        n = 30_000
+        src = np.minimum(rng.zipf(1.6, 150_000), n) - 1
+        dst = np.minimum(rng.zipf(1.6, 150_000), n) - 1
+        return src, rng.permutation(n)[dst], n
+    if kind == "sparse":
+        n = 1_200_000
+        return rng.integers(0, 50_000, 200_000), rng.integers(
+            0, 50_000, 200_000), n
+    n = 1_300_000
+    return rng.integers(0, n, 2_600_000), rng.integers(0, n, 2_600_000), n
+
+
+def k6_csr(src, dst, n, dev, w=None, pad=0):
+    """The CSR with rows = dst (the transpose of src -> dst), weights w,
+    `pad` entries past nnz (columns out of range)."""
+    order = np.lexsort((src, dst))
+    indptr = np.concatenate([[0], np.bincount(dst, minlength=n).cumsum()])
+    rows = np.concatenate([dst[order], np.full(pad, n - 1)]).astype(np.int32)
+    cols = np.concatenate([src[order], np.full(pad, n + 7)]).astype(np.int32)
+    vals = None if w is None else np.concatenate(
+        [w[order], np.zeros(pad)]).astype(np.float32)
+    return CSR.from_host(indptr.astype(np.int32), rows, cols, vals, len(src),
+                         (n, n), device=dev)
+
+
+def hold_k6(csr, src=-1):
+    """K6 against its plain version (WCC when src < 0, else SSSP from
+    src): equal bits and steps, one launch a call, the same on a second
+    call, which finds the plan cut by the first."""
+    from falkordb_tpu_torch.algos import pull_min, sssp, wcc
+
+    name = "wcc" if src < 0 else "sssp"
+    before = cuda.KERNELS[name].launches
+    if src < 0:
+        got, steps = wcc.wcc_run(csr)
+        want, psteps = wcc.wcc_plain(csr.indptr, csr.rows, csr.cols, csr.nnz,
+                                     csr.n_rows)
+    else:
+        got, steps = sssp.sssp_run(csr, src)
+        want, psteps = sssp.sssp_plain(csr.indptr, csr.rows, csr.cols,
+                                       csr.vals, csr.nnz, csr.n_rows, src)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS[name].launches == before + (csr.n_rows > 0)
+    assert steps == psteps
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    plan = csr.__dict__.get("_pull_min_plan")
+    again = wcc.wcc_run(csr) if src < 0 else sssp.sssp_run(csr, src)
+    assert again[1] == steps and torch.equal(again[0], got)
+    assert csr.__dict__.get("_pull_min_plan") is plan  # no second cut
+    return got, steps, plan, pull_min
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "power", "hub", "sparse", "l2"])
+@pytest.mark.parametrize("pad", [0, 300])
+def test_wcc_matches_plain(kind, pad, dev):
+    src, dst, n = k6_edges(kind)
+    sym = k6_csr(np.concatenate([src, dst]), np.concatenate([dst, src]), n,
+                 dev, pad=pad)
+    labels, steps, plan, pull_min = hold_k6(sym)
+    assert steps > 1
+    assert (plan.row_sid is not None) == (kind == "sparse")
+    assert (plan.m > pull_min.SHARED_BITS) == (kind == "l2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "power", "hub", "sparse", "l2"])
+@pytest.mark.parametrize("weights", ["unit", "real"])
+def test_sssp_matches_plain(kind, weights, dev):
+    src, dst, n = k6_edges(kind, seed=1)
+    rng = np.random.default_rng(5)
+    w = None if weights == "unit" else rng.random(len(src)).astype(
+        np.float32) * 10
+    at = k6_csr(src, dst, n, dev, w, pad=100)
+    s = int(np.bincount(src, minlength=n).argmax())  # the widest source
+    dist, steps, plan, _ = hold_k6(at, s)
+    assert steps > 2 and int(torch.isfinite(dist).sum()) > 1
+    lone = int(np.setdiff1d(np.arange(min(n, 50_000)), src)[0])
+    _, steps, _, _ = hold_k6(at, lone)  # no out-edge: one step
+    assert steps == 1
+
+
+@pytest.mark.cuda
+def test_sssp_negative_weights_on_a_dag(dev):
+    """Weights in [-1, 1) on edges from lower to higher ids (no cycle): the
+    sign-split atomic min of the hub row's segments."""
+    rng = np.random.default_rng(9)
+    n = 20_000
+    a = rng.integers(0, n, 150_000)
+    b = rng.integers(0, n, 150_000)
+    keep = a != b
+    src, dst = np.minimum(a, b)[keep], np.maximum(a, b)[keep]
+    src = np.concatenate([src, rng.integers(0, 3, 2000)])
+    dst = np.concatenate([dst, np.full(2000, 19_999)])  # a hub row
+    w = (rng.random(len(src)) * 2 - 1).astype(np.float32)
+    at = k6_csr(src, dst, n, dev, w)
+    dist, steps, _, _ = hold_k6(at, 0)
+    assert float(dist.min()) < 0 and steps > 2
+
+
+@pytest.mark.cuda
+def test_pull_min_edge_cases(dev):
+    from falkordb_tpu_torch.algos import sssp, wcc
+
+    empty = CSR.empty((0, 0), device=dev)
+    labels, steps = wcc.wcc_run(empty)  # no node: no step, no launch
+    assert labels.shape == (0,) and labels.dtype == torch.int32
+    assert steps == 0 and cuda.KERNELS["wcc"].launches == 0
+    none = k6_csr(np.zeros(0, np.int64), np.zeros(0, np.int64), 5, dev)
+    labels, steps, _, _ = hold_k6(none)  # nnz = 0
+    assert steps == 1 and labels.tolist() == [0, 1, 2, 3, 4]
+    hold_k6(none, 2)
+    for loop in (0, 1):  # n = 1, with and without a self-loop
+        one = k6_csr(np.zeros(loop, np.int64), np.zeros(loop, np.int64), 1,
+                     dev, np.ones(loop, np.float32))
+        assert hold_k6(one)[1] == 1
+        assert hold_k6(one, 0)[1] == 1
+    bad = CSR(none.indptr, none.rows, none.cols.to(torch.int64), None,
+              none.nnz, 5, 5)
+    with pytest.raises(ValueError, match="cols must be a contiguous"):
+        wcc.wcc_run(bad)
+    with pytest.raises(ValueError, match="cols must be a contiguous"):
+        sssp.sssp_run(bad, 0)

@@ -303,6 +303,34 @@ def test_wrappers_refuse_other_devices():
         probes.take(torch.zeros(3, dtype=torch.int32), w)
 
 
+def test_k6_k14_wrappers_refuse_other_devices():
+    """K6's and K14's lean launch paths: meta tensors and mixed devices
+    raise before any plan, scratch or library (nothing built, nothing
+    launched)."""
+    cuda.reset_launches()
+    meta = CSR(*(torch.zeros(k, dtype=torch.int32, device="meta")
+                 for k in (4, 8, 8)), None,
+               torch.zeros((), dtype=torch.int32, device="meta"), 3, 3)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        wcc_run(meta)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        sssp_run(meta, 0)
+    at = CSR.from_coo_numpy([0, 1], [1, 2], [0.5, 1.0], shape=(3, 3),
+                            dedup=False)
+    mixed = CSR(at.indptr, at.rows, at.cols, at.vals.to("meta"), at.nnz, 3, 3)
+    with pytest.raises(ValueError, match="several devices"):
+        sssp_run(mixed, 0)
+    assert "_pull_min_plan" not in meta.__dict__
+    X = torch.zeros((4, 3), device="meta")
+    a = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        kmeans_update(X, a, 2)
+    with pytest.raises(ValueError, match="several devices"):
+        kmeans_update(torch.zeros(4, 3), a, 2)
+    assert all(k.launches == 0 for k in cuda.KERNELS.values())
+    assert cuda._lib is None
+
+
 @pytest.mark.parametrize("kernel", ["gated", "stepped", "packed"])
 def test_bench_port_without_a_card_exits_nonzero(kernel, capsys):
     if torch.cuda.is_available():

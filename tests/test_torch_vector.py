@@ -108,6 +108,47 @@ def test_kmeans_assign_plain_ties_to_lowest_index():
     assert ties >= 60
 
 
+def _jax_one_hot_update(X, assign, nlist):
+    """falkordb_tpu's centroid update as _kmeans writes it
+    (falkordb_tpu/index/vector_index.py:80-83), in jax.numpy."""
+    import jax.numpy as jnp
+
+    n = X.shape[0]
+    Xd = jnp.asarray(X)
+    one = jnp.zeros((n, nlist), jnp.float32).at[
+        jnp.arange(n), jnp.asarray(assign)].set(1.0)
+    counts = jnp.maximum(one.sum(axis=0), 1.0)
+    return np.asarray((one.T @ Xd) / counts[:, None])
+
+
+@pytest.mark.parametrize("d", [1, 3, 100, 128, 130])
+@pytest.mark.parametrize("case", ["random", "empty clusters", "one cluster",
+                                  "no rows"])
+def test_kmeans_update_matches_the_one_hot_update(d, case):
+    """K14's function on the CPU against the reference's one-hot update at
+    rtol 1e-5 (atol 1e-6 where a mean of rows around 2 cancels to near zero:
+    float32 sums in two orders): the zero row for an empty cluster, one
+    cluster holding every row, n = 0, d from 1 to past 128."""
+    rng = np.random.default_rng(40 + d)
+    n = {"no rows": 0, "one cluster": 600}.get(case, 900)
+    nlist = 24
+    X = (rng.normal(size=(n, d)) * 2.0).astype(np.float32)
+    if case == "empty clusters":
+        assign = rng.choice([0, 3, 4, 11, 23], size=n)
+    elif case == "one cluster":
+        assign = np.full(n, 7)
+    else:
+        assign = rng.integers(0, nlist, n)
+    want = _jax_one_hot_update(X, assign, nlist)
+    got = kmeans_update(torch.from_numpy(X),
+                        torch.from_numpy(assign.astype(np.int64)),
+                        nlist).numpy()
+    assert got.shape == (nlist, d) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    empty = np.bincount(assign, minlength=nlist) == 0
+    assert (got[empty] == 0.0).all() and (want[empty] == 0.0).all()
+
+
 def test_kmeans_update_plain_empty_clusters():
     rng = np.random.default_rng(12)
     n, d, nlist = 700, 5, 16

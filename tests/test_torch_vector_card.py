@@ -1,4 +1,5 @@
-"""K13 (k-means assignment, csrc/kmeans_assign.cu) and K15 (vector scores,
+"""K13 (k-means assignment, csrc/kmeans_assign.cu), K14 (the centroid
+update, csrc/kmeans_update.cu) and K15 (vector scores,
 csrc/vector_scores.cu) on the card against their plain PyTorch versions.
 
 K13 must give float64 argmin's first minimum exactly on integer-valued
@@ -10,6 +11,13 @@ centroids, d of 1, 6, 24, 100 and 128 (staged whole), 129, 130 and 300
 (past the 128 columns staged at once: walked in slices), nlist = 1; two
 runs give the same bits.  On float rows it may differ from the plain pick
 only where the two nearest centroids are within 1e-5 of |x|^2 + |c|^2.
+
+K14 within rtol 1e-4 / atol 1e-5 of its plain version (index_add_, whose
+atomics add in any order), exactly on integer-valued rows, and the same bits
+on a second call and through the 4-byte loads of a misaligned view: d of
+100, 128 and 130, n = 0, nlist = 1 with every row, one cluster of 300,000
+rows (cut into tasks), empty clusters, and 6,000 lists (the sort's region
+past shared memory); one scratch a shape.
 
 K15, both metrics: cosine rtol 1e-5 atol 1e-6; euclidean squared scores
 within d * 2^-23 * (|m|^2 + |q|^2), the float32 bound of the cancelling
@@ -31,9 +39,10 @@ import numpy as np
 import pytest
 import torch
 
+from falkordb_tpu_torch.index import vector_index
 from falkordb_tpu_torch.index.vector_index import (
-    kmeans_assign, kmeans_assign_plain, list_ranges, list_rows,
-    vector_scores, vector_scores_plain)
+    kmeans_assign, kmeans_assign_plain, kmeans_update, kmeans_update_plain,
+    list_ranges, list_rows, vector_scores, vector_scores_plain)
 from falkordb_tpu_torch.native import cuda
 
 
@@ -44,6 +53,83 @@ def dev():
     cuda.reset_launches()
     yield torch.device("cuda", 0)
     cuda.reset_launches()
+
+
+# -- K14 ------------------------------------------------------------------------
+
+
+def hold_update(X, assign, nlist, exact=False):
+    """K14 against its plain version: rtol 1e-4 atol 1e-5 (exact on
+    integer rows), zero rows for the empty clusters, one launch a call and
+    the same bits on a second call."""
+    before = cuda.KERNELS["kmeans_update"].launches
+    got = kmeans_update(X, assign, nlist)
+    again = kmeans_update(X, assign, nlist)
+    plain = kmeans_update_plain(X, assign, nlist)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["kmeans_update"].launches == before + 2
+    assert got.shape == (nlist, X.shape[1]) and got.dtype == torch.float32
+    if exact:
+        assert torch.equal(got, plain)
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    empty = torch.bincount(assign, minlength=nlist) == 0
+    assert not bool(got[empty].any())
+    return got
+
+
+def update_case(n, d, nlist, kind, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "ints":
+        X = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
+    else:
+        X = rng.standard_normal((n, d), dtype=np.float32) * 3
+    if kind == "one":  # every row in cluster 2 of nlist
+        a = np.full(n, 2)
+    elif kind == "even":  # the odd clusters empty
+        a = rng.integers(0, (nlist + 1) // 2, n) * 2
+    else:
+        a = rng.integers(0, nlist, n)
+    return (torch.from_numpy(X).to(dev),
+            torch.from_numpy(a.astype(np.int64)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,nlist,kind", [
+    (50_000, 128, 200, "random"), (50_000, 100, 217, "random"),
+    (20_000, 130, 64, "random"), (40_000, 128, 300, "ints"),
+    (0, 128, 16, "random"), (30_000, 64, 1, "random"),
+    (300_000, 32, 4, "one"), (60_000, 128, 500, "even"),
+    (100_000, 16, 6000, "random")])
+def test_card_kmeans_update_matches_plain(n, d, nlist, kind, dev):
+    X, a = update_case(n, d, nlist, kind, dev)
+    got = hold_update(X, a, nlist, exact=kind == "ints")
+    if n == 0:
+        assert not bool(got.any())
+
+
+@pytest.mark.cuda
+def test_card_kmeans_update_misaligned_view(dev):
+    """A contiguous view 4 bytes past a 16-byte boundary takes the 4-byte
+    loads; each column's sum has the same order, so the same bits."""
+    X, a = update_case(30_000, 128, 100, "random", dev, seed=3)
+    buf = torch.empty(X.numel() + 1, dtype=torch.float32, device=dev)
+    view = buf[1:].view(X.shape)
+    view.copy_(X)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    assert torch.equal(hold_update(view, a, 100),
+                       kmeans_update(X, a, 100))
+
+
+@pytest.mark.cuda
+def test_card_kmeans_update_scratch_once_a_shape(dev):
+    X, a = update_case(10_000, 32, 50, "random", dev, seed=4)
+    kmeans_update(X, a, 50)
+    scratch = vector_index._UPDATE_SCRATCH[dev.index][1]
+    kmeans_update(X, a, 50)
+    assert vector_index._UPDATE_SCRATCH[dev.index][1] is scratch
+    with pytest.raises(ValueError, match="assign must be"):
+        kmeans_update(X, a.to(torch.int32), 50)
 
 
 # -- K13 ------------------------------------------------------------------------
