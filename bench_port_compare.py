@@ -1,6 +1,6 @@
-"""Time chip_smoke.py's K2, K3, K5, K6, K13-K15, K18-K21, K24, K26, K27 and
-K30 rows from one checkout of the repo, so that two trees can be compared on one
-card in one call.
+"""Time chip_smoke.py's K1-K3, K5, K6, K8, K13-K15, K18-K21, K24, K26, K27
+and K30 rows from one checkout of the repo, so that two trees can be compared
+on one card in one call.
 
     python3 bench_port_compare.py                    # this checkout
     python3 bench_port_compare.py --root DIR         # another checkout
@@ -18,6 +18,8 @@ card in one call.
     python3 bench_port_compare.py --rows levels      # K17
     python3 bench_port_compare.py --rows bc          # K7 (betweenness)
     python3 bench_port_compare.py --rows fixpoint    # K6 (WCC, SSSP)
+    python3 bench_port_compare.py --rows csr_expand  # K1 and two reads
+    python3 bench_port_compare.py --rows parents     # K8 and algo.BFS
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -205,6 +207,30 @@ chip_smoke.py runs it, through the root's database on the card over the
 SF1-class graph (a `query` line: its first run and 2 more on the host
 clock); and the ptxas reports of csrc/brandes.cu and
 csrc/segment_sum_pull.cu.
+
+The csr_expand and parents rows share one load of the SF1-class graph
+into the root's database on the card (`ldbc_card_db`).  The csr_expand
+rows are K1 at DIR/chip_smoke.py's `check_expand` shapes (`expand_shapes`:
+the first 65,536 Persons over KNOWS out and in, and the out-rows behind a
+hub source of 262,144 edges), each held to its plain version and to a
+second call's bits: a `compare` row (the shape's longest source run in
+it), a `device` line with the CUDA API calls of one call, a `host` line
+(µs a call, six allocations of the parent's sizes and one of the frame's;
+on a tree with `_expand_frame` also the frame alone, the entry point's
+launch alone and a launch with no source and no slot), the ptxas report
+of csrc/expand.cu; then persons_by_knows_degree and forum_member_stats of
+chip_smoke.py's read mix through the database (`query` lines: the first
+run and LDBC_QUERY_RUNS more on the host clock, checked against the
+oracle, and the launches of a run).  The parents rows are K8 at
+`check_bfs_parents`'s shape (the whole graph's KNOWS transpose from the
+first Person), held as K1's: a `compare` row, a `levels` line (the
+frontier of each level and both bounds: what the data needs and a pull
+over every row each level), a `device` line, a `split` line (each device
+kernel, copy and memset of one call in order), a `host` line and the
+ptxas report of csrc/bfs_parents.cu; then CALL algo.BFS on the kernel
+route (FALKOR_NO_NATIVE_BFS=1) through the database, its `query` line
+with the seconds of one host transpose of the forward CSR
+(`transpose_host`, which the call makes once a snapshot).
 """
 
 import argparse
@@ -227,12 +253,14 @@ def main(argv=None):
     ap.add_argument("--rows", default=["all"], nargs="+",
                     choices=("all", "graph", "vector", "mesh", "probes",
                              "pagerank", "agg", "bfs", "expand", "reach",
-                             "queries", "levels", "bc", "fixpoint"),
+                             "queries", "levels", "bc", "fixpoint",
+                             "csr_expand", "parents"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
                          "K24 and K26; probes: K30's reps-1 forms and K27's "
                          "double; pagerank: K5; agg: K2; bfs: K16; expand: "
                          "K23; reach: K9; queries: path g's forced LDBC "
-                         "read mix; levels: K17; bc: K7; fixpoint: K6")
+                         "read mix; levels: K17; bc: K7; fixpoint: K6; "
+                         "csr_expand: K1; parents: K8")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -282,6 +310,12 @@ def main(argv=None):
         bc_rows(smoke, root, dev)
     if {"all", "fixpoint"} & set(args.rows):
         fixpoint_rows(smoke, root, dev)
+    if {"all", "csr_expand", "parents"} & set(args.rows):
+        ldbc = ldbc_card_db(smoke)
+        if {"all", "csr_expand"} & set(args.rows):
+            csr_expand_rows(smoke, root, dev, ldbc)
+        if {"all", "parents"} & set(args.rows):
+            parents_rows(smoke, root, dev, ldbc)
     return 0
 
 
@@ -2195,6 +2229,312 @@ def fixpoint_queries(smoke, root):
             "root": root, "query": name, "first_ms": ms[0], "ms": ms[1:],
             "rows": len(rows),
             "digest": float(sum(float(r[1]) for r in rows))}), flush=True)
+
+
+# -- K1 and K8: the CSR expand under MATCH, the BFS with parents of algo.bfs ---
+
+LDBC_QUERY_RUNS = 3  # warm runs a query and tree, after a first one
+EXPAND_QUERIES = ("persons_by_knows_degree", "forum_member_stats")
+EXPAND_B = 65_536  # chip_smoke.py check_expand's sources: the first Persons
+EXPAND_HUB = 262_144  # the long run: no LDBC in-run a MATCH expands is long
+BFS_CYPHER = ("MATCH (p:Person {id: $id}) CALL algo.BFS(p, null, 'KNOWS') "
+              "YIELD nodes RETURN [x IN nodes | x.id]")
+
+
+def frame_cap(total):
+    """The frame runtime/ops.py sizes for `total` edges."""
+    out_cap = 1024
+    while out_cap < total:
+        out_cap *= 2
+    return out_cap
+
+
+def expand_shapes(store, dev):
+    """K1's shapes of chip_smoke.py check_expand: [(what, args of expand,
+    longest source run)].  The first EXPAND_B Persons over KNOWS out and in
+    (the degree read's expansions), then the same out-rows behind one hub
+    source of EXPAND_HUB edges (a forum's members or a tag's posts at
+    scale: the LDBC graph's widest in-run a MATCH expands, HAS_TAG's,
+    holds ~600 edges at P = 430,000), each frame sized as runtime/ops.py
+    sizes it."""
+    import numpy as np
+    import torch
+
+    tid = store.schema.reltype_id("KNOWS")
+    out = []
+    B = EXPAND_B
+    srcs = torch.arange(B, dtype=torch.int32, device=dev)
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    for orient, csr in (("out", store.adj_out(tid).base),
+                        ("in", store.adj_in_csr(tid))):
+        c = csr.to(dev)
+        ip = csr.host_view()[0].astype(np.int64)
+        deg = ip[1:B + 1] - ip[:B]
+        total = int(deg.sum())
+        out.append((f"KNOWS {orient} B={B} total={total}",
+                    (c.indptr, c.cols, c.vals, srcs, valid,
+                     frame_cap(total)), int(deg.max())))
+        if orient == "out":
+            knows_out = (ip, csr.host_view()[1])
+    ip, cols = knows_out
+    rng = np.random.default_rng(20)
+    hub_cols = rng.integers(0, B, EXPAND_HUB).astype(np.int32)
+    indptr = np.concatenate([[0], EXPAND_HUB + ip[:B + 1]]).astype(np.int32)
+    cols = np.concatenate([hub_cols, cols[ip[0]:ip[B]]]).astype(np.int32)
+    vals = np.arange(len(cols), dtype=np.int32)
+    total = len(cols)
+    hsrcs = torch.arange(B + 1, dtype=torch.int32, device=dev)
+    hvalid = torch.ones(B + 1, dtype=torch.bool, device=dev)
+    out.append((f"KNOWS out behind a hub of {EXPAND_HUB} B={B + 1} "
+                f"total={total}",
+                (torch.from_numpy(indptr).to(dev),
+                 torch.from_numpy(cols).to(dev),
+                 torch.from_numpy(vals).to(dev), hsrcs, hvalid,
+                 frame_cap(total)), EXPAND_HUB))
+    return out
+
+
+def hold_expand(got, want, what):
+    """K1's frame against the plain version's: row, dst, ok and total
+    exactly, val where ok."""
+    import torch
+
+    assert int(got[4]) == int(want[4]), (what, int(got[4]), int(want[4]))
+    for i in (0, 1, 3):
+        assert torch.equal(got[i], want[i]), f"expand {what}: output {i}"
+    ok = want[3]
+    assert torch.equal(got[2][ok], want[2][ok]), f"expand {what}: val"
+
+
+def expand_bytes(args):
+    """K1's bound: each source's id, flag and two indptr words (13 B), each
+    edge's col and val (8 B), and the frame written once (13 B a slot)."""
+    import torch
+
+    B, out_cap = args[3].numel(), args[5]
+    ip = args[0].to(torch.int64)
+    s = args[3].to(torch.int64).clamp(0, max(ip.numel() - 2, 0))
+    total = int(((ip[s + 1] - ip[s]) * args[4]).sum())
+    return 13 * B + 8 * total + 13 * out_cap
+
+
+def ldbc_card_db(smoke):
+    """The SF1-class graph through the root's generator and loader into the
+    root's database on the card: (tables, graph, store)."""
+    import numpy as np
+
+    t = smoke.gen_dataset(smoke.SF1_PERSONS,
+                          np.random.default_rng(smoke.SEED))
+    db = smoke.FalkorDB()
+    smoke.load_ldbc(db.select_graph("ldbc"), t)
+    return t, db.select_graph("ldbc"), db._get_or_create("ldbc").store
+
+
+def timed_query(smoke, root, g, name, cypher, params, check=None, env=None,
+                **extra):
+    """A `query` line: the first run and LDBC_QUERY_RUNS warm runs on the
+    host clock, the kernel launches of one warm run, the rows (held by
+    `check` where given, and equal on every run)."""
+    import time
+
+    import torch
+
+    ms, first = [], None
+    with smoke._environ(env):
+        for _ in range(LDBC_QUERY_RUNS + 1):
+            before = {k: v.launches for k, v in smoke.cuda.KERNELS.items()}
+            t0 = time.perf_counter()
+            rows = g.query(cypher, params).result_set
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = rows
+                if check is not None:
+                    check(rows)
+            assert rows == first, name
+    launched = {k: v.launches - before[k]
+                for k, v in smoke.cuda.KERNELS.items()
+                if v.launches > before[k]}
+    print("query " + json.dumps({
+        "root": root, "query": name, "first_ms": ms[0], "ms": ms[1:],
+        "rows": len(first), "launches": launched, **extra}), flush=True)
+
+
+def csr_expand_rows(smoke, root, dev, ldbc):
+    """K1 from the root's package at check_expand's shapes (see the module
+    docstring), then the two LDBC reads that launch it most through the
+    root's database."""
+    import torch
+
+    ptxas(smoke, root, ("expand.cu",))
+    sops = importlib.import_module("falkordb_tpu_torch.sparse.ops")
+    t, g, store = ldbc
+    for what, args, longest in expand_shapes(store, dev):
+        def run(args=args):
+            return sops.expand(*args)
+
+        def plain(args=args):
+            return sops.expand_plain(*args)
+
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        hold_expand(got, want, what)
+        hold_expand(again, want, what)
+        shape = f"{what} out_cap={args[5]} longest run={longest}"
+        compare_line(root, {
+            "name": "expand", "shape": shape, "ms": smoke.cuda_ms(run),
+            "plain_ms": smoke.cuda_ms(plain), "library_ms": None,
+            "bound_ms": smoke.bound_ms(expand_bytes(args))})
+        device_line(smoke, root, f"expand {shape}", run,
+                    host_api=api_counts(run))
+        out_cap, B = args[5], args[3].numel()
+
+        def six():
+            for n, dt in ((3 * B + -(-B // 1024), torch.int64),
+                          (out_cap, torch.int32), (out_cap, torch.int32),
+                          (out_cap, torch.int32), (out_cap, torch.bool),
+                          ((), torch.int64)):
+                torch.empty(n, dtype=dt, device=dev)
+
+        print("host " + json.dumps({
+            "root": root, "call": f"expand {shape}",
+            "us": host_us(run, calls=200),
+            "six_allocations_us": host_us(six, calls=200),
+            "one_allocation_us": host_us(lambda: torch.empty(
+                2 + 3 * out_cap + -(-out_cap // 4), dtype=torch.int32,
+                device=dev), calls=200),
+            **expand_host_split(sops, args)}), flush=True)
+    checks = {q.name: q for q in smoke.ldbc_queries(t)}
+    for name in EXPAND_QUERIES:
+        q = checks[name]
+        timed_query(smoke, root, g, name, q.cypher, q.params, q.check)
+
+
+def expand_host_split(sops, args):
+    """On a tree whose K1 takes the lean launch path: the microseconds a
+    call of its frame (the allocation and its five views), of the entry
+    point's launch alone with the call's arguments, and of the launch of a
+    call with no source and no slot (the ctypes call and a cooperative
+    launch of one block)."""
+    if not hasattr(sops, "_expand_frame"):
+        return {}
+    indptr, cols, vals, srcs, valid, out_cap = args
+    dev, B = srcs.get_device(), srcs.numel()
+    frame, _ = sops._expand_frame(out_cap, srcs.device)
+    ctl = sops._cuda.control("expand", dev, "fk_expand_control_bytes")[0]
+    head = (indptr.data_ptr(), indptr.numel() - 1, cols.data_ptr(),
+            None if vals is None else vals.data_ptr(), cols.numel(),
+            srcs.data_ptr(), valid.data_ptr())
+    scratch = sops._expand_scratch(dev, B).data_ptr()
+    return {
+        "frame_us": host_us(lambda: sops._expand_frame(out_cap, srcs.device),
+                            calls=200),
+        "launch_us": host_us(lambda: sops._EXPAND.launch(
+            dev, *head, B, out_cap, scratch, frame.data_ptr(), ctl),
+            calls=200),
+        "empty_launch_us": host_us(lambda: sops._EXPAND.launch(
+            dev, *head, 0, 0, scratch, frame.data_ptr(), ctl), calls=200)}
+
+
+def level_sizes(levels, unreached):
+    """The nodes of each BFS level, from 0, of a levels tensor."""
+    import numpy as np
+
+    lv = levels.cpu().numpy()
+    return np.bincount(lv[lv != unreached]).tolist()
+
+
+def parents_bytes(at, levels, unreached):
+    """K8's bound, what the data needs: every node's level and parent
+    written once (8 B), and each reached node's out-edges read once (its
+    two offset words and a 4-byte destination an edge); and the bound of a
+    pull over every row each level: levels * (4 nnz + 8 n) + 8 n.
+    (bytes, level_bytes)."""
+    import numpy as np
+
+    n, nnz = at.n_rows, int(at.nnz)
+    cols = at.cols[:nnz].cpu().numpy().astype(np.int64)
+    cols = cols[cols < unreached]
+    outdeg = np.bincount(np.clip(cols, 0, max(n - 1, 0)), minlength=n)
+    lv = levels.cpu().numpy()
+    reached = lv != unreached
+    need = 8 * n + int((8 + 4 * outdeg[reached]).sum())
+    n_levels = int(lv[reached].max()) + 1 if reached.any() else 1
+    return need, n_levels * (4 * nnz + 8 * n) + 8 * n
+
+
+def kernel_sequence(fn):
+    """One traced fn(): [(device kernel, copy or memset, microseconds)] in
+    the order they ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [[e.name, e.time_range.elapsed_us()] for e in evs]
+
+
+def parents_rows(smoke, root, dev, ldbc):
+    """K8 from the root's package at check_bfs_parents's shape (algo.BFS's
+    transpose of the whole graph over KNOWS, from the first Person), then
+    algo.BFS's kernel route through the root's database."""
+    import time
+
+    import torch
+
+    ptxas(smoke, root, ("bfs_parents.cu",))
+    tbfs = importlib.import_module("falkordb_tpu_torch.algos.bfs")
+    from falkordb_tpu_torch.algos.common import compact_adjacency
+
+    t, g, store = ldbc
+    comp = compact_adjacency(store, None, ["KNOWS"], directed=True)
+    at, src = comp.at, comp.remap[0]
+    n, nnz = at.n_rows, int(at.nnz)
+
+    def run():
+        return tbfs.bfs_parents(at, src)
+
+    def plain():
+        return tbfs.bfs_parents_plain(at.indptr, at.rows, at.cols, at.nnz,
+                                      n, src)
+
+    (lk, pk), (la, pa), (lp, pp) = run(), run(), plain()
+    torch.cuda.synchronize()
+    assert torch.equal(lk, lp) and torch.equal(pk, pp), "bfs_parents"
+    assert torch.equal(la, lp) and torch.equal(pa, pp), "bfs_parents again"
+    sizes = level_sizes(lp, tbfs.UNREACHED)
+    need, full = parents_bytes(at, lp, tbfs.UNREACHED)
+    shape = (f"KNOWS directed n={n} nnz={nnz} levels={len(sizes)} "
+             f"reached={sum(sizes)}")
+    compare_line(root, {
+        "name": "bfs_parents", "shape": shape, "ms": smoke.cuda_ms(run),
+        "plain_ms": smoke.cuda_ms(plain), "library_ms": None,
+        "bound_ms": smoke.bound_ms(need)})
+    print("levels " + json.dumps({
+        "root": root, "frontier": sizes, "bound_ms": smoke.bound_ms(need),
+        "level_bound_ms": smoke.bound_ms(full)}), flush=True)
+    device_line(smoke, root, f"bfs_parents {shape}", run,
+                host_api=api_counts(run))
+    print("split " + json.dumps({
+        "root": root, "call": "bfs_parents", "device_us_in_order":
+        kernel_sequence(run)}), flush=True)
+    print("host " + json.dumps({"root": root, "call": "bfs_parents",
+                                "us": host_us(run, calls=50)}), flush=True)
+    forward = comp.csr
+    t0 = time.perf_counter()
+    forward.transpose_host()
+    transpose_s = time.perf_counter() - t0
+    timed_query(smoke, root, g, "algo_bfs_kernel", BFS_CYPHER,
+                {"id": int(t["person_id"][0])},
+                env={"FALKOR_NO_NATIVE_BFS": "1"},
+                transpose_host_s=transpose_s)
 
 
 if __name__ == "__main__":

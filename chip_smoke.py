@@ -181,9 +181,9 @@ from falkordb_tpu_torch.algos.bfs import (
     UNREACHED, UNREACHED8, bfs_levels, bfs_levels_plain, bfs_multi,
     bfs_multi_ell, bfs_multi_ell_packed, bfs_multi_ell_sorted,
     bfs_multi_plain, bfs_multi_stepped, bfs_parents, bfs_parents_plain,
-    ell_reach_parts, multi_bfs_level, multi_bfs_level_plain, multi_bfs_plan,
-    multi_bfs_state, multi_bfs_state_at, multi_bfs_sums, multi_bfs_sums_plain,
-    packed_init, packed_levels, packed_levels_plain,
+    bfs_parents_run, ell_reach_parts, multi_bfs_level, multi_bfs_level_plain,
+    multi_bfs_plan, multi_bfs_state, multi_bfs_state_at, multi_bfs_sums,
+    multi_bfs_sums_plain, packed_init, packed_levels, packed_levels_plain,
 )
 from falkordb_tpu_torch.algos.bfs_packed import (
     bfs_multi_gated, bfs_multi_gated_hostdriven, chunk_bounds, chunk_reach,
@@ -811,33 +811,23 @@ def _row(name, shape, ms, plain_ms, library_ms, nbytes, err, flops=0,
 
 
 def check_expand(store, dev):
-    tid = store.schema.reltype_id("KNOWS")
+    """K1 at bench_port_compare.py's shapes (`expand_shapes`: the first
+    65,536 Persons over KNOWS out and in, and the out-rows behind a hub
+    source of 262,144 edges), each frame as runtime/ops.py sizes it.
+    Exact, and the same bits on a second call."""
     rows = []
-    for orient, csr in (("out", store.adj_out(tid).base),
-                        ("in", store.adj_in_csr(tid))):
-        c = csr.to(dev)
-        B = 65_536
-        srcs = torch.arange(B, dtype=torch.int32, device=dev)  # Persons
-        valid = torch.ones(B, dtype=torch.bool, device=dev)
-        ip = csr.host_view()[0]
-        total = int((ip[1:B + 1] - ip[:B]).sum())
-        out_cap = 1024
-        while out_cap < total:  # sized as runtime/ops.py does
-            out_cap *= 2
-        args = (c.indptr, c.cols, c.vals, srcs, valid, out_cap)
+    for what, args, longest in bench_port_compare.expand_shapes(store, dev):
         k = expand(*args)
+        again = expand(*args)
         p = expand_plain(*args)
         torch.cuda.synchronize()
-        assert int(k[4]) == int(p[4]) == total, (int(k[4]), int(p[4]), total)
-        for i in (0, 1, 3):
-            assert torch.equal(k[i], p[i]), f"expand {orient}: output {i}"
-        ok = p[3]
-        assert torch.equal(k[2][ok], p[2][ok]), f"expand {orient}: val"
-        nbytes = 13 * B + 8 * total + 13 * out_cap
-        rows.append(_row("expand", f"KNOWS {orient} B={B} total={total} "
-                         f"out_cap={out_cap}", cuda_ms(lambda: expand(*args)),
-                         cuda_ms(lambda: expand_plain(*args)), None, nbytes,
-                         0.0))
+        bench_port_compare.hold_expand(k, p, what)
+        bench_port_compare.hold_expand(again, p, what)
+        rows.append(_row("expand", f"{what} out_cap={args[5]}",
+                         cuda_ms(lambda: expand(*args)),
+                         cuda_ms(lambda: expand_plain(*args)), None,
+                         bench_port_compare.expand_bytes(args), 0.0,
+                         longest_run=longest))
     return rows
 
 
@@ -1090,21 +1080,30 @@ def check_bc_sweep(store, dev):
 
 def check_bfs_parents(store, dev):
     """K8 at the shape algo.BFS(p, null, 'KNOWS') builds (all nodes, KNOWS
-    directed) from the first Person.  Exact."""
+    directed) from the first Person.  Exact, the same level count and the
+    same bits on a second call.  bound_ms counts what the data needs
+    (bench_port_compare.parents_bytes), level_bound_ms a pull over every
+    row each level; the row also has the CUDA API calls of one call and
+    the frontier of each level."""
     comp = compact_adjacency(store, None, ["KNOWS"], directed=True)
     at, src = comp.at, comp.remap[0]  # the first Person
     n, nnz = at.n_rows, int(at.nnz)
     plain = (at.indptr, at.rows, at.cols, at.nnz, n, src)
-    lk, pk = bfs_parents(at, src)
+    lk, pk, count = bfs_parents_run(at, src)
+    la, pa, _ = bfs_parents_run(at, src)
     lp, pp = bfs_parents_plain(*plain)
     torch.cuda.synchronize()
     assert torch.equal(lk, lp) and torch.equal(pk, pp), "bfs_parents"
-    levels = int(lp[lp != UNREACHED].max()) + 1  # the last finds nothing
+    assert torch.equal(la, lp) and torch.equal(pa, pp), "bfs_parents again"
+    sizes = bench_port_compare.level_sizes(lp, UNREACHED)
+    assert count == len(sizes), (count, sizes)  # the last finds nothing
+    need, full = bench_port_compare.parents_bytes(at, lp, UNREACHED)
     return [_row("bfs_parents", f"KNOWS directed n={n} nnz={nnz} "
-                 f"levels={levels} reached={int((lp != UNREACHED).sum())}",
+                 f"levels={count} reached={sum(sizes)}",
                  cuda_ms(lambda: bfs_parents(at, src)),
-                 cuda_ms(lambda: bfs_parents_plain(*plain)), None,
-                 levels * (4 * nnz + 8 * n) + 8 * n, 0.0)]
+                 cuda_ms(lambda: bfs_parents_plain(*plain)), None, need, 0.0,
+                 level_bound_ms=bound_ms(full), frontier=sizes,
+                 api_calls=api_calls(lambda: bfs_parents(at, src)))]
 
 
 BFS_LANES = 2048  # bench_port.py's batch: 2048 lanes as int16 words
@@ -3654,7 +3653,8 @@ def main(argv=None):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            **{k: r[k] for k in ("jacobi_bound_ms",) if k in r}})
+            **{k: r[k] for k in ("jacobi_bound_ms", "level_bound_ms")
+               if k in r}})
     with open_out("chip_smoke.json") as f:
         json.dump({"nvidia_smi": smi.stdout.strip(), "persons": args.persons,
                    "rmat_scale": args.rmat_scale, "kernel_rows": results,

@@ -9,8 +9,8 @@ _bfs_parents_jit, _bfs_multi_jit and _bfs_level_step, the ELL level
 functions); here CUDA tensors launch the hand-written kernels under csrc/
 (bfs_levels.cu, bfs_parents.cu, multi_bfs.cu, packed_levels.cu, and
 bfs_packed.py's K9, K10 and K12), each level driven by a host loop that
-reads one flag (K16: one cooperative launch a call, every level on the
-card), and CPU tensors run the plain versions beside the wrappers
+reads one flag (K8 and K16: one cooperative launch a call, every level on
+the card), and CPU tensors run the plain versions beside the wrappers
 (`*_plain`).  The gated batched BFS is bfs_packed.py; the
 direction-optimising host BFS is native/bfsnative.cpp."""
 
@@ -94,13 +94,13 @@ def bfs_levels_plain(indptr, rows, cols, nnz, n: int, src: int,
 
 def bfs_levels_parents(a_csr_or_at, src: int, max_depth=None):
     """Levels and parents from src, each an (n,) int32 tensor on the CSR's
-    device.  Takes the FORWARD CSR (and builds its transpose) or, given
-    anything else, the transpose itself.  The parent of a node is the least
-    id among its in-neighbours one level up; parents[src] = src and -1
-    where unreached; levels are UNREACHED there.  The BFS runs to the
-    fixpoint; max_depth then masks deeper levels and leaves parents as they
-    are."""
-    at = a_csr_or_at.transpose_host() if isinstance(a_csr_or_at, CSR) \
+    device.  Takes the FORWARD CSR (and its transpose, `CSR.transpose()`:
+    made once and cached on it) or, given anything else, the transpose
+    itself.  The parent of a node is the least id among its in-neighbours
+    one level up; parents[src] = src and -1 where unreached; levels are
+    UNREACHED there.  The BFS runs to the fixpoint; max_depth then masks
+    deeper levels and leaves parents as they are."""
+    at = a_csr_or_at.transpose() if isinstance(a_csr_or_at, CSR) \
         else a_csr_or_at
     n, dev = at.n_rows, at.device
     if src < 0:
@@ -113,29 +113,120 @@ def bfs_levels_parents(a_csr_or_at, src: int, max_depth=None):
     return levels, parents
 
 
+# -- K8's plan: the transpose's entries grouped by source -----------------------
+#
+# csrc/bfs_parents.cu pushes every level from the frontier's out-edges, queued
+# as runs of at most PART_EDGES (a hub's edges spread over many warps); each
+# edge that reaches a node claimed in the level offers its column as the
+# node's parent by an atomic min.
+PART_EDGES = 256  # csrc/bfs_parents.cu kPart
+
+
+def parents_plan_arrays(indptr: np.ndarray, cols: np.ndarray, nnz: int,
+                        n: int):
+    """K8's plan of a transpose CSR of n rows (host arrays): (fwd_ptr,
+    fwd_dst, fwd_col, qcap, ncap).  The entries before nnz whose column is a
+    candidate (below UNREACHED) grouped by clipped source, in entry order:
+    source u's destinations (the entries' rows) are fwd_dst[fwd_ptr[u]:
+    fwd_ptr[u + 1]] and fwd_col the same entries' columns.  qcap: the
+    queue's runs a call can need at most (each node that can be reached,
+    its out-edges in runs of PART_EDGES); ncap: the nodes that can be
+    claimed at most (the rows with an entry)."""
+    ip = np.minimum(indptr.astype(np.int64), nnz)
+    lo, hi = (int(ip[0]), int(ip[-1])) if n else (0, 0)
+    c = cols[lo:hi]
+    row_of = np.repeat(np.arange(n, dtype=np.int32), np.diff(ip))
+    keep = c.astype(np.int64) < UNREACHED
+    u = np.clip(c[keep], 0, max(n - 1, 0))
+    order = np.argsort(u, kind="stable")
+    fwd_ptr = np.zeros(n + 1, np.int32)
+    np.cumsum(np.bincount(u, minlength=n), out=fwd_ptr[1:])
+    ncap = max(int(np.count_nonzero(np.diff(ip))), 1)
+    qcap = ncap + 1 + -(-len(order) // PART_EDGES)
+    return (fwd_ptr, row_of[keep][order], c[keep][order].astype(np.int32),
+            qcap, ncap)
+
+
+@dataclasses.dataclass(eq=False)
+class ParentsPlan:
+    """K8's plan of one transpose on its device (`parents_plan_arrays`) and
+    the queue and node list a call fills (each call sets its counts up
+    itself)."""
+    fwd_ptr: torch.Tensor
+    fwd_dst: torch.Tensor
+    fwd_col: torch.Tensor
+    queue: torch.Tensor  # (qcap, 2) int32 runs of fwd_dst
+    nodes: torch.Tensor  # (ncap,) int32
+
+
+def parents_plan(at: CSR) -> ParentsPlan:
+    """K8's plan of the transpose `at`, made once and cached on it."""
+    hit = at.__dict__.get("_parents_plan")
+    if hit is None:
+        indptr, cols, _ = at.host_view()
+        fwd_ptr, fwd_dst, fwd_col, qcap, ncap = parents_plan_arrays(
+            indptr, cols, int(at.nnz), at.n_rows)
+        dev = at.device
+
+        def up(a):  # one word at least, for a valid pointer
+            return torch.from_numpy(a if len(a) else np.zeros(1, a.dtype)) \
+                .to(dev)
+
+        hit = at.__dict__["_parents_plan"] = ParentsPlan(
+            up(fwd_ptr), up(fwd_dst), up(fwd_col),
+            torch.empty(qcap, 2, dtype=torch.int32, device=dev),
+            torch.empty(ncap, dtype=torch.int32, device=dev))
+    return hit
+
+
+_BFS_PARENTS = _cuda.Entry("fk_bfs_parents", "bfs_parents")
+
+
 def bfs_parents(at_csr: CSR, src: int):
     """(levels, parents) from 0 <= src over the TRANSPOSE adjacency, to the
     fixpoint."""
-    n = at_csr.n_rows
-    dev = at_csr.device
-    if not _cuda.on_cuda(at_csr.indptr, at_csr.cols, at_csr.nnz):
+    if not _cuda.on_card(at_csr.cols, at_csr.indptr, at_csr.nnz):
         return bfs_parents_plain(at_csr.indptr, at_csr.rows, at_csr.cols,
-                                 at_csr.nnz, n, src)
-    _cuda.check_input("bfs_parents", "indptr", at_csr.indptr, torch.int32,
-                      n + 1)
-    _cuda.check_input("bfs_parents", "cols", at_csr.cols, torch.int32)
-    levels = torch.empty(n, dtype=torch.int32, device=dev)
-    parents = torch.empty(n, dtype=torch.int32, device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
-    n_levels = ctypes.c_int64(0)
-    p = _cuda.ptr
-    rc = _cuda.lib().fk_bfs_parents(
-        p(at_csr.indptr), p(at_csr.cols), p(at_csr.nnz), n, int(src),
-        p(levels), p(parents), p(flag), ctypes.byref(n_levels),
-        _cuda.stream_ptr(levels))
-    _cuda.check(rc, "bfs_parents")
-    _cuda.count_launch("bfs_parents")
-    return levels, parents
+                                 at_csr.nnz, at_csr.n_rows, src)
+    return bfs_parents_run(at_csr, src)[:2]
+
+
+def bfs_parents_run(at_csr: CSR, src: int):
+    """`bfs_parents` and the levels it ran (the last one found nothing):
+    (levels, parents, n_levels).  CUDA tensors run csrc/bfs_parents.cu in
+    one cooperative launch a call over `parents_plan(at_csr)`, on the lean
+    launch path; CPU tensors the plain version."""
+    n = at_csr.n_rows
+    indptr, cols, nnz = at_csr.indptr, at_csr.cols, at_csr.nnz
+    if not _cuda.on_card(cols, indptr, nnz):
+        levels, parents = bfs_parents_plain(indptr, at_csr.rows, cols, nnz,
+                                            n, src)
+        reached = levels[levels != UNREACHED]
+        return levels, parents, int(reached.max()) + 1 if reached.numel() \
+            else 1
+    for name, t, size in (("indptr", indptr, n + 1), ("cols", cols, None)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
+                or (size is not None and t.numel() != size):
+            raise _cuda.input_error("bfs_parents", name, t, torch.int32, size)
+    if nnz.dtype != torch.int32 or nnz.numel() != 1:
+        raise _cuda.input_error("bfs_parents", "nnz", nnz, torch.int32, 1,
+                                None)
+    out = torch.empty(2 * n, dtype=torch.int32, device=cols.device)
+    levels, parents = out[:n], out[n:]
+    if n == 0:
+        return levels, parents, 0
+    dev = cols.get_device()
+    plan = parents_plan(at_csr)
+    ctl, staging = _cuda.control("bfs_parents", dev,
+                                 "fk_bfs_parents_control_bytes")
+    count = ctypes.c_int64(0)
+    _BFS_PARENTS.launch(dev, n, int(src), plan.fwd_ptr.data_ptr(),
+                        plan.fwd_dst.data_ptr(), plan.fwd_col.data_ptr(),
+                        plan.queue.data_ptr(), plan.queue.shape[0],
+                        plan.nodes.data_ptr(), plan.nodes.numel(),
+                        levels.data_ptr(), parents.data_ptr(), ctl, staging,
+                        ctypes.byref(count))
+    return levels, parents, int(count.value)
 
 
 def bfs_parents_plain(indptr, rows, cols, nnz, n: int, src: int):

@@ -17,10 +17,10 @@ The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
 kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
-one.  K2, K5, K6, K7's sweep, K9's level form, K14, K16, K17, K23, K24,
-K26, K27's `double` and K30 take it; the other wrappers still take
-`on_cuda`, `check_input` and a `lib()` lookup a call.
-K5, K6, K7's sweep and K16, persistent cooperative launches, keep their
+one.  K1, K2, K5, K6, K7's sweep, K8, K9's level form, K14, K16, K17,
+K23, K24, K26, K27's `double` and K30 take it; the other wrappers still
+take `on_cuda`, `check_input` and a `lib()` lookup a call.
+K1, K5, K6, K7's sweep, K8 and K16, cooperative launches, keep their
 grid barrier's words and their result's pinned staging per card
 (`control`).
 """
@@ -148,8 +148,9 @@ _P, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 _OUT_I64 = ctypes.POINTER(ctypes.c_int64)
 _OUT_I32 = ctypes.POINTER(ctypes.c_int32)
 _SIGNATURES = {
-    "fk_expand": [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P,
-                  _P, _P, _P],
+    "fk_expand_control_bytes": [],
+    "fk_expand_scratch": [_I64],
+    "fk_expand": [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "fk_group_partials": [_P, _P, _P, _I64, _I64, _INT, _I64, _P, _P, _P, _P],
     "fk_topk": [_P, _I64, _INT, _P, _I64, _P, _P],
     "fk_bfs_levels": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _OUT_I64, _P],
@@ -165,7 +166,9 @@ _SIGNATURES = {
     "fk_segment_sum_pull": [_P, _P, _P, _I64, _P, _P, _P],
     "fk_bc_sweep_control_bytes": [],
     "fk_bc_sweep": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
-    "fk_bfs_parents": [_P, _P, _P, _I64, _I64, _P, _P, _P, _OUT_I64, _P],
+    "fk_bfs_parents_control_bytes": [],
+    "fk_bfs_parents": [_I64, _I64, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P,
+                       _P, _OUT_I64, _P],
     "fk_packed_reach": [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _P, _I64,
                         _P, _I64, _I64, _P],
     "fk_packed_reach_level": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _P,
@@ -226,10 +229,12 @@ _SIGNATURES = {
                              _P],
 }
 
-_RESTYPES = {"fk_kmeans_assign_scratch": _I64,
+_RESTYPES = {"fk_expand_control_bytes": _I64, "fk_expand_scratch": _I64,
+             "fk_kmeans_assign_scratch": _I64,
              "fk_kmeans_update_scratch": _I64,
              "fk_pagerank_control_bytes": _I64,
              "fk_pull_min_control_bytes": _I64,
+             "fk_bfs_parents_control_bytes": _I64,
              "fk_multi_bfs_control_bytes": _I64,
              "fk_bc_sweep_control_bytes": _I64,
              "fk_mesh_scratch_bytes": _I64}  # the rest return an error

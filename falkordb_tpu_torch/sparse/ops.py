@@ -1071,6 +1071,23 @@ def reduce_scalar(sr: Semiring, A: CSR, edge_mask=None):
 # ---------------------------------------------------------------------------
 
 
+_EXPAND = _cuda.Entry("fk_expand", "expand")
+_EXPAND_SCRATCH: dict = {}  # (CUDA device index, size class) -> scratch
+
+
+def _expand_scratch(dev: int, B: int) -> torch.Tensor:
+    """K1's scratch for up to B sources on CUDA device `dev`, sized by
+    csrc/expand.cu `fk_expand_scratch` for B's size class (the next power
+    of two from 1,024) and kept for later calls of that class."""
+    cls = max(1024, 1 << max(0, B - 1).bit_length())
+    hit = _EXPAND_SCRATCH.get((dev, cls))
+    if hit is None:
+        nbytes = _cuda.lib().fk_expand_scratch(cls)
+        hit = _EXPAND_SCRATCH[(dev, cls)] = torch.empty(
+            nbytes, dtype=torch.uint8, device=torch.device("cuda", dev))
+    return hit
+
+
 def expand(
     indptr: torch.Tensor,
     cols: torch.Tensor,
@@ -1092,35 +1109,54 @@ def expand(
                     against out_cap)
     Slots at and beyond total hold row = dst = -1, val = 0, valid = False.
 
-    CPU tensors run `expand_plain`; CUDA tensors launch csrc/expand.cu.
+    CPU tensors run `expand_plain`; CUDA tensors launch csrc/expand.cu (one
+    cooperative launch a call on the lean launch path), whose four frame
+    arrays and total are views of one allocation (`_expand_frame`).
     """
-    if not _cuda.on_cuda(indptr, cols, vals, srcs, src_valid):
+    if not _cuda.on_card(srcs, indptr, cols, vals, src_valid):
         return expand_plain(indptr, cols, vals, srcs, src_valid, out_cap)
-    B = srcs.numel()
-    for name, t, dtype, n in (("indptr", indptr, torch.int32, None),
-                              ("cols", cols, torch.int32, None),
-                              ("vals", vals, torch.int32, cols.numel()),
-                              ("srcs", srcs, torch.int32, None),
-                              ("src_valid", src_valid, torch.bool, B)):
-        _cuda.check_input("expand", name, t, dtype, n)
-    if indptr.numel() < 1 or cols.numel() < 1:
+    i32 = torch.int32
+    B, cap = srcs.numel(), cols.numel()
+    if indptr.dtype != i32 or cols.dtype != i32 or srcs.dtype != i32 \
+            or src_valid.dtype != torch.bool or src_valid.numel() != B \
+            or indptr.dim() != 1 or cols.dim() != 1 or srcs.dim() != 1 \
+            or src_valid.dim() != 1 or not indptr.is_contiguous() \
+            or not cols.is_contiguous() or not srcs.is_contiguous() \
+            or not src_valid.is_contiguous() or (vals is not None and (
+                vals.dtype != i32 or vals.dim() != 1 or vals.numel() != cap
+                or not vals.is_contiguous())):
+        for name, t, dtype, n in (("indptr", indptr, i32, None),
+                                  ("cols", cols, i32, None),
+                                  ("vals", vals, i32, cap),
+                                  ("srcs", srcs, i32, None),
+                                  ("src_valid", src_valid, torch.bool, B)):
+            _cuda.check_input("expand", name, t, dtype, n)
+    if indptr.numel() < 1 or cap < 1:
         raise ValueError("expand: the CSR has no rows or no capacity")
-    dev = srcs.device
-    n_blocks = -(-B // 1024)
-    scratch = torch.empty(3 * B + n_blocks, dtype=torch.int64, device=dev)
-    row = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    dst = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    val = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    ok = torch.empty(out_cap, dtype=torch.bool, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
-    p = _cuda.ptr
-    rc = _cuda.lib().fk_expand(
-        p(indptr), indptr.numel() - 1, p(cols), p(vals), cols.numel(),
-        p(srcs), p(src_valid), B, out_cap, p(scratch), p(row), p(dst),
-        p(val), p(ok), p(total), _cuda.stream_ptr(srcs))
-    _cuda.check(rc, "expand")
-    _cuda.count_launch("expand")
-    return row, dst, val, ok, total
+    dev = srcs.get_device()
+    frame, out = _expand_frame(out_cap, srcs.device)
+    _EXPAND.launch(dev, indptr.data_ptr(), indptr.numel() - 1,
+                   cols.data_ptr(), None if vals is None else vals.data_ptr(),
+                   cap, srcs.data_ptr(), src_valid.data_ptr(), B, out_cap,
+                   _expand_scratch(dev, B).data_ptr(), frame.data_ptr(),
+                   _cuda.control("expand", dev, "fk_expand_control_bytes")[0])
+    return out
+
+
+def _expand_frame(out_cap: int, device):
+    """K1's frame on `device`: one int32 allocation laid out as
+    csrc/expand.cu `fk_expand` takes it (total, row, dst, val, ok), and
+    (row, dst, val, ok, total) as views of it: one split and two dtype
+    views, since every tensor op costs the host microseconds."""
+    q = -(-out_cap // 4)
+    frame = torch.empty(2 + 3 * out_cap + q, dtype=torch.int32,
+                        device=device)
+    total, row, dst, val, ok = frame.split_with_sizes(
+        [2, out_cap, out_cap, out_cap, q])
+    ok = ok.view(torch.bool)
+    if 4 * q != out_cap:
+        ok = ok[:out_cap]
+    return frame, (row, dst, val, ok, total.view(torch.int64)[0])
 
 
 def expand_plain(indptr, cols, vals, srcs, src_valid, out_cap: int):

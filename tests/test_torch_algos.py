@@ -764,6 +764,149 @@ def test_bfs_parents_match_jax(rng, kind, max_depth, src_node):
             assert int((tp >= 0).sum()) > 50
 
 
+def _k8_graph(kind, rng):
+    """(src, dst, n) of K8's shapes: "sparse_rows", 2,000 nodes whose first
+    100 alone have edges (most rows have no in-edge, as algo.BFS's KNOWS
+    over every node); "multi", every edge two or three times, self-loops
+    among them."""
+    if kind == "sparse_rows":
+        src = rng.integers(0, 100, 400)
+        dst = rng.integers(0, 100, 400)
+        return src, dst, 2000
+    src = rng.integers(0, 60, 150)
+    dst = rng.integers(0, 60, 150)
+    rep = rng.integers(2, 4, 150)
+    loops = rng.choice(60, 6, replace=False)
+    return (np.concatenate([np.repeat(src, rep), loops]),
+            np.concatenate([np.repeat(dst, rep), loops]), 60)
+
+
+@pytest.mark.parametrize("kind", ["sparse_rows", "multi"])
+@pytest.mark.parametrize("source", ["widest", "no_out_edge"])
+def test_bfs_parents_shapes_match_jax(rng, kind, source):
+    src, dst, n = _k8_graph(kind, rng)
+    s = int(np.bincount(src, minlength=n).argmax()) if source == "widest" \
+        else int(np.setdiff1d(np.arange(n), src)[0])
+    jc, tc = _both(src, dst, n)
+    jl, jp = (np.asarray(x) for x in jax_bfs_parents(jc, s))
+    tl, tp = bfs_levels_parents(tc, s)
+    np.testing.assert_array_equal(tl.numpy(), jl)
+    np.testing.assert_array_equal(tp.numpy(), jp)
+    reached = int((tl != UNREACHED).sum())
+    assert reached == 1 if source == "no_out_edge" else reached > 20
+
+
+def _transpose_arrays(src, dst, n, descending):
+    """The transpose CSR's (indptr, rows, cols) of src -> dst, each row's
+    columns ascending or descending."""
+    order = np.lexsort((-src if descending else src, dst))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n))])
+    return (indptr.astype(np.int32), dst[order].astype(np.int32),
+            src[order].astype(np.int32))
+
+
+@pytest.mark.parametrize("order", ["ascending", "descending"])
+def test_bfs_parents_least_in_neighbour_matches_jax(rng, order):
+    """Node 9's in-neighbours 1, 2, 3 lie on level 1 (and 8 on level 2): the
+    least, 1, is its parent whatever the order its row lists them in."""
+    from types import SimpleNamespace
+
+    from falkordb_tpu_torch.algos import bfs as tbfs
+
+    src = np.array([0, 0, 0, 3, 2, 1, 1, 8, 0, 0, 7, 5])
+    dst = np.array([1, 2, 3, 9, 9, 9, 8, 9, 5, 7, 4, 4])
+    more_src = rng.integers(10, 80, 300)
+    more_dst = rng.integers(10, 80, 300)
+    src = np.concatenate([src, [9], more_src])
+    dst = np.concatenate([dst, [10], more_dst])
+    n = 80
+    ip, rows, cols = _transpose_arrays(src, dst, n, order == "descending")
+    nnz = len(cols)
+    jat = SimpleNamespace(indptr=jnp.asarray(ip), rows=jnp.asarray(rows),
+                          cols=jnp.asarray(cols), nnz=jnp.int32(nnz),
+                          n_rows=n)
+    at = CSR.from_host(ip, rows, cols, None, nnz, (n, n))
+    jl, jp = (np.asarray(x) for x in jax_bfs_parents(jat, 0))
+    tl, tp = tbfs.bfs_parents(at, 0)
+    np.testing.assert_array_equal(tl.numpy(), jl)
+    np.testing.assert_array_equal(tp.numpy(), jp)
+    assert int(tp[9]) == 1 and int(tp[4]) == 5 and int(tl[10]) == 3
+
+
+def test_bfs_levels_parents_takes_the_cached_transpose(monkeypatch):
+    """bfs_levels_parents over one forward CSR makes its transpose once
+    (`CSR.transpose()`), so a second call builds none; both calls give
+    the JAX package's levels and parents."""
+    rng = np.random.default_rng(23)
+    src, dst, n = _graph("random", rng)
+    jc, a = _both(src, dst, n)
+    made = []
+    real = CSR.transpose_host
+
+    def counted(self, *args, **kw):
+        made.append(self)
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(CSR, "transpose_host", counted)
+    for s, depth in ((0, None), (7, 2)):
+        tl, tp = bfs_levels_parents(a, s, depth)
+        jl, jp = (np.asarray(x) for x in jax_bfs_parents(jc, s, depth))
+        np.testing.assert_array_equal(tl.numpy(), jl)
+        np.testing.assert_array_equal(tp.numpy(), jp)
+    assert made == [a] and a.transpose() is a.__dict__["_transpose"]
+
+
+def test_parents_plan_groups_the_entries_by_source():
+    """K8's plan (algos/bfs.py `parents_plan_arrays`): the entries before
+    nnz whose column is below UNREACHED grouped by clipped source in entry
+    order (the destinations of each source's out-edges, and the entries'
+    own columns), whatever the order of each row; a queue that holds every
+    run a call can queue and a node list every row that can be claimed;
+    n = 0 and nnz = 0; made once a transpose and cached on it."""
+    from falkordb_tpu_torch.algos import bfs as tbfs
+
+    rng = np.random.default_rng(29)
+    n = 700
+    src = rng.integers(0, n, 5000)
+    src[:300] = 11  # a hub source: runs of PART_EDGES
+    dst = rng.integers(0, n, 5000)
+
+    def grouped(ip, rows, cols):
+        fwd_ptr, fwd_dst, fwd_col, qcap, ncap = tbfs.parents_plan_arrays(
+            ip, np.concatenate([cols, [n + 5, 3]]).astype(np.int32), 5000, n)
+        c = cols.astype(np.int64)
+        keep = c < UNREACHED
+        u = np.clip(c, 0, n - 1)
+        np.testing.assert_array_equal(np.diff(fwd_ptr),
+                                      np.bincount(u[keep], minlength=n))
+        for s_ in (0, 11, n - 1):
+            mine = keep & (u == s_)
+            np.testing.assert_array_equal(
+                fwd_dst[fwd_ptr[s_]:fwd_ptr[s_ + 1]], rows[mine])
+            np.testing.assert_array_equal(
+                fwd_col[fwd_ptr[s_]:fwd_ptr[s_ + 1]], cols[mine])
+        runs = -(-np.diff(fwd_ptr) // tbfs.PART_EDGES)
+        assert ncap == len(np.unique(rows))
+        assert runs.sum() + 1 <= qcap <= ncap + 1 + 5000
+
+    for descending in (False, True):
+        grouped(*_transpose_arrays(src, dst, n, descending))
+    ip, rows, cols = _transpose_arrays(src, dst, n, False)
+    odd = cols.copy()
+    odd[[10, 20, 30]] = [-4, n + 2, UNREACHED]  # clipped; no candidate
+    grouped(ip, rows, odd)
+    for nn in (0, 4):  # no node; nodes and no entry
+        fwd_ptr, fwd_dst, fwd_col, qcap, ncap = tbfs.parents_plan_arrays(
+            np.zeros(nn + 1, np.int32), np.zeros(1, np.int32), 0, nn)
+        assert fwd_ptr.tolist() == [0] * (nn + 1)
+        assert len(fwd_dst) == len(fwd_col) == 0 and qcap == 2
+    at = CSR.from_host(ip, rows, cols, None, 5000, (n, n))
+    plan = tbfs.parents_plan(at)
+    assert tbfs.parents_plan(at) is plan
+    assert plan.queue.shape[1] == 2 and plan.queue.dtype == torch.int32
+    assert plan.nodes.numel() == len(np.unique(rows))
+
+
 # -- the procedures through Cypher ----------------------------------------------
 
 

@@ -28,6 +28,16 @@ not fit SHARED_BITS (the bitmap read from L2), negative weights on a DAG;
 n = 0, nnz = 0, n = 1, a source with no out-edge; the same bits on a
 second call, which cuts no plan.
 
+K8: BFS with parents (falkordb_tpu_torch/algos/bfs.py `bfs_parents_run`,
+csrc/bfs_parents.cu, one persistent cooperative launch a call over the plan
+of `parents_plan`) against `bfs_parents_plain`: equal levels, parents and
+level count, over random, power-law, single-hub and mostly-empty-row
+graphs, from their widest source and from one with no out-edge; a
+transpose whose rows are not sorted by source, columns past either end
+and a capacity past nnz; n = 1, nnz = 0, a source
+past the end; the same bits on a second call, which cuts no plan; 3 CUDA
+API calls a call.
+
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
 and tests/conftest.py does, so run it there with the conftest off:
@@ -441,3 +451,112 @@ def test_pull_min_edge_cases(dev):
         wcc.wcc_run(bad)
     with pytest.raises(ValueError, match="cols must be a contiguous"):
         sssp.sssp_run(bad, 0)
+
+
+# -- K8: BFS with parents ----------------------------------------------------------
+
+
+def hold_k8(at, src):
+    """K8 against its plain version: equal levels, parents and level count,
+    one launch a call, the same on a second call, which finds the plan cut
+    by the first."""
+    from falkordb_tpu_torch.algos import bfs
+
+    before = cuda.KERNELS["bfs_parents"].launches
+    levels, parents, count = bfs.bfs_parents_run(at, src)
+    want_l, want_p = bfs.bfs_parents_plain(at.indptr, at.rows, at.cols,
+                                           at.nnz, at.n_rows, src)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["bfs_parents"].launches == before + 1
+    assert torch.equal(levels, want_l) and torch.equal(parents, want_p)
+    reached = want_l[want_l != bfs.UNREACHED]
+    assert count == (int(reached.max()) + 1 if reached.numel() else 1)
+    plan = at.__dict__["_parents_plan"]
+    again = bfs.bfs_parents_run(at, src)
+    assert torch.equal(again[0], levels) and torch.equal(again[1], parents)
+    assert again[2] == count and at.__dict__["_parents_plan"] is plan
+    return levels, count, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "power", "hub", "sparse"])
+@pytest.mark.parametrize("layout", ["sorted", "unsorted"])
+def test_bfs_parents_matches_plain(kind, layout, dev):
+    src, dst, n = k6_edges(kind, seed=2)
+    if layout == "sorted":
+        at = k6_csr(src, dst, n, dev, pad=40)
+    else:  # each row's columns in the edges' order
+        at = transpose(src, dst, n, dev, pad=40)
+    s = int(np.bincount(src, minlength=n).argmax())  # the widest source
+    levels, count, _ = hold_k8(at, s)
+    assert count > 2 and int((levels < 2**30).sum()) > 100
+    lone = int(np.setdiff1d(np.arange(min(n, 50_000)), src)[0])
+    assert hold_k8(at, lone)[1] == 1  # no out-edge: one level
+
+
+@pytest.mark.cuda
+def test_bfs_parents_out_of_range_columns(dev):
+    """Columns past either end read their clipped node's level and are the
+    parent themselves; one at 2^30 is no candidate."""
+    rng = np.random.default_rng(3)
+    n = 5000
+    src = rng.integers(0, n, 40_000)
+    dst = rng.integers(0, n, 40_000)
+    at = transpose(src, dst, n, dev)
+    cols = at.cols.cpu().numpy()
+    cols[rng.integers(0, 40_000, 30)] = -2
+    cols[rng.integers(0, 40_000, 30)] = n + 3
+    cols[rng.integers(0, 40_000, 5)] = 2**30
+    at = CSR.from_host(at.indptr.cpu().numpy(), at.rows.cpu().numpy(), cols,
+                       None, 40_000, (n, n), device=dev)
+    for s in (0, n - 1, 17):
+        hold_k8(at, s)
+
+
+@pytest.mark.cuda
+def test_bfs_parents_edge_cases(dev):
+    from falkordb_tpu_torch.algos import bfs
+
+    none = k6_csr(np.zeros(0, np.int64), np.zeros(0, np.int64), 5, dev)
+    levels, count, _ = hold_k8(none, 2)  # nnz = 0
+    assert count == 1 and levels.tolist() == [2**30, 2**30, 0, 2**30, 2**30]
+    for loop in (0, 1):  # n = 1, with and without a self-loop
+        one = k6_csr(np.zeros(loop, np.int64), np.zeros(loop, np.int64), 1,
+                     dev)
+        assert hold_k8(one, 0)[1] == 1
+    at = k6_csr(*k6_edges("random"), dev)
+    levels, count, _ = hold_k8(at, at.n_rows + 3)  # past the end: no source
+    assert count == 1 and not bool((levels < 2**30).any())
+    empty = CSR.empty((0, 0), device=dev)
+    levels, parents, count = bfs.bfs_parents_run(empty, 0)
+    assert levels.shape == parents.shape == (0,) and count == 0
+    bad = CSR(none.indptr, none.rows, none.cols.to(torch.int64), None,
+              none.nnz, 5, 5)
+    with pytest.raises(ValueError, match="cols must be a contiguous"):
+        bfs.bfs_parents(bad, 0)
+
+
+@pytest.mark.cuda
+def test_bfs_parents_api_calls(dev):
+    """One cooperative launch, one copy, one synchronisation a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from falkordb_tpu_torch.algos import bfs
+
+    src, dst, n = k6_edges("random")
+    at = k6_csr(src, dst, n, dev)
+    bfs.bfs_parents(at, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bfs.bfs_parents(at, 0)
+    api = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith("cuda")}
+
+    def calls(*words):
+        return sum(c for k, c in api.items() if any(w in k for w in words))
+
+    assert calls("Launch") == 1 and calls("Memcpy") == 1, api
+    # the profiler's own closing cudaDeviceSynchronize left out
+    assert calls("StreamSynchronize") == 1 and calls("Memset") == 0, api

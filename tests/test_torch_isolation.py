@@ -15,8 +15,8 @@ import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
 from falkordb_tpu_torch.algos.betweenness import bc_sweeps, segment_sum_pull
 from falkordb_tpu_torch.algos.bfs import (
-    bfs_levels, bfs_multi, bfs_multi_stepped, bfs_parents, multi_bfs_level,
-    multi_bfs_state, packed_levels,
+    bfs_levels, bfs_multi, bfs_multi_stepped, bfs_parents, bfs_parents_run,
+    multi_bfs_level, multi_bfs_state, packed_levels,
 )
 from falkordb_tpu_torch.algos.bfs_packed import (
     PackedChunk, chunk_reach, packed_counts, packed_epilogue, packed_seed,
@@ -327,6 +327,32 @@ def test_k6_k14_wrappers_refuse_other_devices():
         kmeans_update(X, a, 2)
     with pytest.raises(ValueError, match="several devices"):
         kmeans_update(torch.zeros(4, 3), a, 2)
+    assert all(k.launches == 0 for k in cuda.KERNELS.values())
+    assert cuda._lib is None
+
+
+def test_k1_k8_wrappers_refuse_other_devices():
+    """K1's and K8's lean launch paths: meta tensors and mixed devices
+    raise before any frame, plan or library (nothing built, nothing
+    launched)."""
+    cuda.reset_launches()
+    i32 = torch.int32
+    ip, c = torch.zeros(4, dtype=i32), torch.zeros(8, dtype=i32)
+    s, ok = torch.zeros(2, dtype=i32), torch.ones(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        expand(ip.to("meta"), c.to("meta"), None, s.to("meta"),
+               ok.to("meta"), 16)
+    with pytest.raises(ValueError, match="several devices"):
+        expand(ip, c, c.to("meta"), s, ok, 16)
+    meta = CSR(*(torch.zeros(k, dtype=i32, device="meta") for k in (4, 8, 8)),
+               None, torch.zeros((), dtype=i32, device="meta"), 3, 3)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        bfs_parents_run(meta, 0)
+    at = CSR.from_coo_numpy([0, 1], [1, 2], None, shape=(3, 3), dedup=False)
+    mixed = CSR(at.indptr, at.rows, at.cols.to("meta"), None, at.nnz, 3, 3)
+    with pytest.raises(ValueError, match="several devices"):
+        bfs_parents_run(mixed, 0)
+    assert "_parents_plan" not in meta.__dict__
     assert all(k.launches == 0 for k in cuda.KERNELS.values())
     assert cuda._lib is None
 

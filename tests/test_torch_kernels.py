@@ -79,6 +79,87 @@ def test_expand_matches_jax(rng, with_vals, cap_mode):
         assert not t[2].any()
 
 
+def _expand_case(case, rng):
+    """(src, dst, val, shape, cap, srcs, valid, out_cap) of K1's edge cases:
+    B = 1; a source whose run (5,000 edges) passes the card's merge-path
+    tile (2,048 items); B = 3,001, no multiple of the tile or a warp; out_cap
+    0, below total and equal to it; source ids past either end (clipped);
+    a capacity 40 entries past nnz; n_rows = 1."""
+    n = 300
+    src, dst, val = _random_csr(rng, n, n, 4.0)
+    if case == "hub":
+        src = np.concatenate([src, np.full(5000, 7)])
+        dst = np.concatenate([dst, rng.integers(0, n, 5000)])
+        val = rng.permutation(len(src)).astype(np.int32)
+    if case == "one_row":
+        n = 1
+        src = np.zeros(9, np.int64)
+        dst = np.zeros(9, np.int64)
+        val = np.arange(9, dtype=np.int32)
+    B = {"one": 1, "ragged": 3001, "hub": 400}.get(case, 200)
+    lo, hi = (-7, n + 7) if case in ("clip", "one_row") else (0, n)
+    srcs = rng.integers(lo, hi, B).astype(np.int32)
+    valid = rng.random(B) < 0.8
+    if case == "hub":
+        srcs[[3, 50, 399]] = 7
+        valid[[3, 50, 399]] = True
+    if case == "one":
+        valid[:] = True
+    cap = len(src) + 40 if case == "padded" else None
+    return src, dst, val, (n, n), cap, srcs, valid
+
+
+@pytest.mark.parametrize("case", ["one", "hub", "ragged", "cap0", "short",
+                                  "exact", "clip", "padded", "one_row"])
+def test_expand_cases_match_jax(rng, case):
+    src, dst, val, shape, cap, srcs, valid = _expand_case(case, rng)
+    jc = JaxCSR.from_coo_numpy(src, dst, val, shape=shape, cap=cap,
+                               dedup=False)
+    tc = CSR.from_coo_numpy(src, dst, val, shape=shape, cap=cap,
+                            dedup=False)
+    if cap is not None:
+        assert tc.cap == cap > int(tc.nnz)
+    ip = np.asarray(jc.indptr).astype(np.int64)
+    s = np.clip(srcs, 0, shape[0] - 1)
+    total = int(((ip[s + 1] - ip[s]) * valid).sum())
+    out_cap = {"cap0": 0, "short": total // 3, "exact": total}.get(
+        case, 1 << total.bit_length())
+    j = [np.asarray(x) for x in jax_expand(
+        jc.indptr, jc.cols, jc.vals, srcs, valid, out_cap=out_cap)]
+    t = [x.numpy() for x in expand(
+        tc.indptr, tc.cols, tc.vals, torch.from_numpy(srcs),
+        torch.from_numpy(valid), out_cap)]
+    assert int(j[4]) == int(t[4]) == total > 0
+    assert t[4].dtype == np.int64
+    for i in (0, 1, 3):
+        assert t[i].shape == (out_cap,)
+        np.testing.assert_array_equal(t[i], j[i])
+    ok = t[3]
+    np.testing.assert_array_equal(t[2][ok], j[2][ok])
+    assert not t[2][~ok].any()
+    if case == "hub":
+        assert (t[0] == 3).sum() >= 5000 and t[3][:total].all()
+
+
+def test_expand_no_source_matches_jax(rng):
+    """B = 0: the reference's expand cannot gather from no source, so its
+    frame of one invalid source (no real edge) is the one to match."""
+    n = 50
+    src, dst, val = _random_csr(rng, n, n, 3.0)
+    jc = JaxCSR.from_coo_numpy(src, dst, val, shape=(n, n), dedup=False)
+    tc = CSR.from_coo_numpy(src, dst, val, shape=(n, n), dedup=False)
+    j = [np.asarray(x) for x in jax_expand(
+        jc.indptr, jc.cols, jc.vals, np.zeros(1, np.int32),
+        np.zeros(1, bool), out_cap=64)]
+    t = [x.numpy() for x in expand(
+        tc.indptr, tc.cols, tc.vals, torch.zeros(0, dtype=torch.int32),
+        torch.zeros(0, dtype=torch.bool), 64)]
+    assert int(j[4]) == int(t[4]) == 0
+    for i in (0, 1, 3):
+        np.testing.assert_array_equal(t[i], j[i])
+    assert not t[2].any()
+
+
 def test_expand_no_valid_source(rng):
     n = 50
     src, dst, val = _random_csr(rng, n, n, 3.0)

@@ -1,5 +1,13 @@
-"""K2 (group partials, csrc/group_partials.cu) and K3 (top-k,
-csrc/topk.cu) on the card against their plain PyTorch versions.
+"""K1 (the CSR expand, csrc/expand.cu), K2 (group partials,
+csrc/group_partials.cu) and K3 (top-k, csrc/topk.cu) on the card against
+their plain PyTorch versions.
+
+K1: the frame of one cooperative launch a call (row, dst, ok and total
+exactly; val where ok) against `expand_plain` over random, power-law and
+single-hub CSRs and a 1,000,000-edge hub source; at B = 0 and 1, B no
+multiple of the merge path's tile, out_cap 0, below total and equal to it,
+source ids past either end (clipped), a capacity past nnz, n_rows = 1 and
+no vals; the same bits on a second call, one launch a call by the counter.
 
 K2: both forms (the shared form up to SHARED_GROUPS groups, the global form
 above; a test forces either through runtime/ops.py's SHARED_GROUPS) at
@@ -39,6 +47,7 @@ from falkordb_tpu_torch.runtime.ops import (TOPK_MAX_K, group_partials,
                                             group_partials_plain,
                                             topk_smallest,
                                             topk_smallest_plain)
+from falkordb_tpu_torch.sparse.ops import expand, expand_plain
 
 
 @pytest.fixture
@@ -274,3 +283,115 @@ def test_card_group_partials_refuses(dev):
     with pytest.raises(ValueError):
         group_partials(c, v, None, 2, "median")
     assert cuda.KERNELS["group_partials"].launches == 0
+
+
+# -- K1: the CSR expand -----------------------------------------------------------
+
+
+def k1_csr(kind, dev, seed=0, n=20_000):
+    """(indptr, cols, vals) on dev of K1's card CSRs: "random" (Poisson
+    degrees, a fifth of the rows empty), "power" (Zipf degrees: hub rows),
+    "hub" ("random" with row 3 of 300,000 edges), "mega" (row 0 of
+    1,000,000 edges), "one" (n_rows = 1), "padded" ("random" with a
+    capacity 500 entries past nnz)."""
+    rng = np.random.default_rng(seed)
+    if kind == "one":
+        n = 1
+        deg = np.array([7])
+    elif kind == "power":
+        deg = np.minimum(rng.zipf(1.7, n), 50_000)
+    else:
+        deg = rng.poisson(8.0, n)
+        deg[rng.random(n) < 0.2] = 0
+        if kind == "hub":
+            deg[3] = 300_000
+        if kind == "mega":
+            deg[0] = 1_000_000
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    cap = nnz + (500 if kind == "padded" else 0)
+    cols = rng.integers(0, n, max(cap, 1)).astype(np.int32)
+    vals = rng.permutation(max(cap, 1)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (indptr, cols, vals))
+
+
+def hold_expand(indptr, cols, vals, srcs, valid, out_cap):
+    """K1 against expand_plain, twice, one launch a call: the frame."""
+    before = cuda.KERNELS["expand"].launches
+    got = expand(indptr, cols, vals, srcs, valid, out_cap)
+    again = expand(indptr, cols, vals, srcs, valid, out_cap)
+    want = expand_plain(indptr, cols, vals, srcs, valid, out_cap)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["expand"].launches == before + 2
+    for g in (got, again):
+        assert g[4].dtype == torch.int64 and g[4].dim() == 0
+        assert int(g[4]) == int(want[4])
+        for i, dt in ((0, torch.int32), (1, torch.int32), (3, torch.bool)):
+            assert g[i].dtype == dt and g[i].shape == (out_cap,)
+            assert torch.equal(g[i], want[i]), i
+        ok = want[3]
+        assert torch.equal(g[2][ok], want[2][ok])
+        assert not bool(g[2][~ok].any())
+    return int(want[4])
+
+
+def frames(total):
+    """out_cap: 0, below total, total, the power of two runtime/ops.py
+    takes."""
+    cap = 1024
+    while cap < total:
+        cap *= 2
+    return sorted({0, total // 3, total, cap})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "power", "hub", "padded"])
+@pytest.mark.parametrize("B", [0, 1, 4097, 65_536])
+def test_card_expand_equals_plain(kind, B, dev):
+    indptr, cols, vals = k1_csr(kind, dev)
+    n = indptr.numel() - 1
+    rng = np.random.default_rng(B)
+    srcs = rng.integers(-3, n + 3, B).astype(np.int32)  # clipped at both ends
+    if kind == "hub" and B:
+        srcs[rng.integers(0, B, 3)] = 3
+    valid = rng.random(B) < 0.9
+    s = torch.from_numpy(srcs).to(dev)
+    v = torch.from_numpy(valid).to(dev)
+    total = int(expand_plain(indptr, cols, vals, s, v, 0)[4])
+    for out_cap in frames(total):
+        assert hold_expand(indptr, cols, vals, s, v, out_cap) == total
+    hold_expand(indptr, cols, None, s, v, frames(total)[-1])
+
+
+@pytest.mark.cuda
+def test_card_expand_hub_sources(dev):
+    """A source of 1,000,000 edges among 65,536 others, and n_rows = 1."""
+    indptr, cols, vals = k1_csr("mega", dev)
+    B = 65_536
+    s = torch.arange(B, dtype=torch.int32, device=dev)
+    v = torch.ones(B, dtype=torch.bool, device=dev)
+    total = int(expand_plain(indptr, cols, vals, s, v, 0)[4])
+    assert total > 1_000_000
+    for out_cap in (total, 1 << total.bit_length(), 700_000):
+        hold_expand(indptr, cols, vals, s, v, out_cap)
+    one = k1_csr("one", dev)
+    s = torch.tensor([0, -4, 9, 0], dtype=torch.int32, device=dev)
+    v = torch.tensor([True, True, False, True], device=dev)
+    assert hold_expand(*one, s, v, 1024) == 21
+    assert hold_expand(*one, s, v, 5) == 21
+
+
+@pytest.mark.cuda
+def test_card_expand_refuses(dev):
+    indptr, cols, vals = k1_csr("random", dev)
+    s = torch.zeros(4, dtype=torch.int32, device=dev)
+    v = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="srcs must be"):
+        expand(indptr, cols, vals, s.long(), v, 64)
+    with pytest.raises(ValueError, match="src_valid must be"):
+        expand(indptr, cols, vals, s, v[:3], 64)
+    with pytest.raises(ValueError, match="vals must be"):
+        expand(indptr, cols, vals[:-1], s, v, 64)
+    with pytest.raises(ValueError, match="several devices"):
+        expand(indptr, cols, vals, s.cpu(), v, 64)
+    assert cuda.KERNELS["expand"].launches == 0
