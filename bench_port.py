@@ -31,9 +31,10 @@ K9, K10 a level, fused in runs of --max-levels) over the degree-sorted
 blocked ELL of the transpose, the roots mapped into its id space; edge
 counts by K12 (weighted_counts).
 
-Preparation: the generator is numpy (its edges are cached under
-.bench_cache/port/); the degree relabel, the CSRs and ELLs are built in
-PyTorch on the card, equal bit for bit to bench.py's numpy builders.
+Preparation: the generator is numpy, its draws in up to 8 threads (its
+edges are cached under .bench_cache/port/); the degree relabel, the CSRs
+and ELLs are built in PyTorch on the card, equal bit for bit to bench.py's
+numpy builders.
 Unlike bench.py it builds the scale asked for (no fallback to a smaller
 cached scale) and it prints no metric without a measurement: no card, or
 any failure, exits non-zero.
@@ -84,23 +85,47 @@ def log(*a):
     print("#", *a, file=sys.stderr, flush=True)
 
 
+RMAT_CHUNK = 1 << 22  # edges a thread of the generator draws at a time
+
+
 def rmat_edges(scale, edgefactor=16, a=0.57, b=0.19, c=0.19, seed=1):
-    """Vectorized Graph500 RMAT generator (numpy; bench.py's stream)."""
+    """Vectorized Graph500 RMAT generator (numpy; bench.py's stream, the
+    same edges bit for bit).  Bit i of every edge takes the i-th pair of
+    rng.random(m) draws; PCG64 gives one 64-bit output a double, so a
+    thread draws its chunk of each from a copy of the generator advanced
+    to it, and the chunks run in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
     n = 1 << scale
     m = n * edgefactor
     rng = np.random.default_rng(seed)
+    start = rng.bit_generator.state
     src = np.zeros(m, dtype=np.int64)
     dst = np.zeros(m, dtype=np.int64)
     ab = a + b
     c_norm = c / (1.0 - ab)
     a_norm = a / ab
-    for i in range(scale):
-        r1 = rng.random(m)
-        r2 = rng.random(m)
-        src_bit = r1 > ab
-        dst_bit = np.where(src_bit, r2 > c_norm, r2 > a_norm)
-        src |= src_bit.astype(np.int64) << i
-        dst |= dst_bit.astype(np.int64) << i
+
+    def draws(offset, count):
+        bg = np.random.PCG64()
+        bg.state = start
+        bg.advance(offset)
+        return np.random.Generator(bg).random(count)
+
+    def chunk(lo):
+        k = min(lo + RMAT_CHUNK, m) - lo
+        s_, d_ = src[lo:lo + k], dst[lo:lo + k]
+        for i in range(scale):
+            r1 = draws(2 * i * m + lo, k)
+            r2 = draws((2 * i + 1) * m + lo, k)
+            src_bit = r1 > ab
+            dst_bit = np.where(src_bit, r2 > c_norm, r2 > a_norm)
+            s_ |= src_bit.astype(np.int64) << i
+            d_ |= dst_bit.astype(np.int64) << i
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(chunk, range(0, m, RMAT_CHUNK)))
+    rng.bit_generator.advance(2 * scale * m)
     # permute vertex labels to break locality (Graph500 requirement)
     perm = rng.permutation(n)
     return perm[src], perm[dst], n

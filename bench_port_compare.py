@@ -1,4 +1,4 @@
-"""Time chip_smoke.py's K1-K3, K5, K6, K8, K13-K15, K18-K21, K24, K26, K27
+"""Time chip_smoke.py's K1-K6, K8, K13-K15, K18-K22, K24, K26, K27
 and K30 rows from one checkout of the repo, so that two trees can be compared
 on one card in one call.
 
@@ -20,6 +20,8 @@ on one card in one call.
     python3 bench_port_compare.py --rows fixpoint    # K6 (WCC, SSSP)
     python3 bench_port_compare.py --rows csr_expand  # K1 and two reads
     python3 bench_port_compare.py --rows parents     # K8 and algo.BFS
+    python3 bench_port_compare.py --rows shortest    # K4 and shortestPath
+    python3 bench_port_compare.py --rows ewise       # K22's two forms
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -231,6 +233,34 @@ ptxas report of csrc/bfs_parents.cu; then CALL algo.BFS on the kernel
 route (FALKOR_NO_NATIVE_BFS=1) through the database, its `query` line
 with the seconds of one host transpose of the forward CSR
 (`transpose_host`, which the call makes once a snapshot).
+
+The shortest rows share that load.  First the shortest_path_knows read of
+chip_smoke.py's mix through the database (a `query` line: its first run,
+on a fresh snapshot, is the one that builds the undirected KNOWS
+adjacency, launches K4 and, on a tree with `bfs.levels_plan`, builds K4's
+plan; the warm runs take the levels the snapshot cached), and on such a
+tree a `plan` line: the seconds of one plan build on a fresh copy of the
+transpose.  Then K4 at `check_bfs`'s two shapes (the undirected KNOWS
+transpose of the whole graph from the first Person, to the fixpoint and
+at max_depth 2), each held to its plain version and to a second call's
+bits: a `compare` row, a `levels` line (the frontier of each level, its
+out-edges, and both bounds: what the data needs and a pull over every row
+each level), a `device` line with the CUDA API calls of one call, a
+`host` line (µs a call) and a `per_level` line: the ms of a call at
+max_depth 1, 2, ... (CUDA events), each level's time the difference of
+two; on a tree with `bfs.PULL_SHARE` the same with every level pushed and
+with every level pulled; and the ptxas report of csrc/bfs_levels.cu.
+
+The ewise rows are K22 at chip_smoke.py's `check_semiring` shape (A =
+RMAT-`--scale` deduplicated, B every other edge of it, built by the
+root's `semiring_graph`), in both forms (A and B, A and not B), each held to
+its plain version and to a second call's bits: a `compare` row beside
+`torch.isin` of the int64 keys (`invert=True` for the difference), with
+`bound_ms` (A's rows and columns, the mask, B's indptr and columns) and
+`indptr_bound_ms` (A's indptr in place of its rows), a `device` line with
+the CUDA API calls of one call and a `host` line; then both forms for A's
+entries in B's widest row alone (the time behind B's widest row), and the
+ptxas report of csrc/ewise_mask.cu.
 """
 
 import argparse
@@ -254,13 +284,14 @@ def main(argv=None):
                     choices=("all", "graph", "vector", "mesh", "probes",
                              "pagerank", "agg", "bfs", "expand", "reach",
                              "queries", "levels", "bc", "fixpoint",
-                             "csr_expand", "parents"),
+                             "csr_expand", "parents", "shortest", "ewise"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
                          "K24 and K26; probes: K30's reps-1 forms and K27's "
                          "double; pagerank: K5; agg: K2; bfs: K16; expand: "
                          "K23; reach: K9; queries: path g's forced LDBC "
                          "read mix; levels: K17; bc: K7; fixpoint: K6; "
-                         "csr_expand: K1; parents: K8")
+                         "csr_expand: K1; parents: K8; shortest: K4; "
+                         "ewise: K22")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -310,12 +341,16 @@ def main(argv=None):
         bc_rows(smoke, root, dev)
     if {"all", "fixpoint"} & set(args.rows):
         fixpoint_rows(smoke, root, dev)
-    if {"all", "csr_expand", "parents"} & set(args.rows):
+    if {"all", "csr_expand", "parents", "shortest"} & set(args.rows):
         ldbc = ldbc_card_db(smoke)
+        if {"all", "shortest"} & set(args.rows):  # first: a fresh snapshot
+            shortest_rows(smoke, root, dev, ldbc)
         if {"all", "csr_expand"} & set(args.rows):
             csr_expand_rows(smoke, root, dev, ldbc)
         if {"all", "parents"} & set(args.rows):
             parents_rows(smoke, root, dev, ldbc)
+    if {"all", "ewise"} & set(args.rows):
+        ewise_rows(smoke, root, args.scale, dev)
     return 0
 
 
@@ -2535,6 +2570,178 @@ def parents_rows(smoke, root, dev, ldbc):
                 {"id": int(t["person_id"][0])},
                 env={"FALKOR_NO_NATIVE_BFS": "1"},
                 transpose_host_s=transpose_s)
+
+
+# -- K4 and K22: shortestPath's BFS levels, the semiring library's ewise mask --
+
+
+def levels_bytes(at, levels, unreached, run):
+    """K4's bounds from a levels tensor of a BFS that ran `run` levels
+    (chip_smoke.py `bfs_levels_run`): what the data needs (every level
+    written once, each reached node's two offset words, and the 4-byte
+    destination of each out-edge of the nodes whose level was pushed, every
+    level but the last run) and a pull over every row each level (run * (4
+    nnz + 8 n)); and the out-edges of each level's frontier.  (bytes,
+    level_bytes, out_edges)."""
+    import numpy as np
+
+    n, nnz = at.n_rows, int(at.nnz)
+    cols = at.cols[:nnz].cpu().numpy().astype(np.int64)
+    outdeg = np.bincount(np.clip(cols, 0, max(n - 1, 0)), minlength=n)
+    lv = levels.cpu().numpy()
+    reached = lv != unreached
+    pushed = reached & (lv < run)
+    need = 4 * n + 8 * int(reached.sum()) + 4 * int(outdeg[pushed].sum())
+    edges = np.bincount(lv[reached], weights=outdeg[reached]).astype(
+        np.int64).tolist()
+    return need, run * (4 * nnz + 8 * n), edges
+
+
+def shortest_rows(smoke, root, dev, ldbc):
+    """K4 from the root's package at check_bfs's shapes and the
+    shortest_path_knows read through the root's database (see the module
+    docstring)."""
+    import time
+
+    import torch
+
+    ptxas(smoke, root, ("bfs_levels.cu",))
+    tbfs = importlib.import_module("falkordb_tpu_torch.algos.bfs")
+    from falkordb_tpu_torch.algos.common import compact_adjacency
+    from falkordb_tpu_torch.sparse.csr import CSR
+
+    t, g, store = ldbc
+    q = {q.name: q for q in smoke.ldbc_queries(t)}["shortest_path_knows"]
+    timed_query(smoke, root, g, q.name, q.cypher, q.params, q.check)
+    comp = compact_adjacency(store, None, ["KNOWS"], directed=False,
+                             keep_eids=True)
+    at, src = comp.at, comp.remap[0]
+    n, nnz = at.n_rows, int(at.nnz)
+    if hasattr(tbfs, "levels_plan"):
+        fresh = CSR(at.indptr, at.rows, at.cols, at.vals, at.nnz, n,
+                    at.n_cols)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tbfs.levels_plan(fresh)
+        torch.cuda.synchronize()
+        print("plan " + json.dumps({
+            "root": root, "call": "levels_plan", "n": n, "nnz": nnz,
+            "s": time.perf_counter() - t0}), flush=True)
+        del fresh
+    for max_depth in (None, 2):
+        def run(max_depth=max_depth):
+            return tbfs.bfs_levels(at, src, max_depth)
+
+        def plain(max_depth=max_depth):
+            return tbfs.bfs_levels_plain(at.indptr, at.rows, at.cols, at.nnz,
+                                         n, src, max_depth)
+
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"bfs_levels max_depth={max_depth}"
+        assert torch.equal(again, want), "bfs_levels again"
+        sizes = level_sizes(want, tbfs.UNREACHED)
+        need, full, edges = levels_bytes(
+            at, want, tbfs.UNREACHED, smoke.bfs_levels_run(want, max_depth))
+        shape = (f"compact KNOWS undirected n={n} nnz={nnz} "
+                 f"max_depth={max_depth} levels={len(sizes)}")
+        compare_line(root, {
+            "name": "bfs_levels", "shape": shape, "ms": smoke.cuda_ms(run),
+            "plain_ms": smoke.cuda_ms(plain), "library_ms": None,
+            "bound_ms": smoke.bound_ms(need)})
+        print("levels " + json.dumps({
+            "root": root, "shape": shape, "frontier": sizes,
+            "out_edges": edges, "bound_ms": smoke.bound_ms(need),
+            "level_bound_ms": smoke.bound_ms(full)}), flush=True)
+        device_line(smoke, root, f"bfs_levels {shape}", run,
+                    host_api=api_counts(run))
+        print("host " + json.dumps({"root": root, "call": f"bfs_levels "
+                                    f"{shape}", "us": host_us(run, calls=50)}),
+              flush=True)
+    depth = len(level_sizes(tbfs.bfs_levels_plain(
+        at.indptr, at.rows, at.cols, at.nnz, n, src), tbfs.UNREACHED))
+    forms = {"auto": None}
+    if hasattr(tbfs, "PULL_SHARE"):
+        forms.update({"push": 0, "pull": 1 << 62})
+    for form, share in forms.items():
+        old = getattr(tbfs, "PULL_SHARE", None)
+        if share is not None:
+            tbfs.PULL_SHARE = share
+        try:
+            want = tbfs.bfs_levels(at, src)
+            assert torch.equal(want, tbfs.bfs_levels_plain(
+                at.indptr, at.rows, at.cols, at.nnz, n, src)), form
+            ms = [smoke.cuda_ms(lambda k=k: tbfs.bfs_levels(at, src, k))
+                  for k in range(1, depth + 1)]
+        finally:
+            if share is not None:
+                tbfs.PULL_SHARE = old
+        print("per_level " + json.dumps({
+            "root": root, "form": form, "ms_by_max_depth": ms,
+            "level_ms": [ms[0]] + [b - a for a, b in zip(ms, ms[1:])]}),
+            flush=True)
+
+
+def ewise_rows(smoke, root, scale, dev):
+    """K22 from the root's package at check_semiring's shape, both forms,
+    and behind B's widest row (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    ptxas(smoke, root, ("ewise_mask.cu",))
+    sops = importlib.import_module("falkordb_tpu_torch.sparse.ops")
+    from falkordb_tpu_torch.sparse.csr import CSR
+
+    src, dst, n = smoke.bench_port.load_rmat(scale, CACHE)
+    sg = smoke.semiring_graph((src, dst), n, dev)
+    del src, dst
+    Aw, B = sg.Aw, sg.Ah
+    nb = int(B.nnz)
+    b_ip = B.indptr.cpu().numpy().astype(np.int64)
+    wide = int(np.argmax(np.diff(np.minimum(b_ip, nb))))
+    lo, hi = (int(x) for x in Aw.indptr[wide:wide + 2].cpu())
+    ip = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    ip[wide + 1:] = hi - lo
+    hub = CSR(ip, Aw.rows[lo:hi].clone(), Aw.cols[lo:hi].clone(), None,
+              torch.tensor(hi - lo, dtype=torch.int32, device=dev), n, n)
+    for what, A in ((f"RMAT-{scale} against every other edge", Aw),
+                    (f"A's entries in B's widest row {wide} "
+                     f"(B {int(b_ip[wide + 1] - b_ip[wide])}, A {hi - lo})",
+                     hub)):
+        na = int(A.nnz)
+        ka = sops._keys(A.rows[:na], A.cols[:na])
+        kb = sops._keys(B.rows[:nb], B.cols[:nb])
+        for anti in (False, True):
+            def run(A=A, anti=anti):
+                return sops.ewise_mask(A, B, anti)
+
+            def plain(A=A, anti=anti):
+                return sops.ewise_mask_plain(A, B, anti)
+
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"ewise_mask {what} anti={anti}"
+            assert torch.equal(again, want), "ewise_mask again"
+            form = "A and not B" if anti else "A and B"
+            shape = f"{form}: {what} nnz_A={na} nnz_B={nb}"
+            row_bytes = 8 * na + A.cap + 4 * (n + 1) + 4 * nb
+            compare_line(root, {
+                "name": "ewise_mask", "shape": shape,
+                "ms": smoke.cuda_ms(run), "plain_ms": smoke.cuda_ms(plain),
+                "library_ms": smoke.cuda_ms(
+                    lambda: torch.isin(ka, kb, invert=anti)),
+                "bound_ms": smoke.bound_ms(row_bytes)})
+            print("bounds " + json.dumps({
+                "root": root, "shape": shape,
+                "bound_ms": smoke.bound_ms(row_bytes),
+                "indptr_bound_ms": smoke.bound_ms(
+                    row_bytes - 4 * na + 4 * (n + 1))}), flush=True)
+            device_line(smoke, root, f"ewise_mask {shape}", run,
+                        host_api=api_counts(run))
+            print("host " + json.dumps({
+                "root": root, "call": f"ewise_mask {shape}",
+                "us": host_us(run, calls=50)}), flush=True)
+        del ka, kb
 
 
 if __name__ == "__main__":

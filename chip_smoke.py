@@ -14,8 +14,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    compiled for sm_90a, and the seconds it took are printed.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, timed with CUDA events (median of 7
-   after a warm-up) beside its memory-traffic bound, its plain version and,
-   where one exists, the one PyTorch call that computes the same function.
+   after a warm-up; of 3 where a call takes 20 ms or more, as the slow
+   plain versions do) beside its memory-traffic bound, its plain version
+   and, where one exists, the one PyTorch call that computes the same
+   function.  K4 runs to the fixpoint and at max_depth 2 over the
+   undirected KNOWS transpose (both bounds, the CUDA API calls of a call),
+   again on a second call and from a source past n.
    K2 runs at five shapes (bench_port_compare.py `agg_shapes`): random codes
    at (131,072, 65,536) and (5 M, 430,000), one group (an aggregate with no
    key), the KNOWS runs that persons_by_knows_degree groups (the dataset's
@@ -78,14 +82,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
       tolerances), and the host-only procedures once each on a small graph;
       algo.betweenness launches K7's sweep once a source, and K7's level
       kernel not at all.
-      Each query runs once on the card for its time (cut from 3, for the
-      run's time: path g runs beside it), once on the CPU database and once
-      under the profiler for the card's busy share.
+      Each query runs once on the card, under the profiler (its time on
+      the host clock and the card's busy share come from the one run), and
+      once on the CPU database.
    b. bench_port.py's batched BFS: RMAT-22 (n = 4,194,304, 67,108,864
       edges; scale is the only cut from bench_port.py's RMAT-24, made to
       fit the run's time limit), 2048 lanes as int16 words, max 24 levels,
       chunks of 32M padded edges, sparse first level; one warm-up and 3
-      timed runs.  16 sampled lanes must reach what scipy's BFS over the
+      timed runs.  8 sampled lanes must reach what scipy's BFS over the
       forward CSR reaches, with the same edge counts, and a run that gathers
       every chunk at the first device level must give the same visited bits
       and levels.
@@ -95,13 +99,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
       128, L2) and glove-100-angular (1,183,514 x 100, cosine; n * nlist
       passes 2^31).  Each is bulk-inserted as Item nodes, indexed with
       CREATE VECTOR INDEX (k-means on the card: K13, K14) and queried
-      through db.idx.vector.queryNodes at k = 10 (K15): 500 queries on
-      SIFT and 200 on GloVe (cuts from the benchmark's 10,000, for time),
+      through db.idx.vector.queryNodes at k = 10 (K15): 250 queries on
+      SIFT and 100 on GloVe (cuts from the benchmark's 10,000, for time),
       held to recall@10 >= 0.9 against a float64 oracle on the card; the
       same queries on the plain path of the same index give the same ids up
       to float32 ties (distances within tie_band of the 10th: K15's error
       bound); 20 (10) queries with every list probed give the oracle's top
-      10 up to such ties; one profiled pass of 100 queries gives the
+      10 up to such ties; one profiled pass of 25 queries gives the
       card's busy share.  On SIFT, 150 SETs of existing vectors and 150
       creations (one query each; cut from 1,000 each, for the run's time)
       and 100 deletions go through the delta path: each written vector
@@ -118,8 +122,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
       oracle (within 1e-9).
    e. The multi-source BFS family on the RMAT graph of b.: bench_port's
       stepped mode (64 roots, K16) and packed mode (2048 roots, max 24
-      levels, fused: K9, K10, K12), 8 lanes of each against scipy's BFS,
-      the packed per-lane edge counts equal to b.'s, its stepped form
+      levels, fused: K9, K10, K12), 8 stepped lanes against scipy's BFS
+      and the packed run's levels on b.'s 8 lanes against b.'s scipy
+      levels, the packed per-lane edge counts equal to b.'s, its stepped form
       equal; bfs_multi_ell over the unsorted ELL equal to the stepped
       levels; bfs_multi_ell_sorted fused and stepped (K17) equal to each
       other and to the packed levels; pagerank_ell (K18) against K5 and a
@@ -148,6 +153,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
       once, each output equal to the kernel's of phase 3 (K27-K30, K18's
       rows, K9's body).
    Every kernel of a path must have launched during that path.
+
+Cuts for the run's time limit (1200 s), each phase's seconds from one
+run before the cuts and one after (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+section 4):
+- the RMAT generator draws in up to 8 threads, the same edges bit for bit
+  (bench_port.rmat_edges): RMAT-22 60.8 -> 14.0 s, path g's RMAT-20 graph
+  with its oracles 36.7 -> 19.9 s;
+- each LDBC query runs once on the card, profiled, where a second,
+  profiled run followed the timed one: the mixes 228.5 -> 140.9 s;
+- a call of 20 ms or more is timed 3 times, not 7 (the plain versions):
+  the kernel checks 170 -> 149 s;
+- path b holds 8 lanes to scipy (16 before), its levels from scipy's BFS
+  predecessors, and path e's packed run is held to the same lanes' levels
+  (it drew 8 more and ran scipy on them): paths b and e 134 -> 64 s;
+- the vector path runs 250 queries on SIFT, 100 on GloVe (500 and 200
+  before) and profiles 25 of them (100 before): 110.5 -> 68.0 s.
+The whole run: 1018.1 -> 680.9 s.
+No check is dropped: every query is held to its oracle and to the CPU
+database, and every kernel to its plain version.
 
 The line before the last is a JSON object {"kernels": [...]} and the last
 line {"ok": true, "device": {...}}.
@@ -639,7 +663,7 @@ def small_algorithms(db, db_cpu, rng):
     print(f"small algorithms: n={n} edges={len(u)} "
           f"rows={ {k: len(r) for k, r in got.items()} } "
           f"msf_weight={want_msf} maxflow={want_flow} oracle=ok "
-          f"cpu_rows=equal", flush=True)
+          f"cpu_rows=equal at_s={at_s()}", flush=True)
     return n, u, v
 
 
@@ -683,13 +707,22 @@ def checkpoint_roundtrip():
 # -- measurement helpers --------------------------------------------------------
 
 
+SLOW_MS = 20.0  # a call this slow or slower is timed SLOW_REPS times
+SLOW_REPS = 3
+
+
 def cuda_ms(fn, reps=7, setup=None):
     """Median milliseconds of fn() on the card (CUDA events), after one
-    warm-up call; setup(), when given, runs untimed before each call."""
+    warm-up call (SLOW_REPS calls where the warm-up took SLOW_MS or more on
+    the host clock: the plain versions); setup(), when given, runs untimed
+    before each call."""
     if setup is not None:
         setup()
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    if (time.perf_counter() - t0) * 1e3 >= SLOW_MS:
+        reps = min(reps, SLOW_REPS)
     times = []
     for _ in range(reps):
         if setup is not None:
@@ -723,7 +756,8 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "group_partials": "counts, integer sums, min, max exact; a float64 sum "
                       "of group g within (n_g - 1) * 2^-52 * sum_g |v| "
                       "(atomics add in any order)",
-    "topk": "exact", "bfs_levels": "exact",
+    "topk": "exact", "bfs_levels": "exact, on a second call and from a "
+                                   "source past n too",
     "pagerank": "same steps; scores rtol 1e-5 atol 1e-9 (float32 sums in "
                 "other orders); the same bits and steps on a second call",
     "wcc": "exact, the plain version's steps; the same bits on a second "
@@ -776,7 +810,8 @@ TOLERANCE = {  # what each kernel is held to against its plain version
                         "in any order), the same against float64 scipy; the "
                         "sorted, column-view and scalar forms the same bits "
                         "on a second call",
-    "ewise_mask": "exact, and equal to np.isin of the int64 keys",
+    "ewise_mask": "exact, and equal to np.isin of the int64 keys; the "
+                  "same bits on a second call",
     "shard_expand": "exact (every frame field, the counts)",
     "shard_reduce": "or, minplus, min exact; sum rtol 1e-4 atol 1e-12 "
                     "(float32 sums of up to ~50,000 terms in other orders "
@@ -803,7 +838,7 @@ def _row(name, shape, ms, plain_ms, library_ms, nbytes, err, flops=0,
          "library_ms": library_ms, "bound_ms": bound_ms(nbytes, flops),
          "bound_by": "operations" if by_ops else "bytes", "max_abs_err": err,
          "tolerance": TOLERANCE[name], **extra}
-    print(f"kernel {json.dumps(r)}", flush=True)
+    print(f"kernel {json.dumps(r)} at_s={at_s()}", flush=True)
     return r
 
 
@@ -890,6 +925,12 @@ def bfs_levels_run(levels, max_depth):
 
 
 def check_bfs(store, dev):
+    """K4 at the shortest path's shape (the undirected KNOWS transpose of
+    the whole graph from the first Person), to the fixpoint and at
+    max_depth 2: exact against the plain version, on a second call too;
+    then from a source past n (no level set).  Each row has both bounds
+    (what the data needs; `level_bound_ms` a pull over every row each
+    level) and the CUDA API calls of a call."""
     comp = compact_adjacency(store, None, ["KNOWS"], directed=False,
                              keep_eids=True)
     at = comp.at
@@ -898,18 +939,27 @@ def check_bfs(store, dev):
     src = comp.remap[0]  # the first Person
     for max_depth in (None, 2):
         lk = bfs_levels(at, src, max_depth)
+        again = bfs_levels(at, src, max_depth)
         lp = bfs_levels_plain(at.indptr, at.rows, at.cols, at.nnz, n, src,
                               max_depth)
         torch.cuda.synchronize()
         assert torch.equal(lk, lp), f"bfs_levels max_depth={max_depth}"
-        levels = bfs_levels_run(lp, max_depth)
+        assert torch.equal(again, lp), f"bfs_levels again {max_depth}"
+        run = bfs_levels_run(lp, max_depth)
+        need, full, _ = bench_port_compare.levels_bytes(at, lp, UNREACHED,
+                                                        run)
         rows.append(_row(
             "bfs_levels", f"compact KNOWS n={n} nnz={nnz} "
-            f"max_depth={max_depth} levels={levels}",
+            f"max_depth={max_depth} levels={run}",
             cuda_ms(lambda: bfs_levels(at, src, max_depth)),
             cuda_ms(lambda: bfs_levels_plain(at.indptr, at.rows, at.cols,
                                              at.nnz, n, src, max_depth)),
-            None, levels * (4 * nnz + 8 * n), 0.0))
+            None, need, 0.0, level_bound_ms=bound_ms(full),
+            api_calls=api_calls(lambda: bfs_levels(at, src, max_depth))))
+    past = bfs_levels(at, n + 3)
+    assert torch.equal(past, bfs_levels_plain(
+        at.indptr, at.rows, at.cols, at.nnz, n, n + 3)), "bfs_levels past n"
+    assert bool((past == UNREACHED).all())
     return rows
 
 
@@ -1478,7 +1528,8 @@ def check_multi_bfs_sums(at, roots):
              "one level": api_calls(lambda: multi_bfs_level(at, pool.pop())),
              "sums batch": api_calls(lambda: multi_bfs_sums(at, st,
                                                             ids[:L]))}
-    print(f"multi_bfs API calls a call: {json.dumps(calls)}", flush=True)
+    print(f"multi_bfs API calls a call: {json.dumps(calls)} at_s={at_s()}",
+          flush=True)
     assert all(c.get("cudaLaunchCooperativeKernel") == 1
                for c in calls.values()), calls
     assert not calls["sums batch"].get("cudaStreamSynchronize"), calls
@@ -1603,15 +1654,35 @@ def reached_lane(visited, lane, n):
     return torch.nonzero((col >> (lane % 16)) & 1).flatten().cpu().numpy()
 
 
+BFS_ORACLE_LANES = 8  # lanes of the batched BFS held to scipy (cut from 16)
+
+
+def scipy_levels(A, root):
+    """scipy's BFS over A from root: each reached node's hop count from its
+    BFS tree (the predecessors, a level at a time), UNREACHED elsewhere."""
+    from scipy.sparse.csgraph import breadth_first_order
+
+    order, pred = breadth_first_order(A, root, directed=True,
+                                      return_predecessors=True)
+    levels = np.full(A.shape[0], UNREACHED, dtype=np.int64)
+    levels[root] = 0
+    rest, d = order[1:], 0
+    while rest.size:
+        now = levels[pred[rest]] == d
+        levels[rest[now]] = d + 1
+        rest, d = rest[~now], d + 1
+    return levels
+
+
 def bfs_path(prep, dev, rng):
     """bench_port.py's batched BFS on the prepared RMAT graph: one warm-up
     and 3 timed runs (sparse first level), then the same BFS over every
     chunk at the first device level, which must give the same visited bits
-    and levels, and 16 sampled lanes against scipy's BFS on the forward
-    CSR (reached set and traversed-edge count, exactly).  Returns (stats,
-    the per-lane edge counts)."""
+    and levels, and BFS_ORACLE_LANES sampled lanes against scipy's BFS on
+    the forward CSR (reached set and traversed-edge count, exactly).
+    Returns (stats, the per-lane edge counts, {lane: scipy's levels}: the
+    packed run of path e is held to the same oracle)."""
     import scipy.sparse as sp
-    from scipy.sparse.csgraph import breadth_first_order
 
     args = (prep, BFS_LANES, BFS_MAX_LEVELS, BFS_WORD)
     r = bench_port.run_gated(*args)
@@ -1627,15 +1698,17 @@ def bfs_path(prep, dev, rng):
     fip, fcols = (t.cpu().numpy() for t in prep.fwd)
     A = sp.csr_matrix((np.ones(len(fcols), np.int8), fcols, fip),
                       shape=(n, n))
-    lanes = np.sort(rng.choice(BFS_LANES, size=16, replace=False))
+    lanes = np.sort(rng.choice(BFS_LANES, size=BFS_ORACLE_LANES,
+                               replace=False))
+    oracle = {}
     for lane in lanes:
-        want = np.sort(breadth_first_order(A, int(prep.roots[lane]),
-                                           directed=True,
-                                           return_predecessors=False))
+        oracle[int(lane)] = scipy_levels(A, int(prep.roots[lane]))
+        want = np.nonzero(oracle[int(lane)] != UNREACHED)[0]
         got = reached_lane(r.result.visited, int(lane), n)
         assert np.array_equal(got, want), f"lane {lane}: reached set"
         edges = np.float32(prep.outdeg_sorted[want].astype(np.float64).sum())
         assert r.counts[lane] == edges, (lane, r.counts[lane], edges)
+    del A
     stats = {"gteps": r.gteps, "total_edges": r.total_edges,
              "best_ms": r.best_s * 1e3, "runs_ms": [t * 1e3 for t in r.run_s],
              "levels": r.nlevels, "chunks_per_level": r.level_chunks,
@@ -1648,9 +1721,9 @@ def bfs_path(prep, dev, rng):
              "sparse_buckets": len(prep.sparse),
              "peak_bytes": r.peak_bytes, "checked_lanes": lanes.tolist()}
     print(f"bfs rmat{prep.scale} n={n} m={prep.m} lanes={BFS_LANES} "
-          f"{json.dumps(stats)} scipy=ok (16 lanes) all_chunks=equal",
-          flush=True)
-    return stats, r.counts
+          f"{json.dumps(stats)} scipy=ok ({len(lanes)} lanes) all_chunks=equal "
+          f"at_s={at_s()}", flush=True)
+    return stats, r.counts, oracle
 
 
 # -- harmonic centrality and the multi-source BFS family ------------------------
@@ -1719,7 +1792,7 @@ def harmonic_path(db, db_cpu, t, small, rng):
           "checked_persons": HARMONIC_SAMPLE, "max_rel_err": worst,
           "score_max": max(got.values()), "small_n": n}
     print(f"harmonic: {json.dumps(st)} oracle=ok small_cpu=close "
-          f"small_oracle=ok", flush=True)
+          f"small_oracle=ok at_s={at_s()}", flush=True)
     return st
 
 
@@ -1745,14 +1818,16 @@ def _levels_of(D):
 
 
 def bfs_family_path(prep, sprep, pprep, at_sorted, perm, edges,
-                    gated_counts, rng):
+                    gated_counts, oracle, rng):
     """The multi-source BFS family on the RMAT graph: bench_port's stepped
     mode (64 roots, K16), its levels of 8 sampled lanes against scipy's BFS
     on the forward graph; bfs_multi_ell over the unsorted transpose ELL from
     the same roots, equal to them; bench_port's packed mode (2048 roots,
-    max 24 levels, fused; K9, K10, K12), 8 lanes' levels_for_lane against
-    scipy, its per-lane edge counts equal to the gated path's (same roots),
-    its stepped form giving the same visited bits and level count;
+    max 24 levels, fused; K9, K10, K12), the levels_for_lane of the lanes
+    path b held to scipy, against scipy's levels of that path (`oracle`,
+    the same roots and graph), its per-lane edge counts equal to the gated
+    path's (same roots), its stepped form giving the same visited bits and
+    level count;
     bfs_multi_ell_sorted fused and stepped (K17, int8 levels), equal to
     each other and to the packed run's levels; pagerank_ell (K18) against
     K5's pagerank_transposed and a float64 PageRank, rtol 1e-4."""
@@ -1800,16 +1875,10 @@ def bfs_family_path(prep, sprep, pprep, at_sorted, perm, edges,
     assert np.array_equal(pr.counts, gated_counts), "packed against gated"
     trace = bench_port.device_times(lambda: bfs_multi_ell_packed(
         pprep.ell, pprep.roots, max_levels=BFS_MAX_LEVELS))
-    fip, fcols = (x.cpu().numpy() for x in prep.fwd)
-    A = sp.csr_matrix((np.ones(len(fcols), np.float32), fcols, fip),
-                      shape=(n, n))
-    lanes = np.sort(rng.choice(len(pprep.roots), FAMILY_LANES, replace=False))
-    D = shortest_path(A, directed=True, unweighted=True,
-                      indices=pprep.roots[lanes])
-    del A
-    for i, lane in enumerate(lanes):
+    lanes = np.array(sorted(oracle))
+    for lane in lanes:
         assert np.array_equal(res.levels_for_lane(int(lane)).cpu().numpy(),
-                              _levels_of(D[i])), f"packed lane {lane}"
+                              oracle[int(lane)]), f"packed lane {lane}"
     stepped = bfs_multi_ell_packed(pprep.ell, pprep.roots, fused=False)
     assert stepped.nlevels == res.nlevels and \
         torch.equal(stepped.visited, res.visited), "packed stepped form"
@@ -1860,7 +1929,8 @@ def bfs_family_path(prep, sprep, pprep, at_sorted, perm, edges,
                                      / want).max())}
     print(f"bfs family rmat{sprep.scale} n={n} {json.dumps(out)} "
           f"stepped_scipy=ok unsorted=stepped packed_scipy=ok "
-          f"packed_counts=gated sorted=packed pagerank_ell=ok", flush=True)
+          f"packed_counts=gated sorted=packed pagerank_ell=ok "
+          f"at_s={at_s()}", flush=True)
     return out
 
 
@@ -2001,7 +2071,7 @@ def check_semiring(sg: SemiringGraph, dev):
     S_sample = S[sample].astype(np.float64)
 
     def row(kernel, what, kern, plain, library, nbytes, exact, oracle,
-            run=None, oracle_rows=None, twice=False):
+            run=None, oracle_rows=None, twice=False, **extra):
         got, ref = kern(), plain()
         _hold(got, ref, exact, f"{kernel} {what}")
         if twice:  # a fixed combine order: the same bits on a second call
@@ -2011,7 +2081,7 @@ def check_semiring(sg: SemiringGraph, dev):
         rows[kernel].append(_row(
             kernel, f"{shape}: {what}", cuda_ms(kern), cuda_ms(plain),
             None if library is None else cuda_ms(library), nbytes,
-            _max_err(got, ref)))
+            _max_err(got, ref), **extra))
         if run is not None:
             outs[run] = got
         del ref
@@ -2096,7 +2166,7 @@ def check_semiring(sg: SemiringGraph, dev):
         lambda: sops.segment_cols_plain(PT, x, Aw, valid),
         lambda: lib_csr_t @ x, 13 * nnz + 8 * n, False, ST @ x64)
     print(f"semiring column view: build_s={view_s:.2f} (with the vxm rows "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+          f"{time.perf_counter() - t0:.1f} s) at_s={at_s()}", flush=True)
     del ST
     B8 = Bs[8]
     row("semiring_segment", "spmm plus_times_f32 k=8, edge_mask = valid",
@@ -2142,18 +2212,22 @@ def check_semiring(sg: SemiringGraph, dev):
     ka_h = ka.cpu().numpy()
     isin = np.zeros(Aw.cap, dtype=bool)
     isin[:nnz] = np.isin(ka_h, kb.cpu().numpy(), assume_unique=True)
+    ewise_bytes = 8 * nnz + Aw.cap + 4 * (n + 1) + 4 * nh
     row("ewise_mask", f"ewise_mult_mask against every other edge "
         f"(nnz_B={nh})", lambda: sops.ewise_mask(Aw, Ah),
         lambda: sops.ewise_mask_plain(Aw, Ah), lambda: torch.isin(ka, kb),
-        8 * nnz + Aw.cap + 4 * (n + 1) + 4 * nh, True, isin,
-        "ewise_mult_mask")
+        ewise_bytes, True, isin, "ewise_mult_mask", twice=True,
+        indptr_bound_ms=bound_ms(ewise_bytes - 4 * nnz + 4 * (n + 1)),
+        api_calls=api_calls(lambda: sops.ewise_mask(Aw, Ah)))
     anti = sops.ewise_mask(Aw, Ah, anti=True)
     _hold(anti, sops.ewise_mask_plain(Aw, Ah, anti=True), True,
           "ewise_anti_mask")
     assert np.array_equal(anti.cpu().numpy()[:nnz], ~isin[:nnz])
+    assert torch.equal(sops.ewise_mask(Aw, Ah, anti=True), anti)
     del anti, ka, kb, lib_csr, lib_csr_t, offsets
     print(f"semiring forms: build_s={form_s:.1f} buckets={len(fs)} "
-          f"padded={padded} ({padded / nnz:.3f}x nnz)", flush=True)
+          f"padded={padded} ({padded / nnz:.3f}x nnz) at_s={at_s()}",
+          flush=True)
     return rows, outs, form_s
 
 
@@ -2176,8 +2250,8 @@ def semiring_path(sg: SemiringGraph, outs):
         _hold(y, ref, True, f"semiring path {name}")
         stats[name] = {"host_ms": ms, "model_bytes": nbytes,
                        "shape": list(y.shape), "dtype": str(y.dtype)}
-    print(f"semiring rmat{sg.n.bit_length() - 1}: {json.dumps(stats)}",
-          flush=True)
+    print(f"semiring rmat{sg.n.bit_length() - 1}: {json.dumps(stats)} "
+          f"at_s={at_s()}", flush=True)
     return stats
 
 
@@ -2312,7 +2386,7 @@ def gather_path(gb: GatherBench, outs, dev, card):
         ms = (time.perf_counter() - t0) * 1e3
         assert torch.equal(y, outs[name]), f"gather path {name}"
         stats[name] = {"host_ms": ms, "model_bytes": nbytes}
-    print(f"gather probes: {json.dumps(stats)}", flush=True)
+    print(f"gather probes: {json.dumps(stats)} at_s={at_s()}", flush=True)
     return stats
 
 
@@ -2330,16 +2404,17 @@ class AnnConfig:
     source: str
 
 
-SIFT = AnnConfig("sift-128-euclidean", 1_000_000, 128, "euclidean", 500, 20,
+SIFT = AnnConfig("sift-128-euclidean", 1_000_000, 128, "euclidean", 250, 20,
                  "ANN-Benchmarks sift-128-euclidean: 1,000,000 base vectors, "
                  "d = 128, L2, k = 10")
-GLOVE = AnnConfig("glove-100-angular", 1_183_514, 100, "cosine", 200, 10,
+GLOVE = AnnConfig("glove-100-angular", 1_183_514, 100, "cosine", 100, 10,
                   "ANN-Benchmarks glove-100-angular: 1,183,514 base vectors, "
                   "d = 100, angular, k = 10")
 ANN_COMPONENTS = 1000
 ANN_K = 10
 ANN_WRITES = 150  # SET x.emb on existing nodes, then as many creations
 ANN_DELETES = 100
+ANN_PROFILED = 25  # queries of the profiled pass (cut from 100, for time)
 ANN_CYPHER = ("CALL db.idx.vector.queryNodes('Item', 'emb', 10, vecf32($q)) "
               "YIELD node, score RETURN node.id, score")
 
@@ -2681,7 +2756,7 @@ def ann_path(cfg, X, draw, dev, rng, writes):
 
     def profiled():
         t0 = time.perf_counter()
-        for q in Q[:100]:
+        for q in Q[:ANN_PROFILED]:
             g.query(ANN_CYPHER, {"q": q.tolist()})
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
@@ -2697,12 +2772,12 @@ def ann_path(cfg, X, draw, dev, rng, writes):
           "tie_band_median": float(np.median(bands)),
           "tie_band_rel_max": float(max(rel)),
           "all_lists_queries": cfg.all_lists, "all_lists_ties": exact_ties,
-          "profiled_queries": 100, "profiled_wall_ms": wall[0],
+          "profiled_queries": ANN_PROFILED, "profiled_wall_ms": wall[0],
           **trace_stats(trace, wall[0])}
     if writes:
         st["writes"] = ann_writes(g, db, impl, X, draw, rng, cfg)
     print(f"vector {cfg.name}: {json.dumps(st)} oracle=ok plain=ok "
-          f"all_lists=exact", flush=True)
+          f"all_lists=exact at_s={at_s()}", flush=True)
     return st
 
 
@@ -2781,12 +2856,15 @@ def small_vector_index(rng):
         assert vector_impl(db, "small_vectors").ivf is None
         out.append([g.query(ANN_CYPHER, {"q": q.tolist()}).result_set
                     for q in Q])
-    assert out[0] == out[1], "card and CPU rows differ"
+    bad = [i for i, (a, b) in enumerate(zip(*out)) if a != b]
+    assert not bad, (f"card and CPU rows differ at {len(bad)} queries, "
+                     f"first {bad[0]}: {out[0][bad[0]]} against "
+                     f"{out[1][bad[0]]}")
     for q, rows in zip(Q, out[0]):
         d2 = ((M - q) ** 2).sum(1)  # exact in float32 here
         assert [r[1] for r in rows] == np.sqrt(np.sort(d2)[:ANN_K]).tolist()
     print(f"vector small exact store: n={n} d={d} queries={len(Q)} "
-          f"card_rows=cpu_rows oracle=ok", flush=True)
+          f"card_rows=cpu_rows oracle=ok at_s={at_s()}", flush=True)
 
 
 # -- the device mesh: K23-K26, and path g ---------------------------------------
@@ -3222,7 +3300,8 @@ def mesh_drivers(g, dev):
         if name == "dist_pagerank":
             r["float64_oracle_steps"] = g.pr_tol_steps
         runs.append(r)
-        print(f"mesh driver: {json.dumps(r)} oracle=ok", flush=True)
+        print(f"mesh driver: {json.dumps(r)} oracle=ok at_s={at_s()}",
+              flush=True)
     return runs
 
 
@@ -3256,7 +3335,8 @@ def mesh_queries(g_dev, queries, env, single):
                         "rows": len(rows)}
         print(f"mesh query {qq.name} {json.dumps(env)}: "
               f"{json.dumps(out[qq.name])} oracle=ok single_card="
-              f"{'equal' if qq.same is None else 'close'}", flush=True)
+              f"{'equal' if qq.same is None else 'close'} at_s={at_s()}",
+              flush=True)
     return out
 
 
@@ -3299,15 +3379,18 @@ def mesh_path(db, t, g, dev, single):
         out["algo"] = mesh_queries(g_dev, mesh_algo_queries(t), {}, single)
         assert router._cached_mesh is not None and \
             router._cached_mesh.devices.size == MESH_SHARDS
-        print(f"mesh algo mix: s={time.perf_counter() - t0:.1f}", flush=True)
+        print(f"mesh algo mix: s={time.perf_counter() - t0:.1f} at_s={at_s()}",
+              flush=True)
         t0 = time.perf_counter()
         for mode in ("force", "auto"):
             out[f"read_{mode}"] = mesh_queries(
                 g_dev, ldbc_queries(t), {"FALKOR_DIST_QUERY": mode}, single)
-        print(f"mesh read mix: s={time.perf_counter() - t0:.1f}", flush=True)
+        print(f"mesh read mix: s={time.perf_counter() - t0:.1f} at_s={at_s()}",
+              flush=True)
         t0 = time.perf_counter()
         out["drivers"] = mesh_drivers(g, dev)
-        print(f"mesh drivers: s={time.perf_counter() - t0:.1f}", flush=True)
+        print(f"mesh drivers: s={time.perf_counter() - t0:.1f} at_s={at_s()}",
+              flush=True)
     router._cached_mesh = None
     return out
 
@@ -3345,18 +3428,24 @@ def _environ(env):
 
 
 def run_queries(g_dev, g_cpu, queries, rows_out=None):
-    """Each query once on the card (ms on the host clock), checked against
-    the oracle and against the CPU database, then once more under the
-    profiler for the card's busy time.  Returns {name: stats}; rows_out
+    """Each query once on the card under the profiler (its ms on the host
+    clock, the card's busy time from the same run), checked against the
+    oracle and against the CPU database.  Returns {name: stats}; rows_out
     gets {name: (card rows, ms)}."""
     out = {}
     for qq in queries:
         with _environ(qq.env):
             before = {k: v.launches for k, v in cuda.KERNELS.items()}
-            t0 = time.perf_counter()
-            rows = g_dev.query(qq.cypher, qq.params).result_set
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
+            run = {}
+
+            def card(qq=qq, run=run):
+                t0 = time.perf_counter()
+                run["rows"] = g_dev.query(qq.cypher, qq.params).result_set
+                torch.cuda.synchronize()
+                run["ms"] = (time.perf_counter() - t0) * 1e3
+
+            trace = bench_port.device_times(card)
+            rows, ms = run["rows"], run["ms"]
             launched = {k: v.launches - before[k]
                         for k, v in cuda.KERNELS.items()
                         if v.launches > before[k]}
@@ -3366,15 +3455,14 @@ def run_queries(g_dev, g_cpu, queries, rows_out=None):
                 assert rows == cpu_rows, (qq.name, rows[:5], cpu_rows[:5])
             else:
                 qq.same(rows, cpu_rows)
-            trace = bench_port.device_times(
-                lambda: g_dev.query(qq.cypher, qq.params))
         if rows_out is not None:
             rows_out[qq.name] = (rows, ms)
         st = {"ms": ms, "rows": len(rows), "launches": launched,
               **trace_stats(trace, ms, by_kernel=False)}
         out[qq.name] = st
         print(f"query {qq.name}: {json.dumps(st)} oracle=ok "
-              f"cpu={'equal' if qq.same is None else 'close'}", flush=True)
+              f"cpu={'equal' if qq.same is None else 'close'} at_s={at_s()}",
+              flush=True)
     return out
 
 
@@ -3446,7 +3534,7 @@ def main(argv=None):
     # phase 2: build
     secs = cuda.build()
     cuda.lib()
-    print(f"build: {secs:.2f} s", flush=True)
+    print(f"build: {secs:.2f} s at_s={at_s()}", flush=True)
     with open_out("build_log.txt") as f:
         f.write(cuda.build_log)
 
@@ -3460,7 +3548,7 @@ def main(argv=None):
           f"prep_s={prep.prep_s:.2f} chunks={len(prep.packed.chunks)} "
           f"padded_edges={prep.packed.padded_edges} "
           f"sparse_buckets={len(prep.sparse)} "
-          f"s={time.perf_counter() - t0:.1f}", flush=True)
+          f"s={time.perf_counter() - t0:.1f} at_s={at_s()}", flush=True)
     t0 = time.perf_counter()
     sprep = bench_port.prepare_stepped(args.rmat_scale,
                                        bench_port.STEPPED_NBFS,
@@ -3471,12 +3559,12 @@ def main(argv=None):
     print(f"rmat family: stepped prep_s={sprep.prep_s:.2f} packed "
           f"prep_s={pprep.prep_s:.2f} pad={pprep.pad_ratio:.3f} "
           f"buckets={len(pprep.ell.buckets)} "
-          f"s={time.perf_counter() - t0:.1f}", flush=True)
+          f"s={time.perf_counter() - t0:.1f} at_s={at_s()}", flush=True)
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     t = gen_dataset(args.persons, rng)
-    print(f"dataset: P={args.persons} gen_s={time.perf_counter() - t0:.1f}",
-          flush=True)
+    print(f"dataset: P={args.persons} gen_s={time.perf_counter() - t0:.1f} "
+          f"at_s={at_s()}", flush=True)
     db = FalkorDB()  # the card
     db_cpu = FalkorDB(device="cpu")
     t0 = time.perf_counter()
@@ -3528,12 +3616,12 @@ def main(argv=None):
     gather_rows, gather_outs = check_gather(gb, dev)
     results.update(gather_rows)
     print(f"gather kernels: inputs_s={t_inputs:.1f} "
-          f"s={time.perf_counter() - t0:.1f}", flush=True)
+          f"s={time.perf_counter() - t0:.1f} at_s={at_s()}", flush=True)
     t0 = time.perf_counter()
     sift_X, sift_draw = mixture(sift.n, sift.d,
                                 np.random.default_rng(SEED + 4))
     print(f"vectors: {sift.name} n={sift.n} d={sift.d} "
-          f"gen_s={time.perf_counter() - t0:.1f}", flush=True)
+          f"gen_s={time.perf_counter() - t0:.1f} at_s={at_s()}", flush=True)
     results.update(check_vector_kernels(sift_X, dev,
                                         np.random.default_rng(SEED + 5)))
     results["kmeans_update"] += check_update_glove(glove, dev)
@@ -3577,31 +3665,33 @@ def main(argv=None):
     t0 = time.perf_counter()
     g = MeshGraph(args.mesh_scale, dev)
     print(f"mesh graph: RMAT-{g.scale} oracle_s={g.oracle_s:.1f} "
-          f"s={time.perf_counter() - t0:.1f}", flush=True)
+          f"s={time.perf_counter() - t0:.1f} at_s={at_s()}", flush=True)
     cuda.reset_launches()
     t0 = time.perf_counter()
     mesh_stats = mesh_path(db, t, g, dev, single)
     path_launches("device mesh", MESH_KERNELS, launches)
-    print(f"mesh path: s={time.perf_counter() - t0:.1f}", flush=True)
+    print(f"mesh path: s={time.perf_counter() - t0:.1f} at_s={at_s()}",
+          flush=True)
     del db, db_cpu, store, g, single
 
     cuda.reset_launches()
-    bfs_stats, gated_counts = bfs_path(prep, dev,
+    bfs_stats, gated_counts, bfs_oracle = bfs_path(prep, dev,
                                        np.random.default_rng(SEED + 3))
     path_launches("batched BFS", BFS_KERNELS, launches)
 
     cuda.reset_launches()
     family_stats = bfs_family_path(prep, sprep, pprep, at_sorted, perm,
-                                   rmat_edges, gated_counts,
+                                   rmat_edges, gated_counts, bfs_oracle,
                                    np.random.default_rng(SEED + 12))
     path_launches("multi-source BFS family", FAMILY_KERNELS, launches)
-    del prep, sprep, pprep, at_sorted, perm, rmat_edges
+    del prep, sprep, pprep, at_sorted, perm, rmat_edges, bfs_oracle
 
     cuda.reset_launches()
     t0 = time.perf_counter()
     semiring_stats = semiring_path(sg, semiring_outs)
     path_launches("semiring library", SEMIRING_KERNELS, launches)
-    print(f"semiring path: s={time.perf_counter() - t0:.1f}", flush=True)
+    print(f"semiring path: s={time.perf_counter() - t0:.1f} at_s={at_s()}",
+          flush=True)
     del sg, semiring_outs
 
     cuda.reset_launches()
@@ -3609,7 +3699,8 @@ def main(argv=None):
     gather_stats = gather_path(gb, gather_outs, dev,
                                smi.stdout.strip().splitlines()[0])
     path_launches("gather probes", GATHER_KERNELS, launches)
-    print(f"gather path: s={time.perf_counter() - t0:.1f}", flush=True)
+    print(f"gather path: s={time.perf_counter() - t0:.1f} at_s={at_s()}",
+          flush=True)
     del gb, gather_outs
 
     cuda.reset_launches()
@@ -3653,8 +3744,8 @@ def main(argv=None):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            **{k: r[k] for k in ("jacobi_bound_ms", "level_bound_ms")
-               if k in r}})
+            **{k: r[k] for k in ("jacobi_bound_ms", "level_bound_ms",
+                                 "indptr_bound_ms") if k in r}})
     with open_out("chip_smoke.json") as f:
         json.dump({"nvidia_smi": smi.stdout.strip(), "persons": args.persons,
                    "rmat_scale": args.rmat_scale, "kernel_rows": results,

@@ -9,8 +9,8 @@ _bfs_parents_jit, _bfs_multi_jit and _bfs_level_step, the ELL level
 functions); here CUDA tensors launch the hand-written kernels under csrc/
 (bfs_levels.cu, bfs_parents.cu, multi_bfs.cu, packed_levels.cu, and
 bfs_packed.py's K9, K10 and K12), each level driven by a host loop that
-reads one flag (K8 and K16: one cooperative launch a call, every level on
-the card), and CPU tensors run the plain versions beside the wrappers
+reads one flag (K4, K8 and K16: one cooperative launch a call, every level
+on the card), and CPU tensors run the plain versions beside the wrappers
 (`*_plain`).  The gated batched BFS is bfs_packed.py; the
 direction-optimising host BFS is native/bfsnative.cpp."""
 
@@ -38,28 +38,118 @@ def bfs_levels(at_csr: CSR, src: int, max_depth=None) -> torch.Tensor:
     0 at src, the hop count at each reached node and UNREACHED elsewhere.
     `at_csr` must be the TRANSPOSE adjacency (rows = destinations).  The
     first level always runs, even with max_depth 0; src < 0 reaches
-    nothing."""
+    nothing.  CUDA tensors run csrc/bfs_levels.cu in one cooperative launch
+    a call over `levels_plan(at_csr)`, on the lean launch path, with nothing
+    read back; CPU tensors the plain version."""
     n = at_csr.n_rows
-    dev = at_csr.device
+    indptr, cols, nnz = at_csr.indptr, at_csr.cols, at_csr.nnz
     if src < 0:
-        return torch.full((n,), UNREACHED, dtype=torch.int32, device=dev)
-    if not _cuda.on_cuda(at_csr.indptr, at_csr.cols, at_csr.nnz):
-        return bfs_levels_plain(at_csr.indptr, at_csr.rows, at_csr.cols,
-                                at_csr.nnz, n, src, max_depth)
-    _cuda.check_input("bfs_levels", "indptr", at_csr.indptr, torch.int32,
-                      n + 1)
-    _cuda.check_input("bfs_levels", "cols", at_csr.cols, torch.int32)
-    levels = torch.empty(n, dtype=torch.int32, device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
-    n_levels = ctypes.c_int64(0)
-    p = _cuda.ptr
-    rc = _cuda.lib().fk_bfs_levels(
-        p(at_csr.indptr), p(at_csr.cols), p(at_csr.nnz), n, int(src),
-        -1 if max_depth is None else max(int(max_depth), 0), p(levels),
-        p(flag), ctypes.byref(n_levels), _cuda.stream_ptr(levels))
-    _cuda.check(rc, "bfs_levels")
-    _cuda.count_launch("bfs_levels")
+        return torch.full((n,), UNREACHED, dtype=torch.int32,
+                          device=at_csr.device)
+    if not _cuda.on_card(cols, indptr, nnz):
+        return bfs_levels_plain(indptr, at_csr.rows, cols, nnz, n, src,
+                                max_depth)
+    _check_transpose("bfs_levels", at_csr)
+    levels = torch.empty(n, dtype=torch.int32, device=cols.device)
+    if n == 0:
+        return levels
+    dev = cols.get_device()
+    plan = levels_plan(at_csr)
+    ctl, _ = _cuda.control("bfs_levels", dev, "fk_bfs_levels_control_bytes")
+    pull_edges = plan.edges // PULL_SHARE if PULL_SHARE > 0 else 1 << 62
+    _BFS_LEVELS.launch(
+        dev, n, int(src), -1 if max_depth is None else max(int(max_depth), 0),
+        pull_edges, plan.fwd_ptr.data_ptr(), plan.fwd_dst.data_ptr(),
+        indptr.data_ptr(), cols.data_ptr(), plan.nnz,
+        plan.pull_rows.data_ptr(), plan.n_pull, plan.queue.data_ptr(),
+        plan.queue.shape[0], levels.data_ptr(), ctl)
     return levels
+
+
+def _check_transpose(kernel: str, at: CSR) -> None:
+    """Raise unless the transpose's indptr, cols and nnz are what K4 and K8
+    take: contiguous int32, n + 1 offsets, one count."""
+    n, indptr, cols, nnz = at.n_rows, at.indptr, at.cols, at.nnz
+    for name, t, size in (("indptr", indptr, n + 1), ("cols", cols, None)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
+                or (size is not None and t.numel() != size):
+            raise _cuda.input_error(kernel, name, t, torch.int32, size)
+    if nnz.dtype != torch.int32 or nnz.numel() != 1:
+        raise _cuda.input_error(kernel, "nnz", nnz, torch.int32, 1, None)
+
+
+# -- K4's plan: every entry grouped by clipped source ---------------------------
+#
+# csrc/bfs_levels.cu pushes a level from the frontier's out-edges, queued as
+# runs of at most PART_EDGES (as K8), and pulls a level whose frontier has
+# more than 1/PULL_SHARE of the entries as out-edges: each unreached row
+# with an entry scans its in-row up to the first frontier column.
+# PULL_SHARE = 0 pushes every level.
+PULL_SHARE = 16
+
+
+@dataclasses.dataclass(eq=False)
+class LevelsPlan:
+    """K4's plan of one transpose on its device (`levels_plan_tensors`) and
+    the queue a call fills."""
+    fwd_ptr: torch.Tensor  # (n + 1,) int32
+    fwd_dst: torch.Tensor  # (edges,) int32, one word at least
+    pull_rows: torch.Tensor  # (n_pull,) int32, one word at least
+    queue: torch.Tensor  # (qcap, 2) int32 runs of fwd_dst
+    nnz: int
+    edges: int
+    n_pull: int
+
+
+def levels_plan_tensors(indptr: torch.Tensor, cols: torch.Tensor, nnz: int,
+                        n: int):
+    """K4's plan of a transpose CSR of n rows, on the tensors' device:
+    (fwd_ptr, fwd_dst, pull_rows, qcap).  Every entry before nnz (its row
+    span cut at nnz) grouped by clipped source, in entry order: source u's
+    destinations (the entries' rows) are fwd_dst[fwd_ptr[u]:fwd_ptr[u +
+    1]], a column at or above UNREACHED included (the reference clips it to
+    n - 1, unlike K8's plan).  pull_rows: the rows with such an entry, the
+    only ones a level can claim; qcap: the queue's runs a call can need at
+    most (each of those rows and src, their out-edges in runs of
+    PART_EDGES)."""
+    dev = cols.device
+    ip = indptr.to(torch.int64).clamp(max=nnz)
+    lo, hi = (int(ip[0]), int(ip[-1])) if n else (0, 0)
+    deg = ip[1:] - ip[:-1]
+    row_of = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=dev), deg,
+        output_size=hi - lo)
+    u = cols[lo:hi].to(torch.int64).clamp(0, max(n - 1, 0))
+    order = torch.sort(u, stable=True).indices
+    fwd_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    fwd_ptr[1:] = torch.cumsum(torch.bincount(u, minlength=n), 0)
+    pull_rows = torch.nonzero(deg > 0).flatten().to(torch.int32)
+    qcap = pull_rows.numel() + 1 + -(-(hi - lo) // PART_EDGES)
+    return fwd_ptr, row_of[order], pull_rows, qcap
+
+
+def levels_plan(at: CSR) -> LevelsPlan:
+    """K4's plan of the transpose `at`, made once on its device and cached
+    on it."""
+    hit = at.__dict__.get("_levels_plan")
+    if hit is None:
+        nnz = int(at.nnz)
+        fwd_ptr, fwd_dst, pull_rows, qcap = levels_plan_tensors(
+            at.indptr, at.cols, nnz, at.n_rows)
+        edges, n_pull = fwd_dst.numel(), pull_rows.numel()
+
+        def word(t):  # one word at least, for a valid pointer
+            return t if t.numel() else torch.zeros(1, dtype=t.dtype,
+                                                   device=t.device)
+
+        hit = at.__dict__["_levels_plan"] = LevelsPlan(
+            fwd_ptr, word(fwd_dst), word(pull_rows),
+            torch.empty(qcap, 2, dtype=torch.int32, device=at.device),
+            nnz, edges, n_pull)
+    return hit
+
+
+_BFS_LEVELS = _cuda.Entry("fk_bfs_levels", "bfs_levels")
 
 
 def bfs_levels_plain(indptr, rows, cols, nnz, n: int, src: int,
@@ -204,13 +294,7 @@ def bfs_parents_run(at_csr: CSR, src: int):
         reached = levels[levels != UNREACHED]
         return levels, parents, int(reached.max()) + 1 if reached.numel() \
             else 1
-    for name, t, size in (("indptr", indptr, n + 1), ("cols", cols, None)):
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
-                or (size is not None and t.numel() != size):
-            raise _cuda.input_error("bfs_parents", name, t, torch.int32, size)
-    if nnz.dtype != torch.int32 or nnz.numel() != 1:
-        raise _cuda.input_error("bfs_parents", "nnz", nnz, torch.int32, 1,
-                                None)
+    _check_transpose("bfs_parents", at_csr)
     out = torch.empty(2 * n, dtype=torch.int32, device=cols.device)
     levels, parents = out[:n], out[n:]
     if n == 0:

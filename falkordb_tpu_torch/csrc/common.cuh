@@ -3,9 +3,9 @@
 // Every entry point is a plain C function: device pointers and the CUDA
 // stream come in as void*, sizes as int64_t, and the function returns
 // cudaGetLastError() so that the Python wrapper can raise on a launch the
-// driver refused.  Kernels launch on the caller's stream, never
-// synchronise (the BFS level loop excepted: it reads one flag per level)
-// and allocate nothing: the wrapper passes outputs and scratch.
+// driver refused.  Kernels launch on the caller's stream, synchronise
+// only where an entry point reads a result back (a count or a flag, once a
+// call) and allocate nothing: the wrapper passes outputs and scratch.
 #pragma once
 
 #include <climits>

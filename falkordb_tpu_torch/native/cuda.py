@@ -17,10 +17,10 @@ The lean launch path (`on_card`, `input_error`, `Entry`) keeps a small
 kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
-one.  K1, K2, K5, K6, K7's sweep, K8, K9's level form, K14, K16, K17,
-K23, K24, K26, K27's `double` and K30 take it; the other wrappers still
-take `on_cuda`, `check_input` and a `lib()` lookup a call.
-K1, K5, K6, K7's sweep, K8 and K16, cooperative launches, keep their
+one.  K1, K2, K4, K5, K6, K7's sweep, K8, K9's level form, K14, K16, K17,
+K22, K23, K24, K26, K27's `double` and K30 take it; the other wrappers
+still take `on_cuda`, `check_input` and a `lib()` lookup a call.
+K1, K4, K5, K6, K7's sweep, K8 and K16, cooperative launches, keep their
 grid barrier's words and their result's pinned staging per card
 (`control`).
 """
@@ -153,7 +153,9 @@ _SIGNATURES = {
     "fk_expand": [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "fk_group_partials": [_P, _P, _P, _I64, _I64, _INT, _I64, _P, _P, _P, _P],
     "fk_topk": [_P, _I64, _INT, _P, _I64, _P, _P],
-    "fk_bfs_levels": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _OUT_I64, _P],
+    "fk_bfs_levels_control_bytes": [],
+    "fk_bfs_levels": [_I64, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P, _I64,
+                      _P, _I64, _P, _P, _P],
     "fk_pagerank_control_bytes": [],
     "fk_pagerank": [_P, _P, _P, _I64, _F32, _F32, _I64, _F32, _F32, _P, _I64,
                     _P, _I64, _I64, _P, _P, _P, _P, _I64, _P, _P, _OUT_I64,
@@ -203,7 +205,8 @@ _SIGNATURES = {
     "fk_semiring_cols": [_I64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64,
                          _P, _I64, _P],
     "fk_semiring_scalar": [_I64, _P, _P, _P, _P, _P, _I64, _I64, _P],
-    "fk_ewise_mask": [_P, _P, _I64, _P, _P, _I64, _P, _P, _INT, _P, _P],
+    "fk_ewise_mask": [_P, _P, _I64, _P, _P, _I64, _P, _I64, _P, _INT, _P,
+                      _P],
     "fk_shard_map": [_P, _I64, _I64, _I64, _P, _P],
     "fk_shard_scan": [_P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _I64,
                       _P, _I64, _INT, _INT, _P, _P, _P, _P, _P, _I64, _P,
@@ -234,6 +237,7 @@ _RESTYPES = {"fk_expand_control_bytes": _I64, "fk_expand_scratch": _I64,
              "fk_kmeans_update_scratch": _I64,
              "fk_pagerank_control_bytes": _I64,
              "fk_pull_min_control_bytes": _I64,
+             "fk_bfs_levels_control_bytes": _I64,
              "fk_bfs_parents_control_bytes": _I64,
              "fk_multi_bfs_control_bytes": _I64,
              "fk_bc_sweep_control_bytes": _I64,

@@ -988,25 +988,28 @@ def _check_sorted(B: CSR) -> None:
     B.__dict__["_sorted_ok"] = True
 
 
+_EWISE_MASK = _cuda.Entry("fk_ewise_mask", "ewise_mask")
+
+
 def ewise_mask(A: CSR, B: CSR, anti: bool = False):
     """K22: (cap_A,) bool over A's entries: valid and present in B's
     pattern (anti: valid and absent).  B must be sorted by (row, col), as
     every constructor builds it; the CUDA path checks that once per B and
-    raises if not.  CPU tensors run `ewise_mask_plain`; CUDA tensors launch
-    csrc/ewise_mask.cu."""
-    if not _cuda.on_cuda(A.rows, A.cols, A.nnz, B.indptr, B.cols, B.nnz):
+    raises if not (A may come in any order).  CPU tensors run
+    `ewise_mask_plain`; CUDA tensors launch csrc/ewise_mask.cu (tiles of A's
+    entries against B's span staged in shared memory) on the lean launch
+    path."""
+    if not _cuda.on_card(A.cols, A.rows, A.nnz, B.indptr, B.cols, B.nnz):
         return ewise_mask_plain(A, B, anti)
     kernel = "ewise_mask"
     _check_csr(kernel, A, vals=False)
     _check_csr(kernel, B, vals=False)
     _check_sorted(B)
     out = torch.empty(A.cap, dtype=torch.bool, device=A.device)
-    p = _cuda.ptr
-    _cuda.check(_cuda.lib().fk_ewise_mask(
-        p(A.rows), p(A.cols), A.cap, p(A.nnz), p(B.indptr), B.n_rows,
-        p(B.cols), p(B.nnz), 1 if anti else 0, p(out),
-        _cuda.stream_ptr(out)), kernel)
-    _cuda.count_launch(kernel)
+    _EWISE_MASK.launch(
+        A.cols.get_device(), A.rows.data_ptr(), A.cols.data_ptr(), A.cap,
+        A.nnz.data_ptr(), B.indptr.data_ptr(), B.n_rows, B.cols.data_ptr(),
+        B.cap, B.nnz.data_ptr(), 1 if anti else 0, out.data_ptr())
     return out
 
 

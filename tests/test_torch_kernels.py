@@ -12,6 +12,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import jax.numpy as jnp
 import torch
 
 from falkordb_tpu.algos.bfs import bfs_levels as jax_bfs_levels
@@ -402,3 +403,124 @@ def test_bfs_levels_match_jax(rng, max_depth, src):
         reached = t[t != UNREACHED]
         assert (reached <= 1).all()
         assert (reached == 1).any() == bool((np.asarray(s) == src).any())
+
+
+def _odd_transpose(rng, n=150, m=900):
+    """A transpose CSR's host arrays (indptr, rows, cols) of n rows with m
+    entries, every row's columns in random order, and columns the reference
+    clips: past n, negative, at UNREACHED and at 2^31 - 1.  The first 10
+    rows have no entry, the last at least 8; the first row with an entry
+    has only columns at UNREACHED (so n - 1 alone reaches it)."""
+    dst = np.sort(np.concatenate([rng.integers(10, n, m - 8),
+                                  np.full(8, n - 1)]))
+    cols = rng.integers(0, n, m).astype(np.int64)
+    odd = rng.choice(m - 8, 40, replace=False)
+    cols[odd] = rng.choice([n, n + 7, -1, -3, UNREACHED, 2**31 - 1], 40)
+    cols[dst == dst[0]] = UNREACHED
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n))])
+    return (indptr.astype(np.int32), dst.astype(np.int32),
+            cols.astype(np.int32))
+
+
+def _k4_model(plan, indptr, cols, nnz, n, src, max_depth, pull_edges):
+    """csrc/bfs_levels.cu's levels on the host over its plan: each level a
+    push from the frontier's out-edges in the plan, or, when they pass
+    pull_edges, a pull of the unreached rows with an entry up to their
+    first in-neighbour on the level."""
+    fwd_ptr, fwd_dst, pull_rows = (t.numpy() for t in plan[:3])
+    levels = np.full(n, UNREACHED, np.int64)
+    frontier = [src] if 0 <= src < n else []
+    if frontier:
+        levels[src] = 0
+    d = 0
+    while True:
+        edges = sum(int(fwd_ptr[u + 1] - fwd_ptr[u]) for u in frontier)
+        new = []
+        if edges > pull_edges:
+            for v in pull_rows:
+                if levels[v] != UNREACHED:
+                    continue
+                for e in range(int(indptr[v]), min(int(indptr[v + 1]), nnz)):
+                    if levels[min(max(int(cols[e]), 0), n - 1)] == d:
+                        levels[v] = d + 1
+                        new.append(int(v))
+                        break
+        else:
+            for u in frontier:
+                for v in fwd_dst[fwd_ptr[u]:fwd_ptr[u + 1]]:
+                    if levels[v] == UNREACHED:
+                        levels[v] = d + 1
+                        new.append(int(v))
+        d += 1
+        if not new or (max_depth is not None and d >= max(max_depth, 0)):
+            return levels
+        frontier = new
+
+
+@pytest.mark.parametrize("form", ["push", "pull", "auto"])
+@pytest.mark.parametrize("max_depth", [None, 0, 1, 3])
+@pytest.mark.parametrize("src", [0, 7, 150, 154])
+def test_bfs_levels_odd_columns_match_jax(form, max_depth, src):
+    """Columns past n, negative and at or above 2^30 (the reference clips
+    each to a node: K8's plan drops those at or above 2^30, K4's keeps
+    them), entries past nnz, src at and past n: the port's bfs_levels and
+    K4's plan run by `_k4_model` (every level pushed, every level pulled,
+    and PULL_SHARE's switch) equal the JAX package's levels."""
+    from falkordb_tpu_torch.algos import bfs as tbfs
+
+    rng = np.random.default_rng(31)
+    ip, rows, cols = _odd_transpose(rng)
+    n, nnz = len(ip) - 1, len(cols) - 4  # the last row's tail past nnz
+    jat = JaxCSR(*(jnp.asarray(a) for a in (ip, rows, cols)), None,
+                 jnp.int32(nnz), n, n)
+    tat = CSR.from_host(ip, rows, cols, None, nnz, (n, n))
+    j = np.asarray(jax_bfs_levels(jat, src, max_depth))
+    np.testing.assert_array_equal(bfs_levels(tat, src, max_depth).numpy(), j)
+    plan = tbfs.levels_plan_tensors(tat.indptr, tat.cols, nnz, n)
+    pull_edges = {"push": 1 << 62, "pull": -1,
+                  "auto": len(plan[1]) // tbfs.PULL_SHARE}[form]
+    np.testing.assert_array_equal(
+        _k4_model(plan, ip, cols, nnz, n, src, max_depth, pull_edges), j)
+
+
+def test_levels_plan_groups_every_entry_by_source():
+    """K4's plan (algos/bfs.py `levels_plan_tensors`) against a numpy
+    model: every entry before nnz, its row span cut at nnz, grouped by
+    clipped source in entry order (the column at or above 2^30 too), the
+    rows with such an entry, a queue for every run a call can queue; n = 0
+    and nnz = 0; made once a transpose and cached on it."""
+    from falkordb_tpu_torch.algos import bfs as tbfs
+
+    rng = np.random.default_rng(37)
+    ip, rows, cols = _odd_transpose(rng, n=700, m=5000)
+    cols[:300] = 11  # a hub source: runs of PART_EDGES
+    n = 700
+    for nnz in (5000, 4963):
+        fwd_ptr, fwd_dst, pull_rows, qcap = tbfs.levels_plan_tensors(
+            torch.from_numpy(ip), torch.from_numpy(cols), nnz, n)
+        ipc = np.minimum(ip.astype(np.int64), nnz)
+        row_of = np.repeat(np.arange(n), np.diff(ipc))
+        u = np.clip(cols[ipc[0]:ipc[-1]].astype(np.int64), 0, n - 1)
+        order = np.argsort(u, kind="stable")
+        np.testing.assert_array_equal(
+            fwd_ptr.numpy(),
+            np.concatenate([[0], np.cumsum(np.bincount(u, minlength=n))]))
+        np.testing.assert_array_equal(fwd_dst.numpy(), row_of[order])
+        np.testing.assert_array_equal(pull_rows.numpy(),
+                                      np.nonzero(np.diff(ipc) > 0)[0])
+        assert fwd_ptr.dtype == fwd_dst.dtype == pull_rows.dtype \
+            == torch.int32
+        runs = -(-np.diff(fwd_ptr.numpy()) // tbfs.PART_EDGES)
+        assert runs.sum() + 1 <= qcap <= len(pull_rows) + 1 + nnz
+    for nn in (0, 4):  # no node; nodes and no entry
+        fwd_ptr, fwd_dst, pull_rows, qcap = tbfs.levels_plan_tensors(
+            torch.zeros(nn + 1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), 0, nn)
+        assert fwd_ptr.tolist() == [0] * (nn + 1)
+        assert len(fwd_dst) == len(pull_rows) == 0 and qcap == 1
+    at = CSR.from_host(ip, rows, cols, None, 5000, (n, n))
+    plan = tbfs.levels_plan(at)
+    assert tbfs.levels_plan(at) is plan
+    assert (plan.nnz, plan.edges, plan.n_pull) == (
+        5000, 5000, len(np.unique(rows)))
+    assert plan.queue.shape[1] == 2 and plan.queue.dtype == torch.int32

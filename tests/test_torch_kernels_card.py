@@ -22,6 +22,16 @@ within (n_g - 1) * 2^-52 * sum_g |v| of the plain one (atomics add in any
 order, and each order is within half that of the exact sum).  One kernel
 launch a call and no memset, by the profiler.
 
+K4: the BFS levels of one cooperative launch a call against
+`bfs_levels_plain` (equal levels) over a random transpose with the columns
+the reference clips (past n, negative, at and above 2^30) and a row span
+cut at nnz, one with a source of 262,144 out-edges and a row of 262,144
+in-edges, and a chain (a level a node); every level pushed, every level
+pulled and PULL_SHARE's switch; src 0, inside, the last, at and past n and
+below 0; max_depth None, 0, 1 and 3; n = 0; the same levels on a second
+call, one launch a call by the counter and one CUDA API call by the
+profiler.
+
 K3: the radix select must give the same indices as `topk_smallest_plain`
 (a stable sort), ties to the lower index, at every k from 1 to n, with all
 keys equal, with keys that differ only in their lowest mantissa bits
@@ -41,12 +51,14 @@ import pytest
 import torch
 
 import bench_port_compare as bpc
+from falkordb_tpu_torch.algos import bfs as tbfs
 from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.runtime import ops
 from falkordb_tpu_torch.runtime.ops import (TOPK_MAX_K, group_partials,
                                             group_partials_plain,
                                             topk_smallest,
                                             topk_smallest_plain)
+from falkordb_tpu_torch.sparse.csr import CSR
 from falkordb_tpu_torch.sparse.ops import expand, expand_plain
 
 
@@ -395,3 +407,100 @@ def test_card_expand_refuses(dev):
     with pytest.raises(ValueError, match="several devices"):
         expand(indptr, cols, vals, s.cpu(), v, 64)
     assert cuda.KERNELS["expand"].launches == 0
+
+
+# -- K4: BFS levels ---------------------------------------------------------------
+
+
+def k4_transpose(kind, dev, seed=0, n=30_000):
+    """K4's card transposes (CSRs on dev, rows = destinations): "random"
+    (Poisson(6) in-degrees, a fifth of the rows empty, 2% of the columns
+    past n, negative, at UNREACHED or at 2^31 - 1, the last 50 entries past
+    nnz), "hub" (random, plus 262,144 entries of source 5 spread over the
+    rows and row 7 with 262,144 in-edges), "chain" (i -> i + 1: a level a
+    node, 1,000 nodes)."""
+    rng = np.random.default_rng(seed)
+    if kind == "chain":
+        n = 1000
+        dst = np.arange(1, n)
+        cols = np.arange(n - 1)
+    else:
+        deg = rng.poisson(6.0, n)
+        deg[rng.random(n) < 0.2] = 0
+        dst = np.repeat(np.arange(n), deg)
+        cols = rng.integers(0, n, len(dst))
+        odd = rng.random(len(cols)) < 0.02
+        cols[odd] = rng.choice([n, n + 9, -1, -5, tbfs.UNREACHED,
+                                2**31 - 1], int(odd.sum()))
+        if kind == "hub":
+            dst = np.concatenate([dst, rng.integers(0, n, 262_144),
+                                  np.full(262_144, 7)])
+            cols = np.concatenate([cols, np.full(262_144, 5),
+                                   rng.integers(0, n, 262_144)])
+    order = np.argsort(dst, kind="stable")
+    dst, cols = dst[order], cols[order]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n))])
+    nnz = len(cols) - (50 if kind == "random" else 0)
+    return CSR.from_host(indptr.astype(np.int32), dst.astype(np.int32),
+                         cols.astype(np.int32), None, nnz, (n, n),
+                         device=dev)
+
+
+def hold_levels(at, src, max_depth):
+    """K4 against bfs_levels_plain, twice, one launch a call."""
+    before = cuda.KERNELS["bfs_levels"].launches
+    got = tbfs.bfs_levels(at, src, max_depth)
+    again = tbfs.bfs_levels(at, src, max_depth)
+    want = tbfs.bfs_levels_plain(at.indptr, at.rows, at.cols, at.nnz,
+                                 at.n_rows, src, max_depth)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["bfs_levels"].launches == before + 2
+    for g in (got, again):
+        assert g.dtype == torch.int32 and g.shape == (at.n_rows,)
+        assert torch.equal(g, want), (src, max_depth)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "hub", "chain"])
+@pytest.mark.parametrize("form", ["auto", "push", "pull"])
+def test_card_bfs_levels_equals_plain(kind, form, dev, monkeypatch):
+    at = k4_transpose(kind, dev)
+    if form != "auto":
+        monkeypatch.setattr(tbfs, "PULL_SHARE", 0 if form == "push"
+                            else 1 << 62)
+    n = at.n_rows
+    for src in (0, 5, n - 1, n, n + 7):
+        for max_depth in (None, 0, 1, 3):
+            want = hold_levels(at, src, max_depth)
+            if src >= n:
+                assert bool((want == tbfs.UNREACHED).all())
+    if kind == "chain":
+        assert int(hold_levels(at, 0, None)[n - 1]) == n - 1
+    assert tbfs.levels_plan(at) is at.__dict__["_levels_plan"]
+    levels = tbfs.bfs_levels(at, -1)
+    assert bool((levels == tbfs.UNREACHED).all())
+
+
+@pytest.mark.cuda
+def test_card_bfs_levels_one_launch_and_edges(dev):
+    """One cooperative launch and no other CUDA API call a call (nothing
+    read back); n = 0 launches nothing; the wrong dtypes and mixed devices
+    are refused."""
+    at = k4_transpose("hub", dev)
+    api = bpc.api_counts(lambda: tbfs.bfs_levels(at, 0))
+    assert api.get("cudaLaunchCooperativeKernel") == 1, api
+    assert not any(k.startswith(("cudaMemcpy", "cudaMemset",
+                                 "cudaStreamSynchronize")) for k in api), api
+    empty = CSR.from_host(np.zeros(1, np.int32), np.zeros(1, np.int32),
+                          np.zeros(1, np.int32), None, 0, (0, 0), device=dev)
+    cuda.reset_launches()
+    assert tbfs.bfs_levels(empty, 0).shape == (0,)
+    assert cuda.KERNELS["bfs_levels"].launches == 0
+    bad = CSR(at.indptr, at.rows, at.cols.long(), None, at.nnz, *at.shape)
+    with pytest.raises(ValueError, match="cols must be"):
+        tbfs.bfs_levels(bad, 0)
+    mixed = CSR(at.indptr.cpu(), at.rows, at.cols, None, at.nnz, *at.shape)
+    with pytest.raises(ValueError, match="several devices"):
+        tbfs.bfs_levels(mixed, 0)
+    assert cuda.KERNELS["bfs_levels"].launches == 0

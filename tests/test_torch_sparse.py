@@ -387,6 +387,68 @@ def test_ewise_masks_match_jax(anti):
     np.testing.assert_array_equal(_np(got), want)
 
 
+def _ewise_case(case):
+    """K22's awkward inputs as JAX CSRs (A, B) of 40 x 30,000: B every other
+    entry of a random pattern plus a row (7) of ~19,000 entries, wider than
+    the kernel's span in shared memory (6,144); A the pattern, a third of
+    that row and 500 columns of it that B lacks.  "a_unsorted" shuffles A's
+    entries within each row; "a_empty" and "b_empty" keep no entry of A or
+    of B."""
+    rng = np.random.default_rng(41)
+    n, m = 40, 30_000
+    pat = np.unique(np.stack([rng.integers(0, n, 1500),
+                              rng.integers(0, m, 1500)], 1), axis=0)
+    hub = np.unique(rng.integers(0, m, 24_000))
+    lack = np.setdiff1d(np.arange(m), hub)[:500]
+    b = np.unique(np.concatenate([pat[::2], np.stack(
+        [np.full(len(hub), 7), hub], 1)]), axis=0)
+    a = np.unique(np.concatenate([pat, np.stack(
+        [np.full(len(hub[::3]) + 500, 7), np.concatenate([hub[::3], lack])],
+        1)]), axis=0)
+    if case == "a_empty":
+        a = a[:0]
+    if case == "b_empty":
+        b = b[:0]
+    jA = J.CSR.from_coo_numpy(a[:, 0], a[:, 1], None, shape=(n, m))
+    jB = J.CSR.from_coo_numpy(b[:, 0], b[:, 1], None, shape=(n, m))
+    if case == "a_unsorted":
+        nnz = int(jA.nnz)
+        ip = np.asarray(jA.indptr)
+        cols = np.asarray(jA.cols).copy()
+        for i in range(n):
+            cols[ip[i]:ip[i + 1]] = rng.permutation(cols[ip[i]:ip[i + 1]])
+        assert not np.array_equal(cols, np.asarray(jA.cols))
+        jA = J.CSR(jA.indptr, jA.rows, jnp.asarray(cols), None, jA.nnz, n, m)
+        assert int(jA.nnz) == nnz
+    return jA, jB
+
+
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("case", ["a_unsorted", "b_hub_row", "a_empty",
+                                  "b_empty"])
+def test_ewise_masks_awkward_inputs_match_jax(case, anti):
+    """K22's plain version against the JAX package and np.isin of the int64
+    keys, exactly, on A unsorted within its rows, B with a row wider than
+    one shared-memory span of the kernel, and A or B empty."""
+    jA, jB = _ewise_case(case)
+    tA, tB = carry(jA), carry(jB)
+    fn, jfn = ((T.ewise_anti_mask, J.ewise_anti_mask) if anti
+               else (T.ewise_mult_mask, J.ewise_mult_mask))
+    got = fn(tA, tB)
+    assert_same(got, jfn(jA, jB), exact=True)
+    na, nb = int(jA.nnz), int(jB.nnz)
+    ka = (np.asarray(jA.rows)[:na].astype(np.int64) << 32) \
+        | np.asarray(jA.cols)[:na]
+    kb = (np.asarray(jB.rows)[:nb].astype(np.int64) << 32) \
+        | np.asarray(jB.cols)[:nb]
+    inb = np.isin(ka, kb)
+    want = np.zeros(jA.cap, dtype=bool)
+    want[:na] = ~inb if anti else inb
+    np.testing.assert_array_equal(_np(got), want)
+    if case == "b_hub_row" and not anti:
+        assert want.sum() > 6144  # the hub row's hits pass one span
+
+
 @pytest.mark.parametrize("combine", ["last", "plus"])
 def test_ewise_add_host_matches_jax(combine):
     jA, tA = random_pair(density=0.1)

@@ -7,7 +7,13 @@ edge masks, NaN, an unsorted B refused, dtypes the kernels do not
 instantiate refused, and strided operands (a transposed B, a strided x or
 mask) taken through the public API; K19, K20 and K21's rows and scalar
 forms under their compile-time and dynamic semiring specs, bit for bit;
-vxm over the cached column view with signed zeros and NaN.
+vxm over the cached column view with signed zeros and NaN.  K22 in both
+forms against its plain version and np.isin of the int64 keys: B's hub
+rows (15,000 and 262,144 entries, past one tile's span in shared memory),
+tiles across a hub row's edge, A unsorted within its rows and A's entries
+in no order at all, A's and B's arrays at a 4-byte offset (the scalar
+loads), a_nnz = 0, b_nnz = 0 and a_cap = 0; the same bits on a second call
+and one launch a call.
 
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
@@ -209,6 +215,99 @@ def test_card_ewise_segment_reduce_nan_and_refusals(dev):
     bool_sr = tsemiring.Semiring("b", "or", "pair", torch.bool)
     with pytest.raises(TypeError, match="no CUDA instantiation"):
         T.mxv(bool_sr, A, x.to(torch.int32), edge_mask=A.valid_mask())
+
+
+def ewise_inputs(kind, dev):
+    """(A, B) on dev for K22: A hub_graph(seed=3) (rows 10-12 of 30,000,
+    9,000 and 2,500 entries) and B every other entry of it ("hub15k"), or
+    A a random pattern of 4,000 x 1,048,576 with row 3 of ~87,000 entries
+    against B every other entry of it plus row 3 of 262,144 entries
+    ("hub262k"); "unsorted" is hub15k with A's columns shuffled within
+    each row, "scattered" with A's entries in no order at all, "offset"
+    with A's rows and cols and B's cols at a 4-byte offset into their
+    buffers; "a_nnz0", "b_nnz0" and "a_cap0" keep no entry of A, of B, and
+    give A no capacity."""
+    rng = np.random.default_rng(17)
+    if kind == "hub262k":
+        n, m = 4000, 1 << 20
+        r = np.repeat(np.arange(n), rng.poisson(10, n))
+        c = rng.integers(0, m, len(r))
+        hub = rng.choice(m, 262_144, replace=False)
+        A = T.CSR.from_coo_numpy(np.concatenate([r, np.full(87_000, 3)]),
+                                 np.concatenate([c, rng.integers(0, m,
+                                                                 87_000)]),
+                                 None, shape=(n, m), device=dev)
+        ar, ac, _ = A.to_numpy_coo()
+        keep = np.arange(len(ar)) % 2 == 0
+        B = T.CSR.from_coo_numpy(np.concatenate([ar[keep], np.full(
+            len(hub), 3)]), np.concatenate([ac[keep], hub]), None,
+            shape=(n, m), device=dev)
+        return A, B
+    A = hub_graph(seed=3).to(dev)
+    r, c, _ = A.to_numpy_coo()
+    keep = np.arange(len(r)) % 2 == 0
+    B = T.CSR.from_coo_numpy(r[keep], c[keep], None, shape=A.shape,
+                             device=dev)
+    nnz = len(r)
+    if kind in ("unsorted", "scattered"):
+        if kind == "unsorted":
+            ip = A.host_view()[0]
+            perm = np.concatenate([ip[i] + rng.permutation(ip[i + 1] - ip[i])
+                                   for i in range(A.n_rows)])
+        else:
+            perm = rng.permutation(nnz)
+        pad = A.cap - nnz
+        rows = np.concatenate([r[perm], np.zeros(pad, np.int32)])
+        cols = np.concatenate([c[perm], np.zeros(pad, np.int32)])
+        A = T.CSR(A.indptr, _t(rows).to(dev), _t(cols).to(dev), None, A.nnz,
+                  *A.shape)
+    if kind == "offset":
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            buf[1:] = t
+            return buf[1:]
+
+        A = T.CSR(A.indptr, shifted(A.rows), shifted(A.cols), None, A.nnz,
+                  *A.shape)
+        B = T.CSR(B.indptr, B.rows, shifted(B.cols), None, B.nnz, *B.shape)
+        assert A.rows.data_ptr() % 16 and B.cols.data_ptr() % 16
+    if kind == "a_nnz0":
+        A = T.CSR(A.indptr, A.rows, A.cols, None, torch.zeros(
+            (), dtype=torch.int32, device=dev), *A.shape)
+    if kind == "b_nnz0":
+        B = T.CSR(B.indptr, B.rows, B.cols, None, torch.zeros(
+            (), dtype=torch.int32, device=dev), *B.shape)
+    if kind == "a_cap0":
+        none = torch.zeros(0, dtype=torch.int32, device=dev)
+        A = T.CSR(torch.zeros(A.n_rows + 1, dtype=torch.int32, device=dev),
+                  none, none, None, torch.zeros((), dtype=torch.int32,
+                                                device=dev), *A.shape)
+    return A, B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hub15k", "hub262k", "unsorted",
+                                  "scattered", "offset", "a_nnz0", "b_nnz0",
+                                  "a_cap0"])
+def test_card_ewise_mask_forms_equal_plain_and_isin(kind, dev):
+    A, B = ewise_inputs(kind, dev)
+    na, nb = int(A.nnz), int(B.nnz)
+    ka = ((A.rows[:na].long() << 32) | A.cols[:na].long()).cpu().numpy()
+    kb = ((B.rows[:nb].long() << 32) | B.cols[:nb].long()).cpu().numpy()
+    inb = np.isin(ka, kb)
+    for anti in (False, True):
+        got = tops.ewise_mask(A, B, anti)
+        again = tops.ewise_mask(A, B, anti)
+        plain = tops.ewise_mask_plain(A, B, anti)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bool and got.shape == (A.cap,)
+        assert torch.equal(got, plain) and torch.equal(again, plain), anti
+        want = np.zeros(A.cap, dtype=bool)
+        want[:na] = ~inb if anti else inb
+        assert np.array_equal(got.cpu().numpy(), want), anti
+    assert cuda.KERNELS["ewise_mask"].launches == 4
+    if kind in ("hub15k", "hub262k"):
+        assert inb.sum() > 6144  # one hub row's hits pass one tile's span
 
 
 @pytest.mark.cuda
