@@ -22,6 +22,7 @@ on one card in one call.
     python3 bench_port_compare.py --rows parents     # K8 and algo.BFS
     python3 bench_port_compare.py --rows shortest    # K4 and shortestPath
     python3 bench_port_compare.py --rows ewise       # K22's two forms
+    python3 bench_port_compare.py --rows family      # the ELL family's BFS
     python3 bench_port_compare.py --rows mesh probes # several row sets
 
 Runs the `check_topk` (n = 430,000, k = 10 and 4096) and `check_semiring`
@@ -168,8 +169,9 @@ kernel launches).
 
 The levels rows are K17 at every level of a sorted-ELL BFS at RMAT-
 `--scale` from bench_port.py's 2048 packed roots, run level by level with
-the root's K9 and K10 (`_ell_level`), into the int8 levels of the 2048
-lanes and the int32 levels of the first 64 (the unsorted family's width):
+the root's level (K9 and K10, or the fused level), into the int8 levels of
+the 2048 lanes and the int32 levels of the first 64 (the unsorted family's
+width):
 one `level {...}` line per level and width with K17's ms (CUDA events,
 median of 5, the levels restored untimed before each call), the levels it
 set, the nonzero fresh words among the real lanes' and both bounds (the
@@ -251,6 +253,20 @@ max_depth 1, 2, ... (CUDA events), each level's time the difference of
 two; on a tree with `bfs.PULL_SHARE` the same with every level pushed and
 with every level pulled; and the ptxas report of csrc/bfs_levels.cu.
 
+The family rows are the ELL family's BFS at RMAT-`--scale` (`family_rows`),
+as DIR/chip_smoke.py's path e runs it: the packed BFS fused (max 24 levels)
+and stepped and the sorted BFS fused and stepped from bench_port.py's 2048
+packed roots, and bfs_multi_ell over the unsorted transpose ELL from the
+64 stepped roots, each on the host clock (a `family` line: 3 runs after a
+warm-up, launches by kernel a call, peak device bytes over the inputs, a
+digest of the result to hold the trees to each other) with a `device` line;
+then a `level` line per level of the packed BFS: what the level works on
+(frontier rows, rows with no lane left, live column slots, the distinct
+frontier rows they name) and, on a tree with K9 a bucket, K9's, K10's and
+the history clone's ms, on a tree with the fused level its ms as chosen and
+with the nonzero-row test forced on and off and its counts (indices read,
+rows gathered, units loaded); and the ptxas reports.
+
 The ewise rows are K22 at chip_smoke.py's `check_semiring` shape (A =
 RMAT-`--scale` deduplicated, B every other edge of it, built by the
 root's `semiring_graph`), in both forms (A and B, A and not B), each held to
@@ -284,14 +300,15 @@ def main(argv=None):
                     choices=("all", "graph", "vector", "mesh", "probes",
                              "pagerank", "agg", "bfs", "expand", "reach",
                              "queries", "levels", "bc", "fixpoint",
-                             "csr_expand", "parents", "shortest", "ewise"),
+                             "csr_expand", "parents", "shortest", "ewise",
+                             "family"),
                     help="graph: K3 and K18-K21; vector: K13-K15; mesh: "
                          "K24 and K26; probes: K30's reps-1 forms and K27's "
                          "double; pagerank: K5; agg: K2; bfs: K16; expand: "
                          "K23; reach: K9; queries: path g's forced LDBC "
                          "read mix; levels: K17; bc: K7; fixpoint: K6; "
                          "csr_expand: K1; parents: K8; shortest: K4; "
-                         "ewise: K22")
+                         "ewise: K22; family: the ELL family's BFS level")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -351,6 +368,8 @@ def main(argv=None):
             parents_rows(smoke, root, dev, ldbc)
     if {"all", "ewise"} & set(args.rows):
         ewise_rows(smoke, root, args.scale, dev)
+    if {"all", "family"} & set(args.rows):
+        family_rows(smoke, root, args.scale, dev)
     return 0
 
 
@@ -1889,10 +1908,24 @@ def levels_rows(smoke, root, scale, dev):
                        torch.full((), tbfs.UNREACHED, dtype=torch.int32,
                                   device=dev), lv8[:, :64].to(torch.int32))
     lk8, lk32 = torch.empty_like(lv8), torch.empty_like(lv32)
-    parts = tbfs.ell_reach_parts(ell, dev, by_range=True)
-    reach = torch.zeros_like(visited)
+    if hasattr(tbfs, "EllBfs"):  # one fused launch a level
+        run = tbfs.EllBfs(ell, pprep.roots, by_range=True)
+        del visited, frontier
+
+        def level():
+            return run.step(), run.frontier
+    else:  # K9 a bucket and K10 a level
+        parts = tbfs.ell_reach_parts(ell, dev, by_range=True)
+        reach = torch.zeros_like(visited)
+
+        def level():
+            return tbfs._ell_level(parts, frontier, visited, reach, None,
+                                   depth), frontier
     depth = 0
-    while tbfs._ell_level(parts, frontier, visited, reach, None, depth):
+    while True:
+        alive, frontier = level()
+        if not alive:
+            break
         f32 = frontier[:, :2].contiguous()
         for what, fresh, base, lk, lanes in (
                 ("int8", frontier, lv8, lk8, k),
@@ -1912,7 +1945,7 @@ def levels_rows(smoke, root, scale, dev):
                                            2 * elt * set_),
                 "sector_bound_ms": smoke.bound_ms(sector)}), flush=True)
         depth += 1
-    del lv8, lv32, lk8, lk32, visited, frontier, reach, parts
+    del lv8, lv32, lk8, lk32, frontier, level
     for fused in (True, False):
         walls = []
         for _ in range(3):
@@ -2742,6 +2775,247 @@ def ewise_rows(smoke, root, scale, dev):
                 "root": root, "call": f"ewise_mask {shape}",
                 "us": host_us(run, calls=50)}), flush=True)
         del ka, kb
+
+
+# -- the ELL family's BFS: the packed, sorted and unsorted drivers ------------------
+
+
+def _event_ms(fn):
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def family_calls(smoke, tbfs, pprep, sprep, ell_u):
+    """The five calls of DIR/chip_smoke.py's path e over the ELL family: the
+    packed BFS fused (max 24 levels) and stepped and the sorted BFS fused
+    and stepped from the 2048 packed roots, bfs_multi_ell over the unsorted
+    transpose ELL from the 64 stepped roots."""
+    ell, roots = pprep.ell, pprep.roots
+    return (
+        ("bfs_multi_ell_packed fused", lambda: tbfs.bfs_multi_ell_packed(
+            ell, roots, max_levels=smoke.BFS_MAX_LEVELS)),
+        ("bfs_multi_ell_packed stepped", lambda: tbfs.bfs_multi_ell_packed(
+            ell, roots, fused=False)),
+        ("bfs_multi_ell_sorted fused", lambda: tbfs.bfs_multi_ell_sorted(
+            ell, roots, fused=True)),
+        ("bfs_multi_ell_sorted stepped", lambda: tbfs.bfs_multi_ell_sorted(
+            ell, roots, fused=False)),
+        ("bfs_multi_ell (64 roots, unsorted ELL)",
+         lambda: tbfs.bfs_multi_ell(ell_u, sprep.roots.tolist())))
+
+
+def _digest(out):
+    """(levels, checksum) of a family call's result, to hold the trees to
+    each other: the packed and sorted calls' visited words summed as
+    unsigned, the unsorted call's reached (node, lane) pairs counted."""
+    import torch
+
+    if hasattr(out, "visited"):
+        v, levels = out.visited, out.nlevels
+    elif isinstance(out, tuple):
+        v, lv = out
+        levels = max(int(torch.where(lv[i:i + (1 << 16)] == 127, 0,
+                                     lv[i:i + (1 << 16)]).max())
+                     for i in range(0, lv.shape[0], 1 << 16))
+    else:
+        return int(out[out < 2 ** 30].max()), int((out < 2 ** 30).sum())
+    total = sum(int((v[i:i + (1 << 18)].to(torch.int64) & 0xFFFFFFFF).sum())
+                for i in range(0, v.shape[0], 1 << 18))
+    return levels, total
+
+
+def family_rows(smoke, root, scale, dev):
+    """The ELL family's BFS from the root's package at RMAT-`scale`, as
+    DIR/chip_smoke.py's path e runs it: each of `family_calls` on the host
+    clock (a warm-up, then 3 runs, each ended by a sync: a `family` line
+    with its launches by kernel, peak device bytes and a digest of its
+    result), a `device` line each (device ms by kernel from one trace);
+    then the per-level profile of the packed BFS (`family_levels`) and the
+    ptxas reports of the kernels the family runs."""
+    import time
+
+    import torch
+
+    tbfs = importlib.import_module("falkordb_tpu_torch.algos.bfs")
+    tell = importlib.import_module("falkordb_tpu_torch.sparse.ell")
+    new = hasattr(tbfs, "EllBfs")
+    ptxas(smoke, root, ("ell_level.cu", "packed_levels.cu") if new else
+          ("packed_reach.cu", "packed_epilogue.cu", "packed_levels.cu"))
+    pprep = smoke.bench_port.prepare_packed(scale, smoke.BFS_LANES, CACHE,
+                                            str(dev))
+    sprep = smoke.bench_port.prepare_stepped(
+        scale, smoke.bench_port.STEPPED_NBFS, CACHE, str(dev))
+    m = int(sprep.at.nnz)
+    ell_u = tell.build_blocked_ell(sprep.at.indptr, sprep.at.cols[:m],
+                                   sprep.n, device=dev)
+    for what, fn in family_calls(smoke, tbfs, pprep, sprep, ell_u):
+        digest = _digest(fn())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        before = {k: v.launches for k, v in smoke.cuda.KERNELS.items()}
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            del out
+        launches = {k: (v.launches - before[k]) // 3
+                    for k, v in smoke.cuda.KERNELS.items()
+                    if v.launches > before[k]}
+        print("family " + json.dumps({
+            "root": root, "call": what, "wall_ms": walls,
+            "launches_a_call": launches,
+            "peak_bytes_over_inputs": torch.cuda.max_memory_allocated(dev)
+            - base, "levels_and_bits": digest}), flush=True)
+        device_line(smoke, root, what, fn)
+    del ell_u, sprep
+    family_levels(smoke, root, tbfs, pprep, dev)
+    torch.cuda.synchronize()
+
+
+def _level_data(ell, frontier, visited, tail):
+    """What a level of the packed BFS has to work on, from its state before
+    the level: the nonzero frontier rows; of the rows a bucket covers,
+    those with every lane visited, those with no live lane left (a live
+    lane has a bit in some frontier row; only those can gain one) and
+    those with no live slot; the column slots of the buckets, those of the
+    rows with a live lane left and the live ones among them (naming a
+    nonzero frontier row); the distinct nonzero frontier rows the live
+    slots name; the true columns (not the sentinel padding after a row's
+    last column) of the rows with a live lane left."""
+    import torch
+
+    n = ell.n
+    nzrow = (frontier != 0).any(1)
+    nzrow[n] = False
+    alive = torch.zeros_like(frontier[0])
+    for i in range(0, n, 1 << 18):
+        blk = frontier[i:min(i + (1 << 18), n)]
+        while blk.shape[0] > 1:
+            h = blk.shape[0] // 2
+            top = blk[:h] | blk[h:2 * h]
+            if blk.shape[0] % 2:
+                top[0] |= blk[2 * h]
+            blk = top
+        if blk.shape[0]:
+            alive |= blk[0]
+    full = torch.zeros(n + 1, dtype=torch.bool, device=frontier.device)
+    dead = torch.zeros_like(full)
+    named = torch.zeros_like(full)
+    for i in range(0, tail, 1 << 18):
+        v = visited[i:min(i + (1 << 18), tail)]
+        full[i:i + v.shape[0]] = (v == -1).all(1)
+        dead[i:i + v.shape[0]] = ((~v & alive) == 0).all(1)
+    need = need_cols = live = idle = 0
+    for b in ell.buckets:
+        off = int(b.row_offset)
+        for i in range(0, b.cols.shape[0], 1 << 16):
+            c = b.cols[i:i + (1 << 16)].to(torch.int64).clamp(0, n)
+            keep = ~dead[off + i: off + i + c.shape[0]]
+            hit = nzrow[c] & keep[:, None]
+            need += int(keep.sum()) * c.shape[1]
+            need_cols += int(((c < n) & keep[:, None]).sum())
+            live += int(hit.sum())
+            idle += int((~hit.any(1)).sum())
+            named[c[hit]] = True
+    return {"frontier_rows": int(nzrow.sum()), "full_rows": int(full.sum()),
+            "dead_rows": int(dead.sum()), "column_slots": ell.padded_edges,
+            "need_slots": need, "need_cols": need_cols, "live_slots": live,
+            "idle_rows": idle,
+            "named_rows": int(named.sum()),
+            "live_lanes": int(sum(bin(int(w) & 0xFFFFFFFF).count("1")
+                                  for w in alive.tolist()))}
+
+
+def family_levels(smoke, root, tbfs, pprep, dev):
+    """The packed BFS from the 2048 roots level by level, as the root's
+    bfs_multi_ell_packed runs it: one `level` line each with what the level
+    works on (`_level_data`) and its kernels' ms on CUDA events.  A tree
+    with K9 per bucket and K10 (`_ell_level`): K9's launches and ms over
+    every bucket, K10's ms, the history clone's ms.  A tree with the fused
+    level (`EllBfs`): its ms as `ell_bitmap_pays` chose, with
+    the nonzero-row test forced on and off (the state restored before each,
+    median of 3), and its counts (`count`): column indices read, frontier
+    rows gathered (a warp each), their units loaded."""
+    import torch
+
+    ell, roots = pprep.ell, pprep.roots
+    n = ell.n
+    tail = max(int(b.row_offset) + b.cols.shape[0] for b in ell.buckets)
+    if hasattr(tbfs, "EllBfs"):
+        run = tbfs.EllBfs(ell, roots, by_range=True, history=True)
+        while True:
+            data = _level_data(ell, run.frontier, run.visited, tail)
+            saved = [t.clone() for t in (run.visited, run.nz_spare, run.ctl)]
+            ring = getattr(run, "alive", None)
+            saved_ring = None if ring is None else ring.clone()
+
+            def restore():
+                for t, v in zip((run.visited, run.nz_spare, run.ctl), saved):
+                    t.copy_(v)
+                if ring is not None:
+                    ring.copy_(saved_ring)
+
+            forced = {}
+            for key, on in (("bitmap", True), ("no_bitmap", False)):
+                times = []
+                for _ in range(3):
+                    restore()
+                    times.append(_event_ms(lambda: run.launch(bitmap=on)))
+                forced[f"ms_{key}"] = sorted(times)[1]
+            restore()
+            run.launch(count=True)
+            counts = run.ctl[run.depth & 1].tolist()
+            restore()
+            chosen = run.bitmap_choice()
+            ms = _event_ms(run.launch)
+            alive = run.finish()
+            print("level " + json.dumps({
+                "root": root, "level": run.depth, **data, "ms": ms,
+                "launches": 1, "bitmap_chosen": chosen, **forced,
+                "new_nonzero_rows": counts[0], "skipped_rows": counts[1],
+                "indices_read": counts[2], "rows_gathered": counts[3],
+                "units_loaded": counts[4]}), flush=True)
+            if not alive:
+                break
+        return
+    bp = importlib.import_module("falkordb_tpu_torch.algos.bfs_packed")
+    _W, visited, frontier, _ = tbfs.packed_init(n, roots, dev)
+    parts = tbfs.ell_reach_parts(ell, dev, by_range=True)
+    reach = torch.zeros_like(visited)
+    none = torch.empty((0, 2), dtype=torch.int64, device=dev)
+    level = 0
+    while True:
+        data = _level_data(ell, frontier, visited, tail)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        for part in parts:
+            bp.chunk_reach(part, frontier, reach)
+        ev[1].record()
+        flags = bp.packed_epilogue(reach, visited, frontier, none)
+        ev[2].record()
+        clone = frontier[:n].clone()
+        ev[3].record()
+        ev[3].synchronize()
+        level += 1
+        print("level " + json.dumps({
+            "root": root, "level": level, **data,
+            "k9_ms": ev[0].elapsed_time(ev[1]), "k9_launches": len(parts),
+            "k10_ms": ev[1].elapsed_time(ev[2]),
+            "clone_ms": ev[2].elapsed_time(ev[3])}), flush=True)
+        del clone
+        if not bool(flags[0]):
+            break
 
 
 if __name__ == "__main__":

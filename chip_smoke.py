@@ -41,11 +41,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    both ways, then K7's sweep (one cooperative launch a source) from one
    source of algo.betweenness, equal bit for bit to the host level loop
    over K7's level kernel, beside cuSPARSE's SpMV once a pull of that loop;
-   K10 with no
-   chunk, K17 (2048 int8 lanes, 64 int32 lanes, with the nonzero fresh
-   words and the bound of their 32-byte level sectors) and
-   K18 (one step, beside a CSR SpMV) run on the RMAT graph's sorted
-   transpose ELL.  K19-K22 run at bench_kernels.py's shapes over the same
+   the ELL family's fused level (csrc/ell_level.cu: its first dense level
+   from bench_port's 2048 packed roots in one launch, with its counts of
+   indices read, rows gathered and bytes loaded), K17 (2048 int8 lanes, 64
+   int32 lanes, with the nonzero fresh words and the bound of their
+   32-byte level sectors) and K18 (one step, beside a CSR SpMV) run on the
+   RMAT graph's sorted transpose ELL.  K19-K22 run at bench_kernels.py's shapes over the same
    RMAT edges (CSR.from_coo_numpy, dedup; uniform(0.5, 2) float32 values):
    ELL mxv (K19: any_pair, plus_times, min_plus), ELL spmm (K20: k = 8,
    64), the segment forms (K21: edge-masked mxv and spmm k = 8, vxm
@@ -122,13 +123,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
       oracle (within 1e-9).
    e. The multi-source BFS family on the RMAT graph of b.: bench_port's
       stepped mode (64 roots, K16) and packed mode (2048 roots, max 24
-      levels, fused: K9, K10, K12), 8 stepped lanes against scipy's BFS
+      levels, fused: the fused level a level, K12), 8 stepped lanes against
+      scipy's BFS
       and the packed run's levels on b.'s 8 lanes against b.'s scipy
       levels, the packed per-lane edge counts equal to b.'s, its stepped form
       equal; bfs_multi_ell over the unsorted ELL equal to the stepped
       levels; bfs_multi_ell_sorted fused and stepped (K17) equal to each
       other and to the packed levels; pagerank_ell (K18) against K5 and a
-      float64 PageRank (rtol 1e-4).
+      float64 PageRank (rtol 1e-4).  The family's levels launch the fused
+      level and neither K9 nor K10.
    f. The semiring library: bench_port_kernels.py's runs (mxv any_pair,
       plus_times, min_plus; spmm k = 8, 64; the edge-masked mxv, vxm,
       reduce_rows, reduce_scalar, ewise_mult_mask) once each at RMAT-22
@@ -202,7 +205,8 @@ from falkordb_tpu_torch.algos.betweenness import (
     bc_sweeps, brandes_sweep_plain, segment_sum_pull, segment_sum_pull_plain,
 )
 from falkordb_tpu_torch.algos.bfs import (
-    UNREACHED, UNREACHED8, bfs_levels, bfs_levels_plain, bfs_multi,
+    ELL_CTL, UNREACHED, UNREACHED8, EllBfs, bfs_levels, bfs_levels_plain,
+    bfs_multi, ell_level, ell_level_plain,
     bfs_multi_ell, bfs_multi_ell_packed, bfs_multi_ell_sorted,
     bfs_multi_plain, bfs_multi_stepped, bfs_parents, bfs_parents_plain,
     bfs_parents_run, ell_reach_parts, multi_bfs_level, multi_bfs_level_plain,
@@ -773,6 +777,7 @@ TOLERANCE = {  # what each kernel is held to against its plain version
     "packed_chunk_reach": "exact (reach bit for bit)",
     "packed_sparse_reach": "exact (reach bit for bit)",
     "packed_epilogue": "exact (visited, frontier, flags)",
+    "ell_level": "exact (visited, the new frontier, its bitmap, counts)",
     "packed_seed": "exact", "packed_counts": "rtol 1e-6 (float64 sums of "
                                              "integer weights, rounded once "
                                              "to float32)",
@@ -1269,8 +1274,8 @@ def check_packed(prep, dev):
 
     # the next level over every chunk, as one launch from the chunk plan
     # (no chunk gated: the main path tests no bitmap, bitmap_pays), with
-    # the bitmap, and a launch a chunk (chunk_reach, the ELL family's form),
-    # and the widest chunk alone
+    # the bitmap, and a launch a chunk (chunk_reach, the single-part body,
+    # kept as the yardstick), and the widest chunk alone
     chunks = prep.packed.chunks
     plan = chunk_plan(prep.packed)
     reach_p = reach_k.clone()
@@ -1365,7 +1370,7 @@ def check_packed_words(dev):
     print("packed BFS, every word type, card against host: equal", flush=True)
 
 
-# -- the multi-source BFS family: K16-K18 and K10 with no chunk --------------
+# -- the multi-source BFS family: K16-K18 and the fused ELL level --------------
 
 
 def level_bytes(at, lp, d, R):
@@ -1537,57 +1542,92 @@ def check_multi_bfs_sums(at, roots):
 
 
 def check_ell_kernels(pprep, at_sorted, dev):
-    """K10 with no chunk, K17 and K18 on the RMAT graph's sorted transpose
-    ELL, at the shapes the ELL BFS family and pagerank_ell give them: from
-    bench_port's 2048 packed roots, the second level's reach (K9) into K10
-    (int32 words, W = 64) against the plain epilogue; its fresh bits into
-    the int8 levels of 2048 lanes and the int32 levels of the first 64
-    (K17) against the plain unpack; one pagerank_ell step from r0 (K18)
-    against the plain step, beside a CSR SpMV over the same transpose.
-    Bounds: K10 reads reach and visited, writes frontier, and writes
-    visited in rows that gained bits; K17 reads the fresh words and reads
-    and writes the level of each fresh lane; K18 reads each edge's column
-    (not the padding after a row's last column), each bucket's node ids,
-    the gathered contrib vector once, r, inv_out and the dangling mask,
-    and writes r'."""
+    """The ELL family's fused level, K17 and K18 on the RMAT graph's sorted
+    transpose ELL, at the shapes the family and pagerank_ell give them:
+    from bench_port's 2048 packed roots (int32 words, W = 64), levels 1 and
+    2 through the level kernel (EllBfs, the sorted form's buffers), then
+    level 3, the first dense one, held against its plain version in the
+    packed form's fresh buffer (visited, the new frontier, its bitmap and
+    counts, exact) and timed, with its counts (`count`: indices read,
+    rows gathered, units loaded) from one more launch; level 2's fresh
+    bits into the int8 levels of 2048 lanes and the int32 levels of the
+    first 64 (K17) against the plain unpack; one pagerank_ell step from r0
+    (K18) against the plain step, beside a CSR SpMV over the same
+    transpose.  Bounds: the fused level reads visited's covered rows, the
+    true column indices (not the padding after a row's last column) of
+    the rows with a live lane left (a lane with a bit in the frontier)
+    and, once each, the nonzero frontier rows they name, writes every row
+    of the new frontier and visited's rows that gained bits; K17 reads
+    the fresh words and reads and writes the level of each fresh lane;
+    K18 reads each edge's
+    column (not the padding after a row's last column), each bucket's node
+    ids, the gathered contrib vector once, r, inv_out and the dangling
+    mask, and writes r'."""
     ell = pprep.ell
     n, k = ell.n, len(pprep.roots)
-    W, visited, frontier, lv8 = packed_init(n, pprep.roots, dev, torch.int8)
+    run = EllBfs(ell, pprep.roots, by_range=True)
+    _W, _v, _f, lv8 = packed_init(n, pprep.roots, dev, torch.int8)
+    W = run.visited.shape[1]
     R = 4 * W
-    parts = ell_reach_parts(ell, dev, by_range=True)
-    reach = torch.zeros_like(visited)
-    none = torch.empty((0, 2), dtype=torch.int64, device=dev)
-    for depth in (0, 1):  # level 1 in full, then level 2's gather
-        for c in parts:
-            chunk_reach(c, frontier, reach)
-        if depth == 0:
-            packed_epilogue(reach, visited, frontier, none)
-            packed_levels(frontier, lv8, 0)
-    vk, fk = visited.clone(), frontier.clone()
-    flags_k = packed_epilogue(reach, vk, fk, none)
-    vp, fp = visited.clone(), frontier.clone()
-    flags_p = packed_epilogue_plain(reach, vp, fp, none)
+    assert run.step()
+    packed_levels(run.frontier, lv8, 0)
+    assert run.step()  # run.frontier: level 2's fresh words
+    fk = run.frontier
+    plan = run.plan
+    data = bench_port_compare._level_data(ell, fk, run.visited, plan.tail)
+    depth, slot = run.depth, run.depth % 2
+    outs = []
+    for fn in (ell_level, ell_level_plain):
+        v, out = run.visited.clone(), torch.empty_like(run.visited)
+        nzo = torch.zeros_like(run.nz)
+        ctl = torch.zeros((2, ELL_CTL), dtype=torch.int64, device=dev)
+        alive = run.alive.clone()
+        fn(plan, fk, v, out, nzo, run.nz, False, ctl, depth, k, alive)
+        outs.append((v, out, nzo, ctl, alive))
     torch.cuda.synchronize()
-    assert torch.equal(vk, vp) and torch.equal(fk, fp) and \
-        torch.equal(flags_k, flags_p) and bool(flags_k[0]), \
-        "packed_epilogue, no chunk"
-    del vp, fp
+    (vk, ok, zk, ck, ak), (vp, op, zp, cp, ap) = outs
+    assert torch.equal(vk, vp) and torch.equal(ok, op) and \
+        torch.equal(zk, zp) and torch.equal(ck[:, :2], cp[:, :2]) and \
+        torch.equal(ak, ap), "ell_level against its plain version, level 3"
+    assert torch.equal(zk, nonzero_rows(ok)), "ell_level: the new bitmap"
+    gained = int(ck[slot, 0])
+    del vp, op, zp, outs
 
-    def restore_state():
-        vk.copy_(visited)
-        fk.copy_(frontier)
+    def restore():
+        vk.copy_(run.visited)
+        zk.zero_()
+        ck.zero_()
+        ak.copy_(run.alive)
 
-    fresh_rows = int((fk[:n] != 0).any(1).sum())
-    k10 = _row("packed_epilogue", f"ELL family, no chunk: n={n} W={W} int32 "
-               f"k={k} level 2 ({fresh_rows} rows with fresh bits)",
-               cuda_ms(lambda: packed_epilogue(reach, vk, fk, none),
-                       setup=restore_state),
-               cuda_ms(lambda: packed_epilogue_plain(reach, vk, fk, none),
-                       setup=restore_state), None,
-               3 * R * (n + 1) + R * fresh_rows, 0.0)
-    restore_state()
-    packed_epilogue(reach, vk, fk, none)  # fk: level 2's fresh words
-    del visited, frontier, reach, vk
+    def fused():
+        ell_level(plan, fk, vk, ok, zk, run.nz, False, ck, depth, k, ak)
+
+    ms = cuda_ms(fused, setup=restore)
+    plain_ms = cuda_ms(lambda: ell_level_plain(plan, fk, vk, ok, zk, run.nz,
+                                               False, ck, depth, k, ak),
+                       setup=restore)
+    restore()
+    ell_level(plan, fk, vk, ok, zk, run.nz, False, ck, depth, k, ak,
+              count=True)
+    counts = ck[slot].tolist()
+    assert counts[0] == gained
+    fused = _row(
+        "ell_level", f"sorted ELL n={n} buckets={len(ell.buckets)} "
+        f"k={k} W={W} int32, level 3 (frontier {data['frontier_rows']} rows, "
+        f"{gained} rows gaining bits): one launch, a fresh buffer",
+        ms, plain_ms, None,
+        R * plan.tail + R * (n + 1) + R * gained + 4 * data["need_cols"]
+        + R * data["named_rows"], 0.0,
+        live_slots=data["live_slots"], need_slots=data["need_slots"],
+        need_cols=data["need_cols"],
+        column_slots=data["column_slots"], dead_rows=data["dead_rows"],
+        indices_read=counts[2], rows_gathered=counts[3],
+        gathered_bytes=counts[4] * 8,
+        skipped_row_share=data["idle_rows"] / max(plan.tail, 1),
+        stopped_gather_share=1.0 - counts[3] / max(data["live_slots"], 1))
+    del vk, ok, zk, ck, ak
+    visited = run.visited
+    del run
     rows = []
     lv32 = torch.where(lv8[:, :64] == UNREACHED8,
                        torch.full((), UNREACHED, dtype=torch.int32,
@@ -1617,7 +1657,7 @@ def check_ell_kernels(pprep, at_sorted, dev):
             4 * w * n + 2 * base.element_size() * set_, 0.0,
             nonzero_words=nonzero, sector_bound_ms=bound_ms(sector)))
         del lk
-    del lv8, lv32, fk, fresh64, parts
+    del lv8, lv32, fk, fresh64, visited
     parts = ell_reach_parts(ell, dev, by_range=False)
     od = torch.from_numpy(pprep.outdeg_sorted).to(dev)
     inv_out = torch.where(od > 0, 1.0 / od.clamp(min=1),
@@ -1645,7 +1685,7 @@ def check_ell_kernels(pprep, at_sorted, dev):
                   4 * ell.true_edges + 4 * (n + 1) + 16 * n +
                   4 * sum(ids.numel() for ids, _ in parts),
                   _max_err(rk, rp))
-    return rows, k10, [pr_row]
+    return rows, [fused], [pr_row]
 
 
 def reached_lane(visited, lane, n):
@@ -1823,8 +1863,8 @@ def bfs_family_path(prep, sprep, pprep, at_sorted, perm, edges,
     mode (64 roots, K16), its levels of 8 sampled lanes against scipy's BFS
     on the forward graph; bfs_multi_ell over the unsorted transpose ELL from
     the same roots, equal to them; bench_port's packed mode (2048 roots,
-    max 24 levels, fused; K9, K10, K12), the levels_for_lane of the lanes
-    path b held to scipy, against scipy's levels of that path (`oracle`,
+    max 24 levels, fused; the fused level, K12), the levels_for_lane of the
+    lanes path b held to scipy, against scipy's levels of that path (`oracle`,
     the same roots and graph), its per-lane edge counts equal to the gated
     path's (same roots), its stepped form giving the same visited bits and
     level count;
@@ -3472,9 +3512,10 @@ BFS_KERNELS = ("packed_seed", "packed_sparse_reach", "packed_chunk_reach",
                "packed_epilogue", "packed_counts")
 VECTOR_KERNELS = ("kmeans_assign", "kmeans_update", "vector_scores")
 HARMONIC_KERNELS = ("multi_bfs",)
-FAMILY_KERNELS = ("multi_bfs", "packed_levels", "ell_pagerank",
-                  "packed_chunk_reach", "packed_sparse_reach",
-                  "packed_epilogue", "packed_counts")
+FAMILY_KERNELS = ("multi_bfs", "packed_levels", "ell_pagerank", "ell_level",
+                  "packed_counts")
+# K9's and K10's forms that the family's levels no longer launch
+FAMILY_GONE = ("packed_chunk_reach", "packed_sparse_reach", "packed_epilogue")
 
 
 _T_START = [time.perf_counter()]  # main() sets it at its start
@@ -3600,9 +3641,8 @@ def main(argv=None):
          sprep.at, sprep.roots, True, 3)])
     results["multi_bfs"] += check_multi_bfs_sums(knows_t, knows_roots)
     del knows_t
-    results["packed_levels"], k10_no_chunk, results["ell_pagerank"] = \
-        check_ell_kernels(pprep, at_sorted, dev)
-    results["packed_epilogue"].append(k10_no_chunk)
+    results["packed_levels"], results["ell_level"], results["ell_pagerank"] \
+        = check_ell_kernels(pprep, at_sorted, dev)
     t0 = time.perf_counter()
     sg = semiring_graph(rmat_edges, prep.n, dev)
     t_graph = time.perf_counter() - t0
@@ -3684,6 +3724,10 @@ def main(argv=None):
                                    rmat_edges, gated_counts, bfs_oracle,
                                    np.random.default_rng(SEED + 12))
     path_launches("multi-source BFS family", FAMILY_KERNELS, launches)
+    gone = {k: cuda.KERNELS[k].launches for k in FAMILY_GONE}
+    print(f"family launches of K9 and K10: {json.dumps(gone)} at_s={at_s()}",
+          flush=True)
+    assert not any(gone.values()), f"the family launched {gone}"
     del prep, sprep, pprep, at_sorted, perm, rmat_edges, bfs_oracle
 
     cuda.reset_launches()

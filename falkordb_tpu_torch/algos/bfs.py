@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from falkordb_tpu_torch.algos.bfs_packed import (
-    PackedChunk, chunk_reach, packed_counts, packed_epilogue, sparse_reach,
+    PackedChunk, nonzero_rows, or_reduce, packed_counts,
 )
 from falkordb_tpu_torch.native import cuda as _cuda
 from falkordb_tpu_torch.sparse.csr import CSR
@@ -699,15 +699,14 @@ def bfs_multi_stepped(at_csr: CSR, sources, max_depth=None) -> torch.Tensor:
     return st.levels
 
 
-# -- the blocked-ELL bit-packed family (K9, K10, K17, K12) ------------------------
+# -- the blocked-ELL bit-packed family (the fused level, K17, K12) -------------------
 #
-# Frontier, visited and reach are (n+1, W) int32 words, 32 lanes a word; row
-# n is the all-zero row that the sentinel column n gathers.  One level is
-# reach = OR of the in-neighbours' frontier words (K9, per bucket), fresh =
-# reach & ~visited, visited |= fresh, frontier = fresh (K10, with no chunk
-# to gate), then, for the forms that keep per-lane levels, the fresh bits
-# into levels (K17).  reach is zeroed once a call: each level rewrites
-# every row a bucket covers, and the others stay 0.
+# Frontier and visited are (n+1, W) int32 words, 32 lanes a word; row n is
+# the all-zero row that the sentinel column n gathers.  One level is fresh
+# = (OR of the in-neighbours' frontier words) & ~visited, visited |= fresh,
+# the next frontier = fresh, in one launch over a plan cut once an ELL form
+# (`ell_level_plan`, `ell_level`), then, for the forms that keep per-lane
+# levels, the fresh bits into levels (K17).  `EllBfs` drives the levels.
 
 
 def packed_init(n: int, sources, dev, levels_dtype=None):
@@ -741,8 +740,9 @@ def packed_init(n: int, sources, dev, levels_dtype=None):
 
 
 def ell_reach_parts(ell, dev, by_range: bool):
-    """Each bucket's reach task for K9, colsT (w, rows) transposed once: a
-    PackedChunk (range form, sorted ELL) or (node_ids, colsT) (ids form)."""
+    """Each bucket as a reach task of K9's single-part body and of K18,
+    colsT (w, rows) transposed: a PackedChunk (range form, sorted ELL) or
+    (node_ids, colsT) (ids form)."""
     parts = []
     for b in ell.buckets:
         colsT = as_tensor(b.cols, dev).t().contiguous()
@@ -755,19 +755,389 @@ def ell_reach_parts(ell, dev, by_range: bool):
     return parts
 
 
-def _ell_level(parts, frontier, visited, reach, levels, depth) -> bool:
-    """One level of the ELL family in place; True when a lane is still
-    alive (reads K10's flag: the level's one sync)."""
-    for part in parts:
-        if isinstance(part, PackedChunk):
-            chunk_reach(part, frontier, reach)
+ELL_SEGMENT = 2048  # columns a warp item gathers at most: wider rows are cut
+ELL_STOP_SHARE = 32  # rows missing at most 1/32 of the real lanes vote to
+#                      stop early (votes at 1/8, or always, were slower)
+_ELL_PART_WORDS = 16  # csrc/ell_level.cu `Part`
+ELL_CTL = 8  # int64 words of a control slot (csrc/ell_level.cu `kCtl`)
+_ELL_LEVEL = _cuda.Entry("fk_ell_level", "ell_level")
+
+
+@dataclasses.dataclass(eq=False)
+class EllPlan:
+    """The fused level's plan over one ELL form.  `parts`: (cols, rows,
+    row_offset, ids) a bucket, cols its (rows, w) int32 columns as the
+    bucket holds them, ids None for a range (nodes row_offset..) or the
+    rows' nodes as int32 (a node that a later row also names set to -1:
+    dropped, so the last row naming it wins, as the reference's scatter of
+    one bucket after another leaves it); `tail` the first row of the
+    uncovered tail where the ranges cover rows 0..tail-1 exactly, else
+    None; `table` their (parts, 16) int64 `Part` rows where the buckets
+    lie, hub parts first; `items` the warp items (a row, or a segment of
+    at most ELL_SEGMENT columns of a wider row); `hub_rows` the rows cut
+    into segments."""
+    n: int
+    parts: list
+    tail: int | None
+    table: torch.Tensor | None = None
+    items: int = 0
+    hub_rows: int = 0
+    scratch: dict = dataclasses.field(default_factory=dict)
+
+    def hub_scratch(self, row_bytes: int, dev):
+        """(accumulator rows, tickets) for rows of row_bytes, zero at first
+        use: every launch leaves them zero."""
+        hit = self.scratch.get(row_bytes)
+        if hit is None:
+            hit = self.scratch[row_bytes] = (
+                torch.zeros(max(self.hub_rows, 1) * -(-row_bytes // 8) + 2,
+                            dtype=torch.int64, device=dev),
+                torch.zeros(max(self.hub_rows, 1), dtype=torch.int32,
+                            device=dev))
+        return hit
+
+
+def _last_rows(parts, n):
+    """The parts' ids with every node that a later row names again set to
+    -1 (and nothing else changed)."""
+    ids = torch.cat([p[3].to(torch.int64) for p in parts])
+    pos = torch.arange(ids.numel(), device=ids.device)
+    ok = (ids >= 0) & (ids < n)
+    last = torch.full((max(n, 1),), -1, dtype=torch.int64, device=ids.device)
+    last.scatter_reduce_(0, ids[ok], pos[ok], "amax")
+    drop = ok & (last[ids.clamp(0, max(n - 1, 0))] != pos)
+    if not bool(drop.any()):
+        return parts
+    ids = torch.where(drop, -1, ids).to(torch.int32)
+    out, lo = [], 0
+    for cols, rows, off, _ids in parts:
+        out.append((cols, rows, off, ids[lo: lo + rows].contiguous()))
+        lo += rows
+    return out
+
+
+def ell_level_plan(ell, dev=None, by_range: bool = True) -> EllPlan:
+    """The fused level's plan of `ell` on `dev` (default where its buckets
+    lie), by range (a sorted ELL: bucket b holds nodes row_offset..) or by
+    the buckets' node ids; cut once and cached on the ELL form."""
+    dev = ell_device(ell) if dev is None else torch.device(dev)
+    key = (str(dev), bool(by_range))
+    plans = ell.__dict__.setdefault("level_plans", {})
+    if key in plans:
+        return plans[key]
+    n = ell.n
+    parts = []
+    for b in ell.buckets:
+        cols = as_tensor(b.cols, dev)
+        if cols.dtype != torch.int32:
+            cols = cols.to(torch.int32)
+        cols = cols.contiguous()
+        rows = cols.shape[0]
+        if rows == 0:
+            continue
+        if by_range:
+            off = int(b.row_offset)
+            if off < 0 or off + rows > n:
+                raise ValueError(f"ell_level_plan: a bucket's rows {off}.."
+                                 f"{off + rows} are no range of 0..{n}: the "
+                                 "range form needs a sorted ELL")
+            parts.append((cols, rows, off, None))
         else:
-            sparse_reach(part[0], part[1], frontier, reach)
-    no_chunks = torch.empty((0, 2), dtype=torch.int64, device=visited.device)
-    flags = packed_epilogue(reach, visited, frontier, no_chunks)
-    if levels is not None:
-        packed_levels(frontier, levels, depth)
-    return bool(flags[0])
+            ids = as_tensor(b.node_ids, dev).to(torch.int32).contiguous()
+            parts.append((cols, rows, 0, ids))
+    tail = None
+    if by_range:
+        spans = sorted((off, off + rows) for _c, rows, off, _i in parts)
+        if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+            raise ValueError("ell_level_plan: the buckets' row ranges "
+                             "overlap")
+        if all(lo == (spans[i - 1][1] if i else 0)
+               for i, (lo, _hi) in enumerate(spans)):
+            tail = spans[-1][1] if spans else 0
+    elif parts:
+        parts = _last_rows(parts, n)
+    plan = EllPlan(n, parts, tail)
+    table, item, hub = [], 0, 0
+    for hubs in (True, False):  # hub parts first: they start early
+        for cols, rows, off, ids in parts:
+            width = cols.shape[1]
+            spr = max(1, -(-width // ELL_SEGMENT))
+            if (spr > 1) != hubs:
+                continue
+            table.append([cols.data_ptr(), 0 if ids is None
+                          else ids.data_ptr(), rows, off, width, spr,
+                          -(-width // spr), item, hub if spr > 1 else -1]
+                         + [0] * (_ELL_PART_WORDS - 9))
+            item += rows * spr
+            hub += rows if spr > 1 else 0
+    if item >= 1 << 30:
+        raise ValueError(f"ell_level_plan: {item} items, past 2^30")
+    plan.table = torch.tensor(table, dtype=torch.int64,
+                              device=dev).reshape(-1, _ELL_PART_WORDS)
+    plan.items, plan.hub_rows = item, hub
+    plans[key] = plan
+    return plan
+
+
+def ell_bitmap_pays(rows: int, n: int) -> bool:
+    """Whether a level should test the nonzero-row bitmap of its frontier
+    (`rows` nonzero rows of n) before gathering a column: while under 1/8
+    of the rows are nonzero.  At RMAT-22 from 2048 roots the test took
+    1.3 -> 5.9 ms off a level at 0.05% nonzero rows and 3.0 -> 6.1 at
+    1.3%, was even at 17%, and cost 1-4% at 39-48%, where few columns
+    name a zero row (`bench_port_compare.py --rows family`)."""
+    return 8 * rows < n
+
+
+def _lane_words(W: int, lanes: int, dev) -> torch.Tensor:
+    """(W,) int32: the real lanes' bits of each word."""
+    bits = torch.arange(32 * W, device=dev).view(W, 32) < lanes
+    words = (bits.to(torch.int64) << torch.arange(32, device=dev)).sum(1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def alive_fits(W: int) -> bool:
+    """Whether rows of W int32 words fit the kernel's live-lane ring (32
+    units of 8 bytes, or of 4 where W is odd)."""
+    return W <= (64 if W % 2 == 0 else 32)
+
+
+def _check_level(plan, frontier, visited, out, nz_out, nonzero, known, ctl,
+                 depth, alive):
+    n = plan.n
+    for name, t in (("frontier", frontier), ("visited", visited),
+                    ("out", out)):
+        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous() \
+                or t.shape[0] != n + 1 or t.shape != frontier.shape:
+            raise ValueError(f"ell_level: {name} must be a contiguous "
+                             f"(n+1, W) int32 tensor like frontier, n = {n}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    words = -(-(n + 1) // 32)
+    for name, t in (("nz_out", nz_out), ("nonzero", nonzero)):
+        _cuda.check_input("ell_level", name, t, torch.int32, words)
+    if ctl.dtype != torch.int64 or tuple(ctl.shape) != (2, ELL_CTL) or \
+            not ctl.is_contiguous():
+        raise _cuda.input_error("ell_level", "ctl", ctl, torch.int64,
+                                2 * ELL_CTL, 2)
+    if (out.numel() and out.data_ptr() == frontier.data_ptr()) or (
+            nonzero is not None and nonzero.data_ptr() == nz_out.data_ptr()):
+        raise ValueError("ell_level: out and its bitmap must be other buffers "
+                         "than the frontier and its bitmap")
+    if not known and plan.tail is None:
+        raise ValueError("ell_level: a fresh out buffer (known=False) needs "
+                         "a plan whose ranges cover rows 0..tail-1")
+    if depth < 0:
+        raise ValueError(f"ell_level: depth must be >= 0, got {depth}")
+    if alive is not None:
+        W = frontier.shape[1]
+        if not alive_fits(W) or alive.dtype != torch.int32 or \
+                tuple(alive.shape) != (3, W) or not alive.is_contiguous():
+            raise ValueError(f"ell_level: alive must be a contiguous (3, W) "
+                             f"int32 tensor with W = {W} words of at most 32 "
+                             f"units, got {alive.dtype} {tuple(alive.shape)}")
+    if plan.parts and plan.table.device != frontier.device:
+        raise ValueError(f"ell_level: the plan lies on {plan.table.device}, "
+                         f"the state on {frontier.device}")
+
+
+def ell_level(plan: EllPlan, frontier, visited, out, nz_out, nonzero=None,
+              known: bool = True, ctl=None, depth: int = 0,
+              lanes: int | None = None, alive=None,
+              count: bool = False) -> torch.Tensor:
+    """One level of the ELL family in one launch (csrc/ell_level.cu): for
+    each node d that a row of the plan names, fresh = (OR of frontier over
+    the row's columns, clipped to [0, n]) & ~visited[d], visited[d] |=
+    fresh, out[d] = fresh; out's other rows, row n included, zero.  `lanes`
+    (default every bit of a row) are the real lanes: the others stay 0.
+    nz_out is out's nonzero-row bitmap, kept: with `known`, it describes
+    out's old rows on entry, which keep their bits only where it says they
+    are zero; without, out is a fresh buffer.  `nonzero`, the frontier's
+    bitmap, lets the kernel skip columns whose row is zero.  `alive`, a
+    (3, W) int32 ring (`alive_fits(W)`), narrows the lanes a row can gain
+    to the frontier's, alive[(depth + 2) % 3] (the OR of its rows); the
+    level writes the OR of its fresh rows into alive[depth % 3] (zero
+    before) and zeroes alive[(depth + 1) % 3].  The level's counts are
+    added to ctl[depth % 2] (2 x ELL_CTL int64, zero before: the level
+    before, of the other parity, leaves it so) and the other row is
+    zeroed: [rows gaining bits, named rows with no lane left, and with
+    `count` the column indices read, the rows gathered, the units loaded].
+    A row whose need holds at most 1/ELL_STOP_SHARE of the real lanes
+    stops once its OR covers it.  Returns ctl."""
+    n = plan.n
+    W = frontier.shape[1] if frontier.dim() == 2 else 0
+    if lanes is None:
+        lanes = 32 * W
+    if ctl is None:
+        ctl = torch.zeros((2, ELL_CTL), dtype=torch.int64,
+                          device=frontier.device)
+    if not _cuda.on_card(frontier, visited, out, nz_out, nonzero, ctl, alive):
+        return ell_level_plain(plan, frontier, visited, out, nz_out, nonzero,
+                               known, ctl, depth, lanes, alive)
+    _check_level(plan, frontier, visited, out, nz_out, nonzero, known, ctl,
+                 depth, alive)
+    R = 4 * W
+    hub, tickets = plan.hub_scratch(R, frontier.device)
+    _ELL_LEVEL.launch(
+        frontier.get_device(),
+        plan.table.data_ptr() if plan.parts else None, len(plan.parts),
+        plan.items, frontier.data_ptr(), visited.data_ptr(), out.data_ptr(),
+        None if nonzero is None else nonzero.data_ptr(), nz_out.data_ptr(),
+        int(known), n, R, min(int(lanes), 32 * W),
+        n + 1 if known else plan.tail, hub.data_ptr(), tickets.data_ptr(),
+        ctl.data_ptr(), None if alive is None else alive.data_ptr(),
+        int(depth), ELL_STOP_SHARE, int(count))
+    return ctl
+
+
+def _or_rows(frontier, cols, n, block_elems=1 << 24):
+    """(rows, W): the OR of frontier over each row of cols (clipped to
+    [0, n]), in row blocks of about `block_elems` gathered words."""
+    rows, w = cols.shape
+    W = frontier.shape[1]
+    acc = torch.zeros((rows, W), dtype=frontier.dtype, device=frontier.device)
+    step = max(1, block_elems // max(w * W, 1))
+    for lo in range(0, rows, step):
+        c = cols[lo: lo + step].to(torch.int64).clamp_(0, n)
+        acc[lo: lo + step] = or_reduce(frontier[c], 1)
+    return acc
+
+
+def ell_level_plain(plan: EllPlan, frontier, visited, out, nz_out,
+                    nonzero=None, known: bool = True, ctl=None,
+                    depth: int = 0, lanes: int | None = None, alive=None):
+    """Plain PyTorch version of `ell_level`: falkordb_tpu's per-bucket reach
+    (`_ell_reach`, or the ids form's scatter of one bucket after another)
+    and epilogue (the lanes narrowed by `alive` as in `ell_level`), then
+    out's nonzero-row bitmap into nz_out, the live-lane ring and the
+    level's first two counts into ctl[depth % 2] (the kernel's walk counts,
+    words 2-4, stay 0).  `nonzero` and `known` change no bit."""
+    n = plan.n
+    W = frontier.shape[1]
+    if lanes is None:
+        lanes = 32 * W
+    if ctl is None:
+        ctl = torch.zeros((2, ELL_CTL), dtype=torch.int64,
+                          device=frontier.device)
+    reach = torch.zeros_like(frontier)
+    named = torch.zeros(n + 1, dtype=torch.bool, device=frontier.device)
+    for cols, rows, off, ids in plan.parts:
+        acc = _or_rows(frontier, cols, n)
+        if ids is None:
+            reach[off: off + rows] = acc
+            named[off: off + rows] = True
+        else:  # a node outside 0..n-1 gains nothing, as in the kernel
+            ids = ids.to(torch.int64)
+            keep = (ids >= 0) & (ids < n)
+            reach[ids[keep]] = acc[keep]
+            named[ids[keep]] = True
+    real = _lane_words(W, lanes, frontier.device)
+    if alive is not None:
+        real = real & alive[(depth + 2) % 3]
+    fresh = reach[:n] & ~visited[:n] & real
+    full = int((named[:n] & ((visited[:n] | ~real) == -1).all(1)).sum())
+    visited[:n] |= fresh
+    out[:n] = fresh
+    out[n] = 0
+    nz_out.copy_(nonzero_rows(out))
+    counts = torch.zeros(ELL_CTL, dtype=torch.int64, device=ctl.device)
+    counts[0] = int((fresh != 0).any(1).sum())
+    counts[1] = full
+    ctl[depth % 2] += counts
+    ctl[(depth + 1) % 2] = 0
+    if alive is not None:
+        alive[depth % 3] = or_reduce(fresh, 0)
+        alive[(depth + 1) % 3] = 0
+    return ctl
+
+
+def roots_bitmap(n: int, sources, dev) -> torch.Tensor:
+    """The nonzero-row bitmap of the roots' frontier: bit s (bit s % 32 of
+    int32 word s // 32) of each root s; ceil((n+1) / 32) words."""
+    words = np.zeros(-(-(n + 1) // 32), np.uint32)
+    s = np.unique(np.asarray([int(x) for x in sources], np.int64))
+    np.bitwise_or.at(words, s >> 5,
+                     np.left_shift(np.uint32(1), (s & 31).astype(np.uint32)))
+    return torch.from_numpy(words.view(np.int32)).to(dev)
+
+
+class EllBfs:
+    """One multi-source BFS over a blocked-ELL transpose (32 lanes a word),
+    a level a `step`: one `ell_level` launch over the form's cached plan,
+    K17 for the forms that keep per-lane levels, and one read of the
+    level's counts.  The frontier is double-buffered: a level reads one
+    buffer and writes the other, whose rows the kernel rewrites only where
+    its bitmap (`nz_spare`, kept by the kernel) says they hold bits; after
+    the first level the roots' buffer is cleared of its roots and takes
+    the next level's fresh words.  With `history` each level writes a new
+    buffer instead (every covered row written, the rest zeroed in the same
+    launch), kept in `hist` as the level's fresh words while the level
+    finds a fresh lane."""
+
+    def __init__(self, ell, sources, by_range: bool, levels_dtype=None,
+                 history: bool = False):
+        dev = ell_device(ell)
+        n = ell.n
+        self.plan = ell_level_plan(ell, dev, by_range)
+        self.k = len(sources)
+        _W, self.visited, self.frontier, self.levels = packed_init(
+            n, sources, dev, levels_dtype)
+        self.sources = np.asarray([int(s) for s in sources], np.int64)
+        self.nz = roots_bitmap(n, self.sources, dev)
+        self.nz_spare = torch.zeros_like(self.nz)
+        W = self.visited.shape[1]
+        self.alive = None  # the live-lane ring: row 2 the roots' lanes
+        if alive_fits(W):
+            self.alive = torch.zeros((3, W), dtype=torch.int32, device=dev)
+            self.alive[2] = _lane_words(W, self.k, dev)
+        self.spare = None if history else torch.zeros_like(self.visited)
+        self.hist = [] if history else None
+        self.ctl = torch.zeros((2, ELL_CTL), dtype=torch.int64, device=dev)
+        self.depth = 0
+        self.rows = len(np.unique(self.sources))  # the frontier's nonzero
+        self._out = None
+
+    def bitmap_choice(self) -> bool:
+        return ell_bitmap_pays(self.rows, self.plan.n)
+
+    def launch(self, bitmap: bool | None = None, count: bool = False) -> None:
+        """Launch the level (the nonzero-row test as `bitmap_choice` says,
+        or forced on or off; with `count` the kernel's walk counts too);
+        `finish` completes it."""
+        if bitmap is None:
+            bitmap = self.bitmap_choice()
+        history = self.hist is not None
+        out = torch.empty_like(self.visited) if history else self.spare
+        self._out = out
+        ell_level(self.plan, self.frontier, self.visited, out, self.nz_spare,
+                  self.nz if bitmap else None, not history, self.ctl,
+                  self.depth, self.k, self.alive, count)
+
+    def finish(self) -> bool:
+        """K17 into the levels (where kept), the level's one read, the
+        buffers swapped; True while the level found a fresh lane."""
+        out, n = self._out, self.plan.n
+        if self.levels is not None:
+            packed_levels(out, self.levels, self.depth)
+        rows = int(self.ctl[self.depth & 1, 0])
+        if self.depth == 0:
+            self.nz.zero_()  # the roots' bitmap becomes the next out's
+            if self.hist is None:  # the roots' buffer takes level 2
+                self.frontier[torch.from_numpy(self.sources).to(
+                    self.frontier.device)] = 0
+        if self.hist is None:
+            self.spare = self.frontier
+        elif rows:
+            self.hist.append(out[:n])
+        self.frontier, self._out = out, None
+        self.nz, self.nz_spare = self.nz_spare, self.nz
+        self.depth += 1
+        self.rows = rows
+        return rows > 0
+
+    def step(self, bitmap: bool | None = None) -> bool:
+        self.launch(bitmap)
+        return self.finish()
 
 
 def bfs_multi_ell(ell, sources, max_depth=None) -> torch.Tensor:
@@ -775,18 +1145,11 @@ def bfs_multi_ell(ell, sources, max_depth=None) -> torch.Tensor:
     32 lanes a word) with a host level loop: (n, k) int32 levels, UNREACHED
     where not found.  Runs where the buckets lie (the card for numpy
     buckets)."""
-    dev = ell_device(ell)
-    n = ell.n
-    _W, visited, frontier, levels = packed_init(n, sources, dev,
-                                                 torch.int32)
-    parts = ell_reach_parts(ell, dev, by_range=False)
-    reach = torch.zeros_like(visited)
-    depth = 0
+    run = EllBfs(ell, sources, by_range=False, levels_dtype=torch.int32)
     while True:
-        alive = _ell_level(parts, frontier, visited, reach, levels, depth)
-        depth += 1
-        if not alive or (max_depth is not None and depth >= max_depth):
-            return levels
+        alive = run.step()
+        if not alive or (max_depth is not None and run.depth >= max_depth):
+            return run.levels
 
 
 def bfs_multi_ell_sorted(ell, sources, fused=True, max_depth=None):
@@ -794,19 +1157,13 @@ def bfs_multi_ell_sorted(ell, sources, fused=True, max_depth=None):
     Returns (visited (n+1, W) int32, levels (n, k) int8, 127 = unreached).
     fused=True is the reference's one-dispatch form: at most `max_depth or
     64` levels; fused=False its host-stepped form, cut at max_depth only.
-    Both read one flag a level here."""
-    dev = ell_device(ell)
-    _W, visited, frontier, levels = packed_init(ell.n, sources, dev,
-                                                 torch.int8)
-    parts = ell_reach_parts(ell, dev, by_range=True)
-    reach = torch.zeros_like(visited)
+    Both read one count a level here."""
+    run = EllBfs(ell, sources, by_range=True, levels_dtype=torch.int8)
     cap = (max_depth or 64) if fused else max_depth
-    depth = 0
     while True:
-        alive = _ell_level(parts, frontier, visited, reach, levels, depth)
-        depth += 1
-        if not alive or (cap is not None and depth >= cap):
-            return visited, levels
+        alive = run.step()
+        if not alive or (cap is not None and run.depth >= cap):
+            return run.visited, run.levels
 
 
 class PackedBfsResult:
@@ -854,26 +1211,20 @@ def bfs_multi_ell_packed(ell, sources, max_levels=16,
     everything packed.  fused=True runs levels in runs of up to
     `max_levels`, continuing while a run ends at its cap with a live
     frontier (the reference's dispatches); fused=False steps level by
-    level.  Either way it stops at the first level with no fresh lane."""
-    dev = ell_device(ell)
-    n = ell.n
-    _W, visited, frontier, _ = packed_init(n, sources, dev)
-    parts = ell_reach_parts(ell, dev, by_range=True)
-    reach = torch.zeros_like(visited)
-    hist = []
+    level.  Either way it stops at the first level with no fresh lane.
+    Each level's fresh words are the buffer its launch wrote (no copy)."""
+    run = EllBfs(ell, sources, by_range=True, history=True)
     total = 0
     while True:
         d = 0
         while True:
-            alive = _ell_level(parts, frontier, visited, reach, None, d)
+            alive = run.step()
             d += 1
-            if alive:
-                hist.append(frontier[:n].clone())
             if not alive or (fused and d >= max_levels):
                 break
         total += d
         if not alive or d < max_levels:
-            return PackedBfsResult(visited, hist, total, sources)
+            return PackedBfsResult(run.visited, run.hist, total, sources)
 
 
 _PACKED_LEVELS = _cuda.Entry("fk_packed_levels", "packed_levels")
@@ -920,6 +1271,8 @@ def packed_levels_plain(fresh, levels, depth: int,
     `block_elems` lanes so that the unpacked bits stay small."""
     n, k = levels.shape
     W = fresh.shape[1]
+    if not k:  # no lane: nothing to set (and no bits to unpack)
+        return levels
     unreached = UNREACHED8 if levels.dtype == torch.int8 else UNREACHED
     value = _level_value(levels.dtype, depth)
     shifts = torch.arange(32, dtype=torch.int32, device=fresh.device)

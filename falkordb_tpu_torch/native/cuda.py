@@ -18,7 +18,8 @@ kernel's host share down: direct device tests, one inline test a tensor
 whose message is built only when it fails, the entry point bound once, and
 `torch.cuda.device` entered only when the tensors' card is not the current
 one.  K1, K2, K4, K5, K6, K7's sweep, K8, K9's level form, K14, K16, K17,
-K22, K23, K24, K26, K27's `double` and K30 take it; the other wrappers
+K22, K23, K24, K26, K27's `double`, K30 and the ELL family's fused level
+take it; the other wrappers
 still take `on_cuda`, `check_input` and a `lib()` lookup a call.
 K1, K4, K5, K6, K7's sweep, K8 and K16, cooperative launches, keep their
 grid barrier's words and their result's pinned staging per card
@@ -98,6 +99,8 @@ KERNELS = {
                "falkordb_tpu/algos/bfs.py:89"),
         Kernel("packed_levels", "falkordb_tpu_torch/csrc/packed_levels.cu",
                "falkordb_tpu/algos/bfs.py:287"),
+        Kernel("ell_level", "falkordb_tpu_torch/csrc/ell_level.cu",
+               "falkordb_tpu/algos/bfs.py:197"),
         Kernel("ell_pagerank", "falkordb_tpu_torch/csrc/ell_pagerank.cu",
                "falkordb_tpu/algos/pagerank.py:62"),
         Kernel("ell_mxv", "falkordb_tpu_torch/csrc/semiring_ell.cu",
@@ -190,6 +193,8 @@ _SIGNATURES = {
                      _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                      _I64, _P, _P, _OUT_I64, _OUT_I32, _P],
     "fk_packed_levels": [_P, _I64, _I64, _P, _I64, _I64, _I64, _P],
+    "fk_ell_level": [_P, _I64, _I64, _P, _P, _P, _P, _P, _INT, _I64, _I64,
+                     _I64, _I64, _P, _P, _P, _P, _I64, _I64, _INT, _P],
     "fk_ell_pagerank_prep": [_P, _P, _P, _I64, _P, _P, _I64, _P, _I64, _P,
                              _P],
     "fk_ell_rows": [_P, _I64, _I64, _P, _I64, _P, _P, _P, _P],

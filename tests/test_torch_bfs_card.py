@@ -25,6 +25,18 @@ column past n before their sentinel, and a form of over 64 buckets (two `rows`
 launches).  Every form has buckets whose row counts are not multiples of 32.
 `k18_cases` also serves tests/test_torch_probes_card.py's ell_spmv test.
 
+The ELL family's fused level (algos/bfs.py `ell_level`, `EllBfs`;
+csrc/ell_level.cu) over an RMAT-12 graph with a hub row past a segment,
+rows no bucket covers, the sentinel column and, in the unsorted form, an
+id outside 0..n: the three drivers' stepper on the card against the plain
+versions on the CPU at every level (64, 96 and 2048 lanes, the nonzero-row
+test as chosen and forced off), bit for bit, one launch a level and no K9
+or K10 launch; one level at every lane count from 1 to 2048 into a known
+and a fresh buffer, with the live-lane ring, the same bits on a second
+call and, at five counts, the kernel's walk counts equal to
+`ell_level_walk`'s (tests/torch_ell_walk.py); k = 0, isolated roots,
+n = 0 and a bucket-free graph.
+
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
 and tests/conftest.py does, so run it there with the conftest off:
@@ -49,6 +61,7 @@ from falkordb_tpu_torch.native import cuda
 from falkordb_tpu_torch.sparse.csr import CSR
 from falkordb_tpu_torch.sparse.ell import (build_blocked_ell,
                                            build_blocked_ell_sorted)
+from torch_ell_walk import ell_level_walk
 
 HUB = 140_000  # in-edges of node 5: a one-row bucket wider than 131,072
 
@@ -546,3 +559,214 @@ def test_card_packed_levels_misaligned_and_empty(dev):
                                                         device=dev)
             assert tbfs.packed_levels(f, lv, 0).shape == shape
     assert cuda.KERNELS["packed_levels"].launches == 6
+
+
+# -- the ELL family's fused level (csrc/ell_level.cu) ---------------------------------
+
+
+def fused_graph(scale=12, seed=5, hub=2600):
+    """An RMAT graph (bench_port.rmat_edges) with `hub` more edges into
+    node 3 (an in-row past ELL_SEGMENT): (n, the transpose's indptr and
+    cols, the degree-sorted transpose's, the relabelling, the isolated
+    nodes)."""
+    import bench_port
+
+    src, dst, n = bench_port.rmat_edges(scale, seed=seed)
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([src, rng.integers(0, n, hub)])
+    dst = np.concatenate([dst, np.full(hub, 3)])
+    isolated = np.setdiff1d(np.arange(n), np.concatenate([src, dst]))
+    ip, cols = _transpose(src, dst, n)
+    deg = np.diff(ip)
+    perm = np.argsort(-deg, kind="stable")
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    ips, cs = _transpose(inv[src], inv[dst], n)
+    return n, (ip, cols), (ips, cs), inv, isolated
+
+
+def fused_ells(dev, form, graph=None):
+    """The form's ELL twice, built on the card and on the CPU from the same
+    arrays: the unsorted one with bucket 1's first row renamed to node
+    n + 7 (an id outside 0..n)."""
+    n, raw, srt, inv, isolated = graph or fused_graph()
+    out = []
+    for where in (dev, "cpu"):
+        if form == "unsorted":
+            ell = build_blocked_ell(*raw, n, device=where)
+            ids = ell.buckets[1].node_ids.clone()
+            ids[0] = n + 7
+            ell.buckets[1].node_ids = ids
+        else:
+            ell = build_blocked_ell_sorted(*srt, n, device=where)
+        out.append(ell)
+    relabel = (lambda r: r) if form == "unsorted" else (lambda r: int(inv[r]))
+    return n, out[0], out[1], relabel, isolated
+
+
+def _roots(k, n, isolated, relabel, seed=1):
+    roots = np.random.default_rng(seed).integers(0, n, k)
+    roots[1:3] = isolated[:2]
+    return [relabel(int(r)) for r in roots]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitmap", [None, False])
+@pytest.mark.parametrize("k", [64, 96, 2048])
+@pytest.mark.parametrize("form", ["unsorted", "sorted", "packed"])
+def test_card_ell_bfs_matches_plain_at_every_level(dev, form, k, bitmap):
+    """EllBfs on the card (one `ell_level` launch a level, K17 for the
+    forms with levels) against EllBfs on the CPU (the plain versions) over
+    the same ELL form: visited, the frontier, levels, each level's history
+    row and count, at every level, with the nonzero-row test as chosen and
+    forced off; one ell_level launch a level and no K9 or K10 launch."""
+    n, ell_k, ell_p, relabel, isolated = fused_ells(dev, "unsorted"
+                                                    if form == "unsorted"
+                                                    else "sorted")
+    roots = _roots(k, n, isolated, relabel)
+    kw = dict(by_range=form != "unsorted", history=form == "packed",
+              levels_dtype={"unsorted": torch.int32, "sorted": torch.int8,
+                            "packed": None}[form])
+    run_k = tbfs.EllBfs(ell_k, roots, **kw)
+    run_p = tbfs.EllBfs(ell_p, roots, **kw)
+    assert run_k.plan.hub_rows >= 1
+    cuda.reset_launches()
+    while True:
+        alive = run_k.step(bitmap)
+        assert alive == run_p.step() and run_k.rows == run_p.rows
+        assert torch.equal(run_k.visited.cpu(), run_p.visited), run_k.depth
+        assert torch.equal(run_k.frontier.cpu(), run_p.frontier)
+        if run_p.levels is not None:
+            assert torch.equal(run_k.levels.cpu(), run_p.levels)
+        assert torch.equal(run_k.nz.cpu(), run_p.nz)
+        if not alive:
+            break
+    assert run_k.depth > 3
+    if form == "packed":
+        assert len(run_k.hist) == len(run_p.hist) == run_k.depth - 1
+        for a, b in zip(run_k.hist, run_p.hist):
+            assert torch.equal(a.cpu(), b)
+    assert cuda.KERNELS["ell_level"].launches == run_k.depth
+    for name in ("packed_chunk_reach", "packed_sparse_reach",
+                 "packed_epilogue"):
+        assert cuda.KERNELS[name].launches == 0, name
+    scratch = run_k.plan.scratch[4 * -(-k // 32)]
+    assert not scratch[0].any() and not scratch[1].any()
+
+
+def _level_state(n, W, k, seed, dev):
+    """A random level's state on the card: visited (a third of its rows all
+    ones in the real lanes), a sparse frontier, old out rows with their
+    bitmap; bits past lane k zero."""
+    g = torch.Generator().manual_seed(seed)
+    real = tbfs._lane_words(W, k, "cpu")
+    vis = torch.randint(-2**31, 2**31, (n + 1, W), dtype=torch.int64,
+                        generator=g).to(torch.int32) & real
+    vis[torch.rand(n + 1, generator=g) < 0.33] = real
+    front = torch.randint(-2**31, 2**31, (n + 1, W), dtype=torch.int64,
+                          generator=g).to(torch.int32) & real
+    front[torch.rand(n + 1, generator=g) < 0.7] = 0
+    old = torch.randint(-2**31, 2**31, (n + 1, W), dtype=torch.int64,
+                        generator=g).to(torch.int32) & real
+    old[torch.rand(n + 1, generator=g) < 0.5] = 0
+    vis[n] = front[n] = old[n] = 0
+    return [t.to(dev) for t in (vis, front, old)]
+
+
+def _hold_one_level(plan, n, W, k, seed, dev, known, count=False):
+    from falkordb_tpu_torch.algos import bfs_packed as tbp
+
+    vis, front, old = _level_state(n, W, k, seed, dev)
+    nz = tbp.nonzero_rows(front)
+    if known:  # the rows no bucket covers stay zero in both buffers
+        old[plan.tail:] = 0
+    else:  # a fresh buffer: whatever it holds is overwritten
+        old = torch.full_like(old, -1)
+    ring = None
+    if tbfs.alive_fits(W):  # depth 1 reads row 0: the frontier's lanes
+        ring = torch.full((3, W), -1, dtype=torch.int32, device=dev)
+        ring[0] = tbp.or_reduce(front, 0)
+        ring[1] = 0
+    outs = []
+    for fn in (tbfs.ell_level, tbfs.ell_level_plain, tbfs.ell_level):
+        v, o = vis.clone(), old.clone()
+        nzo = tbp.nonzero_rows(o) if known else torch.zeros_like(nz)
+        ctl = torch.zeros((2, tbfs.ELL_CTL), dtype=torch.int64, device=dev)
+        ctl[0] = 5
+        a = None if ring is None else ring.clone()
+        kw = {"count": count} if fn is tbfs.ell_level else {}
+        fn(plan, front, v, o, nzo, nz, known, ctl, 1, k, a, **kw)
+        outs.append((v, o, nzo, ctl) + (() if a is None else (a,)))
+    torch.cuda.synchronize()
+    what = f"k={k} known={known}"
+    for i, name in enumerate(("visited", "out", "bitmap", "counts",
+                              "alive")[:len(outs[0])]):
+        a, b = outs[0][i], outs[1][i]
+        if name == "counts":
+            a, b = a[:, :2], b[:, :2]
+        assert torch.equal(a, b), (what, name)
+        assert torch.equal(outs[0][i], outs[2][i]), (what, name, "again")
+    ctl = outs[0][3]
+    assert (ctl[0] == 0).all(), what
+    if count:
+        fresh, counts, _reads = ell_level_walk(
+            plan, front, vis, nz, k, unit=8 if (4 * W) % 8 == 0 else 4,
+            live=None if ring is None else ring[0])
+        assert np.array_equal(fresh, outs[0][1].cpu().numpy()), what
+        assert ctl[1, :5].tolist() == counts, what
+
+
+@pytest.mark.cuda
+def test_card_ell_level_every_lane_count(dev):
+    """One level from a random state, kernel against ell_level_plain on
+    the same card tensors, at every lane count from 1 to 2048 (a partial
+    last word at most), with out known (old rows, their bitmap kept) and
+    fresh; the same bits on a second call; at a few counts (`count`) the
+    kernel's walk counts equal ell_level_walk's."""
+    n, _k, _p, _r, _i = fused_ells(dev, "sorted", fused_graph(scale=10,
+                                                              hub=2300))
+    ell = _k
+    plan = tbfs.ell_level_plan(ell, dev, by_range=True)
+    assert plan.hub_rows >= 1
+    for k in range(1, 2049):
+        W = -(-k // 32)
+        _hold_one_level(plan, n, W, k, k, dev, known=k % 2 == 0)
+    for k in (1, 33, 64, 96, 2048):
+        for known in (True, False):
+            _hold_one_level(plan, n, -(-k // 32), k, 7 * k, dev, known, True)
+
+
+@pytest.mark.cuda
+def test_card_ell_level_edge_cases(dev):
+    """k = 0 and an empty frontier after the roots (isolated roots: no
+    bucket row names them) on the card against the plain versions, and
+    n = 0 and a bucket-free graph (whose drivers run on the card, there
+    being no bucket to say otherwise) against the roots' own state: one
+    level that finds nothing, one launch."""
+    n, ell, cpu, relabel, isolated = fused_ells(dev, "sorted",
+                                                fused_graph(scale=9, hub=10))
+    iso = [relabel(int(r)) for r in isolated[:40]]
+    for what, roots in (("k = 0", []), ("isolated roots", iso)):
+        cuda.reset_launches()
+        got = tbfs.bfs_multi_ell_packed(ell, roots)
+        want = tbfs.bfs_multi_ell_packed(cpu, roots)
+        assert got.nlevels == want.nlevels == 1 and not got.hist, what
+        assert torch.equal(got.visited.cpu(), want.visited), what
+        assert cuda.KERNELS["ell_level"].launches == 1, what
+        for fn in (tbfs.bfs_multi_ell_sorted, tbfs.bfs_multi_ell):
+            g, w = fn(ell, roots), fn(cpu, roots)
+            for a, b in zip(g if isinstance(g, tuple) else (g,),
+                            w if isinstance(w, tuple) else (w,)):
+                assert torch.equal(a.cpu(), b), (what, fn.__name__)
+    for what, m, roots in (("n = 0", 0, []), ("no bucket", 100, [0, 5, 99])):
+        bare = build_blocked_ell_sorted(np.zeros(m + 1, np.int64),
+                                        np.zeros(0, np.int32), m, device=dev)
+        assert not bare.buckets
+        _W, v0, _f, lv0 = tbfs.packed_init(m, roots, dev, torch.int8)
+        cuda.reset_launches()
+        got = tbfs.bfs_multi_ell_packed(bare, roots)
+        assert got.nlevels == 1 and not got.hist, what
+        assert torch.equal(got.visited, v0), what
+        v, lv = tbfs.bfs_multi_ell_sorted(bare, roots)
+        assert torch.equal(v, v0) and torch.equal(lv, lv0), what
+        assert cuda.KERNELS["ell_level"].launches == 2, what

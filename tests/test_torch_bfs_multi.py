@@ -34,6 +34,7 @@ from falkordb_tpu.algos.harmonic import harmonic_centrality as jax_harmonic
 from falkordb_tpu.sparse import ell as jell
 from falkordb_tpu.sparse.csr import CSR as JaxCSR
 from falkordb_tpu_torch.algos import bfs as tbfs
+from falkordb_tpu_torch.algos import bfs_packed as tbp
 from falkordb_tpu_torch.algos import pagerank as tpr
 from falkordb_tpu_torch.algos.harmonic import (harmonic_centrality,
                                                harmonic_sums)
@@ -379,6 +380,199 @@ def test_ell_roots_must_lie_in_the_graph():
     _jl, tl, _inv, _s, _d = _sorted_case(9, 300, 1400, 0, (4, 16, 64))
     with pytest.raises(ValueError, match="roots"):
         tbfs.bfs_multi_ell_sorted(tl, [0, 300])
+
+
+# -- the fused ELL level (ell_level, csrc/ell_level.cu) -------------------------------
+
+
+def fused_case(scale=11, seed=5, hub=2100):
+    """An RMAT graph (bench_port.rmat_edges) with `hub` more edges into
+    node 3 (an in-row wider than a segment, ELL_SEGMENT = 2048): its
+    transpose ELL built by both packages, unsorted (bucket 1's first
+    row renamed to node n + 7, an id outside 0..n) and degree-sorted,
+    with the isolated nodes (no edge either way) in both id spaces."""
+    src, dst, n = bench_port.rmat_edges(scale, seed=seed)
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([src, rng.integers(0, n, hub)])
+    dst = np.concatenate([dst, np.full(hub, 3)])
+    isolated = np.setdiff1d(np.arange(n), np.concatenate([src, dst]))
+    at = JaxCSR.from_coo_numpy(dst, src, None, shape=(n, n), dedup=False)
+    ip, cols = np.asarray(at.indptr), np.asarray(at.cols)[: int(at.nnz)]
+    ju = jell.build_blocked_ell(ip, cols, n)
+    tu = tell.build_blocked_ell(ip, cols, n, device="cpu")
+    for b in (ju.buckets[1], tu.buckets[1]):
+        ids = np.array(b.node_ids, dtype=np.int32)
+        ids[0] = n + 7
+        b.node_ids = ids if b is ju.buckets[1] else torch.from_numpy(ids)
+    perm = jell.degree_sort_permutation(ip)
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    ats = JaxCSR.from_coo_numpy(inv[dst], inv[src], None, shape=(n, n),
+                                dedup=False)
+    ips, cs = np.asarray(ats.indptr), np.asarray(ats.cols)[: int(ats.nnz)]
+    js = jell.build_blocked_ell_sorted(ips, cs, n)
+    ts = tell.build_blocked_ell_sorted(ips, cs, n, device="cpu")
+    assert max(b.width for b in ts.buckets) > tbfs.ELL_SEGMENT
+    return n, (ju, tu), (js, ts), isolated, inv
+
+
+def fused_scale(k):
+    """The RMAT scale of a case of k lanes: 2048 lanes at scale 10 (the
+    hub row still crosses a segment), fewer at 11."""
+    return 10 if k > 1024 else 11
+
+
+def fused_roots(k, n, isolated, seed=1):
+    """k roots (repeats past n), the first two isolated nodes among them."""
+    roots = np.random.default_rng(seed).integers(0, n, k)
+    roots[1:3] = isolated[:2]
+    return [int(r) for r in roots]
+
+
+@pytest.mark.parametrize("k", [64, 96, 2048])
+@pytest.mark.parametrize("form", ["unsorted", "sorted", "packed"])
+def test_ell_level_plain_matches_jax_level_by_level(form, k):
+    """Each level of the three ELL forms through the port's stepper on the
+    plain version (ell_level_plain, K17) against the JAX package's level
+    functions (`_make_ell_level_fn`, `_make_sorted_level_fn`,
+    `_make_packed_level_fn`) from the same state: visited, the next
+    frontier, levels and the alive flag bit for bit, at every level."""
+    n, unsorted, sorted_, isolated, inv = fused_case(fused_scale(k))
+    jl, tl = unsorted if form == "unsorted" else sorted_
+    roots = fused_roots(k, n, isolated)
+    if form != "unsorted":
+        roots = [int(inv[r]) for r in roots]
+    W = -(-k // 32)
+    if form == "unsorted":
+        jv, jf, jlv = jbfs._packed_init(n, roots)[1:]
+        jlv = np.where(jlv == 0, 0, 2 ** 30).astype(np.int32)
+        step = jbfs._make_ell_level_fn(jl, W, None)
+        run = tbfs.EllBfs(tl, roots, by_range=False,
+                          levels_dtype=torch.int32)
+    elif form == "sorted":
+        jv, jf, jlv = jbfs._packed_init(n, roots)[1:]
+        step = jbfs._make_sorted_level_fn(jl, W, k)
+        run = tbfs.EllBfs(tl, roots, by_range=True, levels_dtype=torch.int8)
+    else:
+        jv, jf = jbfs._packed_init(n, roots)[1:3]
+        pstep = jbfs._make_packed_level_fn(jl, W)
+        run = tbfs.EllBfs(tl, roots, by_range=True, history=True)
+    jv, jf = jnp.asarray(jv), jnp.asarray(jf)
+    jlv = None if form == "packed" else jnp.asarray(jlv)
+    depth = 0
+    while True:
+        if form == "packed":
+            jv, jf, alive = pstep(jv, jf)
+        else:
+            jv, jf, jlv, alive = step(jv, jf, jlv, jnp.int32(depth))
+        got = run.step()
+        depth += 1
+        assert got == bool(alive), depth
+        np.testing.assert_array_equal(run.visited.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(run.frontier.numpy(), np.asarray(jf))
+        if jlv is not None:
+            np.testing.assert_array_equal(run.levels.numpy(),
+                                          np.asarray(jlv))
+        if not got:
+            break
+    assert depth > 3
+    if form == "packed":
+        assert len(run.hist) == depth - 1
+
+
+@pytest.mark.parametrize("k", [64, 96, 2048])
+def test_ell_drivers_match_jax(k):
+    """bfs_multi_ell (unsorted), bfs_multi_ell_sorted (fused, stepped and
+    cut at max_depth 2) and bfs_multi_ell_packed (fused in runs of 3,
+    stepped) against the JAX package's drivers on the fused case."""
+    n, (jul, tul), (jsl, tsl), isolated, inv = fused_case(fused_scale(k))
+    roots = fused_roots(k, n, isolated, seed=k)
+    np.testing.assert_array_equal(
+        tbfs.bfs_multi_ell(tul, roots).numpy(),
+        np.asarray(jbfs.bfs_multi_ell(jul, roots)))
+    sroots = [int(inv[r]) for r in roots]
+    for fused, max_depth in ((True, None), (False, None), (True, 2)):
+        jv, jlv = jbfs.bfs_multi_ell_sorted(jsl, sroots, fused=fused,
+                                            max_depth=max_depth)
+        tv, tlv = tbfs.bfs_multi_ell_sorted(tsl, sroots, fused=fused,
+                                            max_depth=max_depth)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(tlv.numpy(), np.asarray(jlv))
+    for fused, max_levels in ((True, 3), (False, 16)):
+        want = jbfs.bfs_multi_ell_packed(jsl, sroots, max_levels=max_levels,
+                                         fused=fused)
+        got = tbfs.bfs_multi_ell_packed(tsl, sroots, max_levels=max_levels,
+                                        fused=fused)
+        assert got.nlevels == want.nlevels
+        np.testing.assert_array_equal(got.visited.numpy(),
+                                      np.asarray(want.visited))
+        for lane in (0, 1, 2, k - 1):
+            np.testing.assert_array_equal(
+                got.levels_for_lane(lane).numpy(),
+                np.asarray(want.levels_for_lane(lane)))
+
+
+def test_ell_drivers_take_no_lanes():
+    """k = 0: one level that finds nothing, (n, 0) levels; the plain unpack
+    (K17's) takes a row of no words."""
+    n, (_ju, tu), (_js, ts), _iso, _inv = fused_case(scale=9)
+    assert tbfs.bfs_multi_ell(tu, []).shape == (n, 0)
+    v, lv = tbfs.bfs_multi_ell_sorted(ts, [])
+    assert v.shape == (n + 1, 0) and lv.shape == (n, 0)
+    res = tbfs.bfs_multi_ell_packed(ts, [])
+    assert res.nlevels == 1 and not res.hist
+
+
+def test_ell_level_plan_is_cut_once_a_form():
+    """The plan is cached on the ELL form, one a (device, form); a sorted
+    form's ranges give its uncovered tail; repeated ids keep their last
+    row."""
+    n, (_ju, tu), (_js, ts), _iso, _inv = fused_case()
+    p = tbfs.ell_level_plan(ts, "cpu", by_range=True)
+    assert tbfs.ell_level_plan(ts, "cpu", by_range=True) is p
+    assert tbfs.ell_level_plan(ts, "cpu", by_range=False) is not p
+    assert p.tail == sum(b.cols.shape[0] for b in ts.buckets) < n
+    assert p.hub_rows >= 1 and p.items == sum(
+        r * max(1, -(-c.shape[1] // tbfs.ELL_SEGMENT))
+        for c, r, _o, _i in p.parts)
+    pu = tbfs.ell_level_plan(tu, "cpu", by_range=False)
+    assert pu.tail is None
+    ell = tell.BlockedEll(5, 5, [
+        tell.EllBucket(torch.tensor([1, 3], dtype=torch.int32),
+                       torch.tensor([[0, 5], [2, 4]], dtype=torch.int32), 2),
+        tell.EllBucket(torch.tensor([3], dtype=torch.int32),
+                       torch.tensor([[1, 5]], dtype=torch.int32), 2)], 6, 4)
+    dup = tbfs.ell_level_plan(ell, "cpu", by_range=False)
+    assert [p[3].tolist() for p in dup.parts] == [[1, -1], [3]]
+    with pytest.raises(ValueError, match="range"):
+        tbfs.ell_level_plan(ell, "cpu", by_range=True)
+
+
+def test_ell_level_plain_counts_and_bitmap():
+    """ell_level_plain's counts (rows gaining bits, named rows with no lane
+    left), out's bitmap, the other control slot zeroed, and the real lanes
+    alone: a partial last word keeps its other bits 0."""
+    n, _u, (_js, ts), _iso, inv = fused_case()
+    plan = tbfs.ell_level_plan(ts, "cpu", by_range=True)
+    k = 40
+    roots = [int(r) for r in np.random.default_rng(2).integers(0, n, k)]
+    _W, visited, frontier, _ = tbfs.packed_init(n, roots, "cpu")
+    visited[5:300] = -1  # rows with no lane left: 5..299 among them
+    ctl = torch.full((2, tbfs.ELL_CTL), 9, dtype=torch.int64)
+    ctl[1] = 0
+    out = torch.empty_like(visited)
+    nz_out = torch.zeros(-(-(n + 1) // 32), dtype=torch.int32)
+    before = visited.clone()
+    tbfs.ell_level_plain(plan, frontier, visited, out, nz_out, None, False,
+                         ctl, 1, k)
+    fresh = out[:n]
+    assert torch.equal(visited[:n], before[:n] | fresh)
+    assert not (fresh & ~before[:n] != fresh).any()
+    assert int(ctl[1, 0]) == int((fresh != 0).any(1).sum()) > 0
+    assert int(ctl[1, 1]) == 295  # 5..299 lie in the covered head
+    assert (ctl[0] == 0).all() and (ctl[1, 2:] == 0).all()
+    assert torch.equal(nz_out, tbp.nonzero_rows(out))
+    assert ((out[:, 1].view(torch.int32) >> 8) == 0).all()  # lanes 40..63
 
 
 # -- K17: the level unpack ------------------------------------------------------------

@@ -493,3 +493,84 @@ def test_k20_sums_in_the_kernels_order_match_jax():
     plain = tops.ell_reduce_plain(tsr.PLUS_TIMES_F32, form,
                                   torch.from_numpy(B), n_rows, n_cols)
     np.testing.assert_allclose(got, plain.numpy(), rtol=1e-6, atol=0)
+
+
+# -- the ELL family's fused level: ell_level_plan and the kernel's walk ------------
+
+
+def fused_states(ell, roots, by_range, levels=4):
+    """The state before each of the first `levels` levels of the plain BFS
+    over `ell` from `roots`: (frontier, visited, nonzero bitmap) copies."""
+    from falkordb_tpu_torch.algos import bfs as tbfs
+
+    run = tbfs.EllBfs(ell, roots, by_range=by_range)
+    out = []
+    for _ in range(levels):
+        out.append((run.frontier.clone(), run.visited.clone(),
+                    run.nz.clone()))
+        if not run.step():
+            break
+    return run.plan, out
+
+
+@pytest.mark.parametrize("form", ["sorted", "unsorted"])
+@pytest.mark.parametrize("k", [64, 96])
+def test_fused_level_walk_reads_every_live_slot_once(form, k):
+    """ell_level_walk, the kernel's walk of a level over ell_level_plan's
+    items (hub rows in segments of ELL_SEGMENT columns, 32 indices a batch,
+    8 gathers between votes, the sentinel and zero frontier rows skipped),
+    at every level of an RMAT-11 BFS with a hub row past a segment: without
+    the early stop it reads each column slot of each row with a lane left
+    exactly once and no other; with it, each at most once; either way its
+    fresh words and counts are the plain level's (JAX-held in
+    tests/test_torch_bfs_multi.py), with and without the bitmap."""
+    from falkordb_tpu_torch.algos import bfs as tbfs
+    from torch_ell_walk import ell_level_walk
+
+    src, dst, n, indptr, cols = rmat_transpose(scale=11)
+    roots = [int(r) for r in np.random.default_rng(k).integers(0, n, k)]
+    if form == "sorted":
+        deg = np.diff(indptr)
+        perm = np.argsort(-deg, kind="stable")
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        order = np.lexsort((inv[src], inv[dst]))
+        ip = np.concatenate([[0], np.bincount(inv[dst], minlength=n)
+                             .cumsum()])
+        ell = build_blocked_ell_sorted(ip, inv[src][order].astype(np.int32),
+                                       n, device="cpu")
+        roots = [int(inv[r]) for r in roots]
+    else:
+        ell = build_blocked_ell(indptr, cols, n, device="cpu")
+    plan, states = fused_states(ell, roots, form == "sorted")
+    assert plan.hub_rows >= 1 and len(states) == 4
+    W = -(-k // 32)
+    unit = 8 if W % 2 == 0 else 4
+    for frontier, visited, nz in states:
+        out = torch.empty_like(visited)
+        ctl = torch.zeros((2, tbfs.ELL_CTL), dtype=torch.int64)
+        tbfs.ell_level_plain(plan, frontier, visited.clone(), out,
+                             torch.zeros_like(nz), None, True, ctl, 0, k)
+        want = out.numpy()
+        slots = {}
+        real = tbfs._lane_words(W, k, "cpu")
+        left = ((visited & real) != real).any(1).numpy()
+        for cols_t, rows, off, ids in plan.parts:
+            for r in range(rows):
+                d = off + r if ids is None else int(ids[r])
+                if 0 <= d < n and left[d]:
+                    for c in range(cols_t.shape[1]):
+                        slots[(d, c)] = 1
+        for bitmap in (None, nz):
+            full, counts, reads = ell_level_walk(
+                plan, frontier, visited, bitmap, k, unit, early_stop=False)
+            assert reads == slots
+            np.testing.assert_array_equal(full, want)
+            assert counts[:2] == ctl[0, :2].tolist()
+            got, stop_counts, stop_reads = ell_level_walk(
+                plan, frontier, visited, bitmap, k, unit)
+            assert set(stop_reads) <= set(slots)
+            assert set(stop_reads.values()) <= {1}
+            np.testing.assert_array_equal(got, want)
+            assert stop_counts[:2] == counts[:2]
+            assert stop_counts[3] <= counts[3]

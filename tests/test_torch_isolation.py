@@ -15,8 +15,9 @@ import falkordb_tpu_torch
 from falkordb_tpu_torch import FalkorDB
 from falkordb_tpu_torch.algos.betweenness import bc_sweeps, segment_sum_pull
 from falkordb_tpu_torch.algos.bfs import (
-    bfs_levels, bfs_multi, bfs_multi_stepped, bfs_parents, bfs_parents_run,
-    multi_bfs_level, multi_bfs_state, packed_levels,
+    bfs_levels, bfs_multi, bfs_multi_ell_packed, bfs_multi_stepped,
+    bfs_parents, bfs_parents_run, multi_bfs_level, multi_bfs_state,
+    packed_levels,
 )
 from falkordb_tpu_torch.algos.bfs_packed import (
     PackedChunk, chunk_reach, packed_counts, packed_epilogue, packed_seed,
@@ -40,6 +41,7 @@ from falkordb_tpu_torch.parallel.shard_ops import (
 from falkordb_tpu_torch.runtime.ops import group_partials, topk_smallest
 from falkordb_tpu_torch import sparse as S
 from falkordb_tpu_torch.sparse.csr import CSR
+from falkordb_tpu_torch.sparse.ell import build_blocked_ell_sorted
 from falkordb_tpu_torch.sparse.ops import expand
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -198,6 +200,8 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
     bfs_multi_stepped(at.transpose_host(), [2])
     packed_levels(torch.zeros((3, 1), dtype=torch.int32),
                   torch.full((2, 5), 127, dtype=torch.int8), 0)
+    ell = build_blocked_ell_sorted(at.indptr, at.cols, 3, device="cpu")
+    assert bfs_multi_ell_packed(ell, [0, 1]).nlevels > 1
     parts = [(torch.tensor([1], dtype=torch.int32),
               torch.tensor([[0], [3]], dtype=torch.int32))]
     ell_pagerank_step(parts, torch.ones(3), torch.ones(3), torch.zeros(3),
@@ -242,7 +246,7 @@ def test_wrappers_on_cpu_take_plain_path_without_launch():
         "packed_sparse_reach": 0, "packed_epilogue": 0, "packed_seed": 0,
         "packed_counts": 0, "kmeans_assign": 0, "kmeans_update": 0,
         "vector_scores": 0, "multi_bfs": 0, "packed_levels": 0,
-        "ell_pagerank": 0, "ell_mxv": 0, "ell_spmm": 0,
+        "ell_level": 0, "ell_pagerank": 0, "ell_mxv": 0, "ell_spmm": 0,
         "semiring_segment": 0, "ewise_mask": 0, "shard_expand": 0,
         "shard_reduce": 0, "mesh_bits": 0, "mesh_update": 0,
         "probe_stream": 0, "probe_take": 0, "probe_bittest": 0,

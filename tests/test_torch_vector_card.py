@@ -27,6 +27,10 @@ d), d past 128, empty lists (the last too), lists taken in IVF's unsorted
 order from thousands of lists, one list longer than a warp's run, total 0
 and 1.
 
+The exact store through the database (5,000 integer vectors of d = 24,
+50 queries at k = 10) on FalkorDB() against FalkorDB(device="cpu"), five
+rounds back to back: identical rows, ties in the same order.
+
 The kernels have no CPU mode, so these tests skip without a card.  This
 file imports neither JAX nor falkordb_tpu (the card's machine has no JAX),
 and tests/conftest.py does, so run it there with the conftest off:
@@ -318,3 +322,90 @@ def test_card_vector_scores_tiny_totals(metric, total, dev):
     empty = M[:0]
     assert hold_scores(empty, q, metric).shape == (0,)
     assert cuda.KERNELS["vector_scores"].launches == int(total > 0)
+
+
+# -- the exact store through the database: card rows against the CPU's -------------
+
+SMALL_ROUNDS = 5  # back-to-back rounds of the exact-store comparison
+ANN_CYPHER = ("CALL db.idx.vector.queryNodes('Item', 'emb', 10, vecf32($q)) "
+              "YIELD node, score RETURN node.id, score")
+
+
+def _small_store(db, M):
+    from falkordb_tpu_torch.runtime.value import VectorF32
+
+    g = db.select_graph("small_vectors")
+    g.bulk_insert(nodes=[(["Item"], len(M), {
+        "id": list(range(len(M))), "emb": [VectorF32(r) for r in M]})])
+    g.query(f"CREATE VECTOR INDEX FOR (x:Item) ON (x.emb) OPTIONS "
+            f"{{dimension: {M.shape[1]}, similarityFunction: 'euclidean'}}")
+    return g
+
+
+def _explain_scores(db, M, q, rows):
+    """What an exact store holds and scores for query q whose rows are not
+    the exact distances: the stored rows against M, then the scores of
+    the query's own path, of vector_scores_plain on the stored rows and of
+    float64, where they differ, and the terms of the first such row."""
+    impl = next(x.impl for x in db._get_or_create("small_vectors")
+                .indexes.values() if x.kind == "vector")
+    mat = impl.matrix[:impl.n]
+    host = mat.cpu().numpy()
+    lines = [f"device {impl.device} n {impl.n} rows {[tuple(r) for r in rows]}",
+             f"stored rows != M: {int((host != M[impl.ids]).any(1).sum())}"]
+    qd = torch.from_numpy(q).to(mat.device)
+    path = impl._scores(impl.matrix, qd)[:impl.n]
+    plain = vector_scores_plain(mat.cpu(), torch.from_numpy(q),
+                                "euclidean").numpy()
+    exact = np.sqrt(((host.astype(np.float64) - q) ** 2).sum(1))
+    for name, got in (("path", path), ("plain", plain)):
+        off = np.nonzero(np.abs(got - exact) > 1e-4)[0]
+        lines.append(f"{name}: {len(off)} rows off, first {off[:5].tolist()}")
+        if len(off):
+            r = int(off[0])
+            m = torch.from_numpy(host[r])
+            lines.append(f"  row {r}: got {float(got[r])!r} exact "
+                         f"{float(exact[r])!r} |m|^2 {float((m * m).sum())} "
+                         f"m.q {float(m @ torch.from_numpy(q))} |q|^2 "
+                         f"{float((torch.from_numpy(q) ** 2).sum())}")
+    return "\n".join(lines)
+
+
+@pytest.mark.cuda
+def test_card_small_exact_store_matches_the_cpu_database(dev):
+    """chip_smoke.py's small_vector_index, several times back to back: an
+    exact-store index (5,000 integer vectors of d = 24, under IVF_MIN) on
+    FalkorDB() and on FalkorDB(device="cpu"), 50 queries at k = 10 each
+    round.  Every float32 step is exact on integers, so ids, scores and
+    the order of ties must be identical, and the scores the exact
+    distances; a mismatch names what the store holds and scores."""
+    from falkordb_tpu_torch import FalkorDB
+
+    rng = np.random.default_rng(51)
+    n, d = 5000, 24
+    M = rng.integers(-8, 9, (n, d)).astype(np.float32)
+    Q = rng.integers(-8, 9, (50, d)).astype(np.float32)
+    db_card, db_cpu = FalkorDB(), FalkorDB(device="cpu")
+    g_card, g_cpu = _small_store(db_card, M), _small_store(db_cpu, M)
+    oracle = []
+    for q in Q:
+        d2 = ((M - q) ** 2).sum(1)  # exact in float32 here
+        oracle.append(np.sqrt(np.sort(d2)[:10]).tolist())
+    for rnd in range(SMALL_ROUNDS):
+        for what, db, g in (("cpu", db_cpu, g_cpu), ("card", db_card,
+                                                      g_card)):
+            got = [g.query(ANN_CYPHER, {"q": q.tolist()}).result_set
+                   for q in Q]
+            bad = [i for i, (rows, want) in enumerate(zip(got, oracle))
+                   if [r[1] for r in rows] != want]
+            assert not bad, (f"round {rnd}, {what}: queries {bad} off the "
+                             f"exact distances\n" + _explain_scores(
+                                 db, M, Q[bad[0]], got[bad[0]]))
+            if what == "cpu":
+                want = got
+            else:
+                bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+                assert not bad, (f"round {rnd}: card and CPU rows differ at "
+                                 f"{bad}: {got[bad[0]]} against "
+                                 f"{want[bad[0]]}")
+    assert cuda.KERNELS["vector_scores"].launches >= SMALL_ROUNDS * len(Q)
